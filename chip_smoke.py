@@ -20,11 +20,28 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    CG matrix in full-field form = K2), in float32 and float64, with
    median times;
 4. float64 on the card: the poisson50k golden of tests/test_golden.py
-   (10 iterations, norm 48.94285576880367 at rel 1e-9).
+   (10 iterations, norm 48.94285576880367 at rel 1e-9);
+5. the matrix-free cgpoisson path at the bench's sizes: ``python -m
+   tpufem_torch --problem_type cgpoisson --order 2|3 --ndofs 500000
+   --scaling_type strong --dtype float32``, which must launch the strip
+   kernel (K3, counted from zero around each run), run 100 iterations
+   and agree with tpufem's own float32 CPU run (CGPOISSON_REF);
+6. the strip kernel against its plain version on the P2 and P3
+   operators those runs built, in float32 and, with the same tables
+   cast, float64, with times;
+7. cgpoisson P3 at 150k with ``-cg_kernel off`` and then ``on``: the
+   whole-CG kernel (K4) must engage and launch, and the two solutions
+   agree; K4 against its plain version in float32 there and in float64
+   at a size within the residency gate;
+8. float64 goldens of the matrix-free path: cgpoisson15k of
+   tests/test_golden.py (P1 through the stencil kernel, 100 iterations,
+   norm 26.535020300527723 at rel 1e-9) and P3 at 9,025 dofs against
+   tpufem's CPU run (CGPOISSON_REF).
 
-The last two lines are a JSON record of the kernels and the card, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the repository around it, the script fails before printing either.
+The last lines are a JSON record of the kernels, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository around it, the script fails before
+printing them.  At its end it checks that ``tpufem`` was never imported.
 """
 
 from __future__ import annotations
@@ -45,6 +62,45 @@ GOLD_ARGS = ["--problem_type", "poisson", "--ndofs", "50000",
              "--scaling_type", "weak", "--dtype", "float64",
              "-ksp_rtol", "1e-8", "--device", "cuda"]
 GOLD_ITERATIONS, GOLD_NORM = 10, 48.94285576880367
+CG_ARGS = ["--problem_type", "cgpoisson", "--scaling_type", "strong",
+           "--dtype", "float32", "--device", "cuda"]
+CG15K_ARGS = ["--problem_type", "cgpoisson", "--ndofs", "15000",
+              "--dtype", "float64", "--device", "cuda"]
+CG15K_NORM = 26.535020300527723
+# tpufem's own matrix-free cgpoisson runs on the CPU (jax 0.9.0, x64 off
+# in float32, as tpufem's CLI runs it), from
+#   python scripts/cgpoisson_reference.py --order O --ndofs N \
+#       --scaling_type S --dtype D
+# (order, ndofs arg, scaling, dtype) -> (ndofs, iterations, rel, norm)
+CGPOISSON_REF = {
+    (2, 500000, "strong", "float32"): (510705, 100, 0.41542431712150574,
+                                       134.25605721102153),
+    (3, 500000, "strong", "float32"): (516913, 100, 0.6869486570358276,
+                                       106.23303603446594),
+    (3, 150000, "strong", "float32"): (146461, 100, 0.4011581242084503,
+                                       77.29297299152508),
+    (3, 10000, "weak", "float64"): (9025, 100, 0.00014496547881479667,
+                                    20.20326073714228),
+}
+# float32 after 100 CG steps depends on the summation order: tpufem's own
+# float32 CPU run sits 5.5e-4 (norm) and 1.9e-3 (rel) off its float64 run
+# at P3 150k, and 7.0e-4 / 2.1e-3 at P2 500k, while the port's float32 CPU
+# run sits within 4.5e-5 / 3.4e-4 of them; so the port's float32 run is
+# held to tpufem's float32 values within:
+CG_F32_NORM_TOL, CG_F32_REL_TOL = 3e-3, 1e-2
+# two float32 CG forms of one solve (K4 vs the split form, K4 vs its
+# plain version), norm-wise on x; 4.7e-5 measured on the CPU at P3 150k
+CG_F32_X_TOL = 1e-3
+# float64: the norm to rel 1e-9; the recurrence rel (1.45e-4 at P3 9,025
+# dofs) only to 1e-2: it moves by ~cond(A) times the rounding of x (the
+# port's CPU run sits 6.6e-4 off tpufem's, the card's run 2.8e-3 off,
+# with the norms within 1e-11)
+CG_F64_TOL, CG_F64_REL_TOL = 1e-9, 1e-2
+TOL_STRIP_F32 = 2e-5  # <= ~60 terms per element, other order: 60 eps
+TOL_STRIP_F64 = 1e-13
+# the card's published peaks (H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -179,6 +235,168 @@ def kernel_phase(problem, gpu: str):
     return rows, worst
 
 
+def bound_ms(nbytes: float, flops: float):
+    """(least time in ms, what bounds it): the bytes over the card's
+    memory rate against the operations over its float32 peak."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def stencil_work(fields, dims):
+    """(bytes, flops) of one stencil apply: x read and y written once,
+    the weight fields read once; one multiply-add per diagonal and point."""
+    Z, Y, X = dims
+    n, item = Z * Y * X, fields.element_size()
+    return 2 * n * item + fields.numel() * item, 2 * fields.shape[0] * n
+
+
+def strip_work(op):
+    """(bytes, flops) of one strip apply: x read and y written once, the
+    packs and plan tables read once; a multiply-add per plan entry, plane
+    and lane."""
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    item = op.mid_pack.element_size()
+    zk = [op.kdims[kind][0] for kind, _ in op.channels]
+    terms = sum(len(km) * zk[co] + len(kd)
+                for co, (km, kd) in enumerate(op.kplan))
+    nbytes = (2 * C * Zp * LW + op.mid_pack.numel() + op.dlt_pack.numel()
+              ) * item + sum(t.numel() * 4 for t in op.tables)
+    return nbytes, 2 * terms * TILE
+
+
+def strip_cg_work(op, iterations: int):
+    """(bytes, flops) of one whole-CG solve of ``iterations`` steps: b
+    read and x written once with the packs and tables; per step one
+    apply plus three dots and four vector updates over the buffer."""
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    nbytes, apply_flops = strip_work(op)
+    return nbytes + 8, iterations * (apply_flops + 14 * C * Zp * LW)
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def cgpoisson_run(cli, argv, ref_key, gpu: str):
+    """One cgpoisson CLI run with the strip kernels' counts set to zero
+    just before it and read just after; checked against tpufem's run."""
+    import torch
+    from tpufem_torch.fem.strip_op import StripOperator
+    from tpufem_torch.timing import REGISTRY
+    REGISTRY.reset()
+    StripOperator.apply_strips.launches = 0
+    StripOperator.cg_resident.launches = 0
+    res = cli.main(argv)
+    k3 = StripOperator.apply_strips.launches
+    k4 = StripOperator.cg_resident.launches
+    solver = res.problem.solver_function
+    ndofs, ref_it, ref_rel, ref_norm = CGPOISSON_REF[ref_key]
+    f32 = ref_key[3] == "float32"
+    norm_err = abs(res.norm - ref_norm) / ref_norm
+    rel_err = abs(solver.rel - ref_rel) / ref_rel
+    print(f"cgpoisson P{ref_key[0]} {ref_key[3]} {ndofs} dofs "
+          f"{' '.join(argv[argv.index('--ndofs'):])}: {res.iterations} "
+          f"iterations, rel {solver.rel!r} (tpufem {ref_rel!r}, off by "
+          f"{rel_err:.2e}), norm {res.norm!r} (tpufem {ref_norm!r}, off by "
+          f"{norm_err:.2e}); K3 launches {k3}, K4 launches {k4}, whole-CG "
+          f"kernel engaged {solver.cg_kernel_engaged}; {solver.gdofs:.4f} "
+          f"Gdof/s, {solver.solve_s:.6f} s per solve  [{gpu}]", flush=True)
+    check(res.problem.space.ndofs == ndofs,
+          f"{res.problem.space.ndofs} dofs, tpufem's run had {ndofs}")
+    check(res.iterations == ref_it,
+          f"{res.iterations} iterations, tpufem's run took {ref_it}")
+    check(res.x.shape == (ndofs,) and bool(torch.isfinite(res.x).all()),
+          "the solution is not a finite vector of ndofs")
+    check(norm_err <= (CG_F32_NORM_TOL if f32 else CG_F64_TOL),
+          f"norm off tpufem's by rel {norm_err:.2e}")
+    check(rel_err <= (CG_F32_REL_TOL if f32 else CG_F64_REL_TOL),
+          f"recurrence rel off tpufem's by rel {rel_err:.2e}")
+    return res, k3, k4
+
+
+def strip_kernel_phase(ops, gpu: str):
+    """K3 against its plain version on the operators the cgpoisson runs
+    built, in float32 and (same tables cast) float64."""
+    import dataclasses
+    import torch
+    rows, worst = [], 0.0
+    for dtype, tol in ((torch.float32, TOL_STRIP_F32),
+                       (torch.float64, TOL_STRIP_F64)):
+        for name, op32 in ops:
+            op = dataclasses.replace(op32, mid_pack=op32.mid_pack.to(dtype),
+                                     dlt_pack=op32.dlt_pack.to(dtype))
+            absop = dataclasses.replace(op, mid_pack=op.mid_pack.abs(),
+                                        dlt_pack=op.dlt_pack.abs())
+            gen = torch.Generator(device=op.device).manual_seed(4321)
+            u = torch.randn(op.layout.ndofs, generator=gen,
+                            device=op.device, dtype=dtype)
+            x = op.to_strips(u)
+            yk = op.apply_strips(x)
+            yp = op.apply_strips_plain(x)
+            bnd = absop.apply_strips_plain(x.abs())
+            torch.cuda.synchronize()
+            err = (yk - yp).abs()
+            abs_err = float(err.max())
+            check(bool((err <= tol * bnd).all()),
+                  f"strip kernel {name} {dtype}: disagrees with the plain "
+                  f"version (max abs err {abs_err:.3e})")
+            pad = op.to_strips(torch.ones_like(u)) == 0
+            check(bool((yk[pad] == 0).all()),
+                  f"strip kernel {name} {dtype}: nonzero padding")
+            worst = max(worst, abs_err)
+            ms = median_ms(lambda: op.apply_strips(x))
+            plain_ms = median_ms(lambda: op.apply_strips_plain(x))
+            dev = device_ms(lambda: op.apply_strips(x))
+            plain_dev = device_ms(lambda: op.apply_strips_plain(x))
+            nbytes, flops = strip_work(op)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
+                             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             device_ms=dev, plain_device_ms=plain_dev,
+                             bound_ms=b_ms, bound_by=b_by))
+            print(f"strip kernel {name:<28} {rows[-1]['dtype']:<7} abs "
+                  f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms | device: kernel {fmt_ms(dev)}, plain "
+                  f"{fmt_ms(plain_dev)} | bound {b_ms:.4f} ms ({b_by}, "
+                  f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)  [{gpu}]",
+                  flush=True)
+    return rows, worst
+
+
+def strip_cg_compare(op, b, rtol: float, maxit: int, x_tol: float,
+                     name: str, gpu: str):
+    """K4 against its plain version on one right-hand side: iterations
+    +-1, the solutions within ``x_tol`` (norm-wise relative), padding
+    zero; with times per solve."""
+    import torch
+    xk, itk, relk = op.cg_resident(b, rtol, maxit)
+    xp, itp, relp = op.cg_resident_plain(b, rtol, maxit)
+    torch.cuda.synchronize()
+    err = float((xk - xp).norm() / xp.norm())
+    abs_err = float((xk - xp).abs().max())
+    print(f"whole-CG kernel {name}: {int(itk)} iterations (plain "
+          f"{int(itp)}), rel {float(relk):.6e} (plain {float(relp):.6e}), "
+          f"solutions off by {err:.3e} norm-wise, {abs_err:.3e} max abs  "
+          f"[{gpu}]", flush=True)
+    check(abs(int(itk) - int(itp)) <= 1,
+          f"whole-CG kernel {name}: {int(itk)} vs {int(itp)} iterations")
+    check(err <= x_tol, f"whole-CG kernel {name}: solutions off by {err:.3e}")
+    pad = op.to_strips(torch.ones(op.layout.ndofs, device=b.device,
+                                  dtype=b.dtype)) == 0
+    check(bool((xk[pad] == 0).all()), f"whole-CG kernel {name}: padding")
+    ms = median_ms(lambda: op.cg_resident(b, rtol, maxit), reps=3, samples=5)
+    plain_ms = median_ms(lambda: op.cg_resident_plain(b, rtol, maxit),
+                         reps=1, samples=3)
+    nbytes, flops = strip_cg_work(op, int(itk))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"whole-CG kernel {name}: {ms:.4f} ms per solve, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  [{gpu}]",
+          flush=True)
+    return dict(name=name, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, iterations=int(itk))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -273,13 +491,104 @@ def main() -> int:
           f"{GOLD_ITERATIONS}")
     check(rel <= 1e-9, f"poisson50k norm off by rel {rel:.2e}")
 
-    print(json.dumps({"kernels": [{
-        "name": "stencil_p1", "route": "cuda",
-        "source": "tpufem_torch/csrc/stencil_p1.cu",
-        "replaces": ["tpufem/fem/pallas_stencil.py:72",
-                     "tpufem/fem/pallas_stencil.py:185"],
-        "launches": launches, "max_abs_err": worst,
-        "ms": cg_f32["ms"], "plain_ms": cg_f32["plain_ms"]}]}))
+    A = solver.A
+    st_ms, st_by = bound_ms(*stencil_work(A.fields, A.grid_dims))
+    del res, prob, solver, gold, x
+    torch.cuda.empty_cache()
+
+    # -- 5. cgpoisson P2/P3 at 500k, float32: the strip kernel (K3) ----------
+    strip_ops, k3_launches = [], 0
+    for order in (2, 3):
+        r, k3, k4 = cgpoisson_run(
+            cli, CG_ARGS + ["--order", str(order), "--ndofs", "500000"],
+            (order, 500000, "strong", "float32"), gpu)
+        check(k3 > 0 and k4 == 0, f"P{order}: K3 launches {k3}, K4 {k4}")
+        check(r.problem.solver_function.cg_kernel_engaged is False,
+              f"P{order} 500k: the whole-CG kernel engaged above the gate")
+        k3_launches += k3
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = r.problem.solver_function.op.dims
+        strip_ops.append((f"P{order} 500k [{C},{Zp},{LW}]",
+                          r.problem.solver_function.op))
+        del r
+
+    # -- 6. K3 against its plain version on those operators --------------------
+    strip_rows, strip_worst = strip_kernel_phase(strip_ops, gpu)
+    k3_row = [r for r in strip_rows
+              if r["name"].startswith("P3") and r["dtype"] == "float32"][0]
+    del strip_ops
+    torch.cuda.empty_cache()
+
+    # -- 7. P3 150k: split form, then the whole-CG kernel (K4) ----------------
+    args150 = CG_ARGS + ["--order", "3", "--ndofs", "150000"]
+    key150 = (3, 150000, "strong", "float32")
+    off, k3_off, _ = cgpoisson_run(cli, args150, key150, gpu)
+    check(off.problem.solver_function.cg_kernel_engaged is False and
+          k3_off > 0, "P3 150k -cg_kernel off: not the split form")
+    on, k3_on, k4_launches = cgpoisson_run(cli, args150 + ["-cg_kernel", "on"],
+                                           key150, gpu)
+    s_on = on.problem.solver_function
+    check(s_on.cg_kernel_engaged is True and k4_launches > 0 and k3_on == 0,
+          f"P3 150k -cg_kernel on: engaged {s_on.cg_kernel_engaged}, K4 "
+          f"launches {k4_launches}, K3 launches {k3_on}")
+    diff = float((on.x - off.x).norm() / off.x.norm())
+    print(f"P3 150k: whole-CG kernel {s_on.gdofs:.4f} Gdof/s vs split form "
+          f"{off.problem.solver_function.gdofs:.4f} Gdof/s; solutions off by "
+          f"{diff:.3e} norm-wise (tolerance {CG_F32_X_TOL:g})  [{gpu}]",
+          flush=True)
+    check(diff <= CG_F32_X_TOL, f"P3 150k: K4 and split solutions off "
+          f"by {diff:.3e}")
+    op150 = s_on.op
+    b150 = op150.to_strips(on.problem.b)
+    k4_row = strip_cg_compare(op150, b150, s_on.rtol, s_on.kmax,
+                              CG_F32_X_TOL, "P3 150k float32", gpu)
+    del off, on, s_on, op150, b150
+    torch.cuda.empty_cache()
+
+    # -- 8. float64 goldens of the matrix-free path ----------------------------
+    REGISTRY.reset()
+    stencil_apply.launches = 0
+    g15 = cli.main(CG15K_ARGS)
+    rel15 = abs(g15.norm - CG15K_NORM) / CG15K_NORM
+    print(f"cgpoisson15k float64: {g15.iterations} iterations, norm "
+          f"{g15.norm!r} (golden {CG15K_NORM!r}, rel {rel15:.2e}), stencil "
+          f"launches {stencil_apply.launches}  [{gpu}]", flush=True)
+    check(g15.iterations == 100 and rel15 <= 1e-9 and
+          stencil_apply.launches > 0, "cgpoisson15k golden not held")
+    p3, _, _ = cgpoisson_run(
+        cli, ["--problem_type", "cgpoisson", "--order", "3", "--ndofs",
+              "10000", "--dtype", "float64", "--device", "cuda"],
+        (3, 10000, "weak", "float64"), gpu)
+    s3 = p3.problem.solver_function
+    b3 = s3.op.to_strips(p3.problem.b)
+    strip_cg_compare(s3.op, b3, 1e-8, 400, 1e-6, "P3 9025 float64", gpu)
+    del g15, p3, s3, b3
+
+    kernels = [
+        {"name": "stencil_p1", "route": "cuda",
+         "source": "tpufem_torch/csrc/stencil_p1.cu",
+         "replaces": "tpufem/fem/pallas_stencil.py:72 (K1), "
+                     "tpufem/fem/pallas_stencil.py:185 (K2)",
+         "launches": launches, "max_abs_err": worst,
+         "ms": cg_f32["ms"], "plain_ms": cg_f32["plain_ms"],
+         "bound_ms": st_ms, "bound_by": st_by, "library_ms": None},
+        {"name": "strip_apply", "route": "cuda",
+         "source": "tpufem_torch/csrc/strip_apply.cu",
+         "replaces": "tpufem/fem/strip_op.py:300",
+         "launches": k3_launches, "max_abs_err": strip_worst,
+         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+         "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
+         "library_ms": None},
+        {"name": "strip_cg", "route": "cuda",
+         "source": "tpufem_torch/csrc/strip_cg.cu",
+         "replaces": "tpufem/fem/strip_op.py:434",
+         "launches": k4_launches, "max_abs_err": k4_row["max_abs_err"],
+         "ms": k4_row["ms"], "plain_ms": k4_row["plain_ms"],
+         "bound_ms": k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
+         "library_ms": None},
+    ]
+    check("tpufem" not in sys.modules and "jax" not in sys.modules,
+          "tpufem or jax was imported")
+    print(json.dumps({"kernels": kernels}))
     print(f"gpu: {gpu}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Reference values of tpufem's own matrix-free cgpoisson solve on the
+CPU, for the port's checks on the card (chip_smoke.py pins them).
+
+Runs, with JAX on the CPU, the loop tpufem's ``cgpoisson.problem`` runs
+on the cube mesh for P2/P3 (tpufem/problems/cgpoisson.py:259-266): the
+device RHS, the const-table DIA as a StripOperator, and
+``cg_solve_fused`` on the strip buffer; for P1 the baked DIA with
+``cg_solve_fused``.  It prints one JSON line per configuration: the
+lattice, ndofs, iterations, the recurrence rel and the solution norm.
+
+    python scripts/cgpoisson_reference.py --order 3 --ndofs 500000 \\
+        --scaling_type strong --dtype float32
+
+float64 turns on jax's x64 mode, as tpufem's CLI does; float32 keeps it
+off, so dots accumulate in float32, as in a tpufem float32 run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+
+def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--order", type=int, required=True)
+    p.add_argument("--ndofs", type=int, required=True)
+    p.add_argument("--scaling_type", default="strong")
+    p.add_argument("--dtype", default="float32")
+    p.add_argument("--rtol", type=float, default=1e-6)
+    p.add_argument("--kmax", type=int, default=100)
+    a = p.parse_args()
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    if a.dtype == "float64":
+        jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tpufem.fem.dia_op import build_operator
+    from tpufem.fem.dirichlet import DirichletBC
+    from tpufem.fem.space import FunctionSpace
+    from tpufem.fem.strip_op import StripOperator
+    from tpufem.la.cg import cg_solve_fused
+    from tpufem.mesh.structured import (BoxTetMesh,
+                                        compute_box_size_structured)
+    from tpufem.problems import common
+    from tpufem.problems.poisson import (assemble_poisson_rhs_np,
+                                         assemble_poisson_rhs_structured_dev)
+
+    dtype = jnp.float32 if a.dtype == "float32" else jnp.float64
+    nx, ny, nz, _ = compute_box_size_structured(
+        a.ndofs, a.scaling_type == "strong", 1, a.order, 1)
+    mesh = BoxTetMesh(nx, ny, nz)
+    space = FunctionSpace(mesh, a.order)
+    bc = DirichletBC.from_space(
+        space, mesh.locate_boundary_facets(common.poisson_bc_marker))
+    if dtype == jnp.float32:
+        b = assemble_poisson_rhs_structured_dev(space, bc, dtype)
+    else:
+        b_np = assemble_poisson_rhs_np(space)
+        b_np[bc.flat_dofs()] = 0.0
+        b = jnp.asarray(b_np)
+    op = build_operator(mesh, a.order, "poisson", bc_dofs=bc.flat_dofs(),
+                        dtype=dtype, bake_bc=True)
+    if a.order >= 2:
+        op = StripOperator.from_dia(op, dtype=dtype)
+
+        def run(r):
+            x_f, it, rel = cg_solve_fused(op.apply_strips, op.to_strips(r),
+                                          x0=None, rtol=a.rtol, maxit=a.kmax)
+            return op.from_strips(x_f, dtype=r.dtype), it, rel
+    else:
+        def run(r):
+            return cg_solve_fused(op.apply, r, x0=None, rtol=a.rtol,
+                                  maxit=a.kmax)
+    t0 = time.perf_counter()
+    x, it, rel = jax.jit(run)(b)
+    x = np.asarray(x)
+    print(json.dumps({
+        "order": a.order, "ndofs": int(space.ndofs), "lattice": [nx, ny, nz],
+        "scaling_type": a.scaling_type, "dtype": a.dtype,
+        "iterations": int(it), "rel": float(rel),
+        "norm": float(np.linalg.norm(x.astype(np.float64))),
+        "norm_in_dtype": float(jnp.sqrt(jnp.sum(jnp.asarray(x) ** 2))),
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

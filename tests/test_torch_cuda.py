@@ -1,5 +1,6 @@
-"""The port's CUDA stencil kernel against its plain PyTorch version, on
-the card.  Marked ``cuda``: without a CUDA device every test skips.
+"""The port's CUDA kernels (the P1 stencil, the strip apply K3 and the
+whole-CG kernel K4) against their plain PyTorch versions, on the card.
+Marked ``cuda``: without a CUDA device every test skips.
 
 This file imports no jax, so it also runs on a machine without jax; the
 suite's conftest imports jax, so there run it without it:
@@ -13,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from tpufem.fem.space import FunctionSpace
-from tpufem.mesh.structured import BoxTetMesh
-
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_plain
+from tpufem_torch.fem.strip_op import StripOperator
+from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.problems.common import poisson_bc_marker
 
 pytestmark = pytest.mark.cuda
@@ -81,3 +82,127 @@ def test_refused_launch_reports_cuda_error(device):
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0  # D = 0 diagonals is refused before any launch
     assert lib.tpufem_cuda_error_string(rc)
+
+
+def _strip(order, dims, dtype, device):
+    mesh = BoxTetMesh(*dims)
+    space = FunctionSpace(mesh, order)
+    bc = DirichletBC.from_space(space,
+                                mesh.locate_boundary_facets(poisson_bc_marker))
+    dia = DiaOperator.try_const(mesh, order, "poisson",
+                                bc_dofs=bc.flat_dofs(), dtype=dtype)
+    return StripOperator.from_dia(dia, dtype=dtype, device=device), bc, dia
+
+
+# |kernel - plain| <= tol * sum |W| |x|: the two sum the same <= ~60 terms
+# per element in different orders (the plain version with index_add, the
+# kernel with fused multiply-adds), each within 60 eps of the abs sum
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("order,dims", [
+    (2, (8, 9, 10)), (3, (8, 8, 9)), (1, (9, 8, 10)), (2, (8, 8, 6)),
+    (3, (24, 24, 32))], ids=["P2", "P3", "P1", "P2-full", "P3-500k"])
+def test_strip_apply_kernel_matches_plain(device, order, dims, dtype, tol):
+    import dataclasses
+    op, _, _ = _strip(order, dims, dtype, device)
+    rng = np.random.default_rng(0)
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    u = torch.from_numpy(rng.standard_normal(op.layout.ndofs)).to(device, dtype)
+    x = op.to_strips(u)
+    before = StripOperator.apply_strips.launches
+    y = op.apply_strips(x)
+    assert StripOperator.apply_strips.launches == before + 1
+    yp = op.apply_strips_plain(x)
+    absop = dataclasses.replace(op, mid_pack=op.mid_pack.abs(),
+                                dlt_pack=op.dlt_pack.abs())
+    bound = absop.apply_strips_plain(x.abs())
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    mask = op.to_strips(torch.ones_like(u)) != 0
+    assert bool((y[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float64, 1e-8),
+                                           (torch.float32, 1e-3)])
+def test_strip_cg_kernel_matches_plain(device, dtype, rel_tol):
+    """The cooperative whole-CG kernel against its plain version: the
+    same iteration count +-1 and the same solution (float64: both
+    converge to 1e-8; float32: 300 steps of two rounding orders, 1e-3)."""
+    op, bc, dia = _strip(2, (6, 6, 7), dtype, device)
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal(op.layout.ndofs)
+    b[bc.flat_dofs()] = 0.0
+    bs = op.to_strips(torch.from_numpy(b).to(device, dtype))
+    before = StripOperator.cg_resident.launches
+    x_k, it_k, rel_k = op.cg_resident(bs, 1e-8, 300)
+    assert StripOperator.cg_resident.launches == before + 1
+    x_p, it_p, rel_p = op.cg_resident_plain(bs, 1e-8, 300)
+    torch.cuda.synchronize()
+    assert abs(int(it_k) - int(it_p)) <= 1
+    if dtype == torch.float64:
+        assert float(rel_k) < 1e-8 and float(rel_p) < 1e-8
+    err = float((x_k - x_p).norm() / x_p.norm())
+    assert err <= rel_tol, err
+    mask = op.to_strips(torch.ones(op.layout.ndofs, device=device,
+                                   dtype=dtype)) != 0
+    assert bool((x_k[~mask] == 0).all())
+
+
+def test_strip_cg_kernel_maxit_cap(device):
+    op, bc, _ = _strip(1, (8, 8, 8), torch.float64, device)
+    b = np.random.default_rng(6).standard_normal(op.layout.ndofs)
+    b[bc.flat_dofs()] = 0.0
+    bs = op.to_strips(torch.from_numpy(b).to(device))
+    _, it, rel = op.cg_resident(bs, 1e-30, 7)
+    _, it_p, rel_p = op.cg_resident_plain(bs, 1e-30, 7)
+    assert int(it) == int(it_p) == 7
+    assert abs(float(rel) - float(rel_p)) <= 1e-10 * float(rel_p)
+
+
+def test_strip_cg_launch_too_large_raises(device):
+    """A cooperative grid above the co-resident capacity is refused by
+    the launch, and the wrapper raises."""
+    from tpufem_torch import _build
+    op, _, _ = _strip(2, (6, 6, 7), torch.float32, device)
+    lib = _build.load().lib
+    cap = lib.tpufem_strip_cg_blocks_f32(device.index)
+    assert cap > 0
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    b = torch.zeros((C, Zp, LW), device=device)
+    x = torch.empty_like(b)
+    work = torch.empty((3, C, Zp, LW), device=device)
+    part = torch.empty(3 * (cap + 1), device=device)
+    it = torch.empty((), dtype=torch.int32, device=device)
+    rel = torch.empty((), device=device)
+    mptr, ment, dptr, dent, zk = op.tables
+    rc = lib.tpufem_strip_cg_f32(
+        device.index, b.data_ptr(), op.mid_pack.data_ptr(),
+        op.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
+        dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), x.data_ptr(),
+        work.data_ptr(), part.data_ptr(), it.data_ptr(), rel.data_ptr(),
+        C, Zc, Zp, LW, TILE, 128, 1e-12, 5, cap + 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 720  # cudaErrorCooperativeLaunchTooLarge
+    assert lib.tpufem_cuda_error_string(rc)
+
+
+def test_cgpoisson_cli_engages_the_kernels(device):
+    from tpufem_torch import cli
+    from tpufem_torch.problems import cgpoisson
+    cgpoisson.TIMING_PASSES = cgpoisson.TIMING_REPS = 1
+    try:
+        k3, k4 = StripOperator.apply_strips.launches, \
+            StripOperator.cg_resident.launches
+        off = cli.main(["--problem_type", "cgpoisson", "--order", "2",
+                        "--ndofs", "3000", "--dtype", "float64",
+                        "--device", "cuda"])
+        assert StripOperator.apply_strips.launches > k3
+        on = cli.main(["--problem_type", "cgpoisson", "--order", "2",
+                       "--ndofs", "3000", "--dtype", "float64",
+                       "--device", "cuda", "-cg_kernel", "on"])
+        assert StripOperator.cg_resident.launches > k4
+        assert on.problem.solver_function.cg_kernel_engaged
+        assert abs(on.iterations - off.iterations) <= 1
+        assert abs(on.norm - off.norm) <= 1e-9 * off.norm
+    finally:
+        cgpoisson.TIMING_PASSES, cgpoisson.TIMING_REPS = 3, 10

@@ -111,14 +111,15 @@ def test_cuda_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--problem_type", "cgpoisson"],
+    ["--problem_type", "cgpoisson", "-use_flat", "1"],
+    ["--problem_type", "cgpoisson", "--mesh_type", "unstructured"],
     ["--problem_type", "elasticity"],
     ["--mesh_type", "unstructured"],
     ["--order", "2"],
     ["--num_shards", "2"],
     ["-pc_type", "amg"],
-], ids=["cgpoisson", "elasticity", "unstructured", "order2", "shards",
-        "amg"])
+], ids=["cgpoisson_use_flat", "cgpoisson_unstructured", "elasticity",
+        "unstructured", "order2", "shards", "amg"])
 def test_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--ndofs", "3000", "--device", "cpu"] + argv)

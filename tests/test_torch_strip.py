@@ -1,0 +1,232 @@
+"""The port's P2/P3 operators (tpufem_torch.fem.dia_op, .structured_op,
+.strip_op) against tpufem's, in float64 on the CPU.
+
+On the CPU the strip wrappers run the kernels' plain PyTorch versions;
+the CUDA kernels themselves are checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py).  Host tables must be equal
+(the same numpy arithmetic); applies agree to rtol/atol 1e-13 (f64 sums
+of ~50 O(1) terms in different orders) with tpufem's XLA twin
+``_apply_xla`` for P1-P3 and with its Pallas kernel in interpret mode
+for P1 and P2 (at P3, interpret mode takes ~50 s on the CPU, and
+tests/test_strip_op.py already pins the P3 kernel to the XLA twin);
+the whole-CG kernel's plain version must match tpufem's ``cg_pallas``
+(interpret mode) to +-1 iteration and x to rtol 1e-4, as
+tests/test_strip_op.py holds cg_pallas to tpufem's own split loop."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpufem.fem.dia_op import DiaOperator as TpuDia
+from tpufem.fem.dirichlet import DirichletBC as TpuBC
+from tpufem.fem.space import FunctionSpace as TpuSpace
+from tpufem.fem.strip_op import StripOperator as TpuStrip
+from tpufem.fem.structured_op import StructuredOperator as TpuStructured
+from tpufem.la.cg import cg_solve_fused as tpu_cg_fused
+from tpufem.mesh.structured import BoxTetMesh as TpuMesh
+from tpufem.problems import common as tpu_common
+
+from tpufem_torch.fem.dia_op import DiaOperator
+from tpufem_torch.fem.strip_op import StripOperator
+from tpufem_torch.fem.structured_op import StructuredOperator
+from tpufem_torch.la.cg import cg_solve_fused
+from tpufem_torch.mesh.structured import BoxTetMesh
+
+jax.config.update("jax_enable_x64", True)
+torch.set_num_threads(1)
+F64 = torch.float64
+
+
+def _ops(order, dims):
+    """(tpufem const DIA, port const DIA, bc dofs, ndofs), both float64."""
+    mesh = TpuMesh(*dims)
+    space = TpuSpace(mesh, order)
+    bc = TpuBC.from_space(
+        space, mesh.locate_boundary_facets(tpu_common.poisson_bc_marker))
+    tdia = TpuDia.try_const(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
+                            dtype=jnp.float64, device=False)
+    pdia = DiaOperator.try_const(BoxTetMesh(*dims), order, "poisson",
+                                 bc_dofs=bc.flat_dofs(), dtype=F64)
+    assert tdia is not None and pdia is not None
+    return tdia, pdia, bc.flat_dofs(), space.ndofs
+
+
+# (8, 8, 6): the z-extent-6 edge grids are too short for z-zones, so
+# tpufem has no kernel plan there ("full" mode); the port still has one
+CASES = [(2, (8, 9, 10)), (3, (8, 8, 9)), (1, (9, 8, 10)), (2, (8, 8, 6))]
+IDS = ["P2", "P3", "P1", "P2-full"]
+
+
+@pytest.mark.parametrize("order,dims", CASES, ids=IDS)
+def test_dia_tables_equal_tpufem(order, dims):
+    tdia, pdia, _, _ = _ops(order, dims)
+    assert pdia.plan == tdia.plan and pdia.zone_plan == tdia.zone_plan
+    assert all(np.array_equal(a, b) for a, b in zip(pdia.weights, tdia.weights))
+    assert all(len(za) == len(zb) and all(np.array_equal(a, b)
+                                          for a, b in zip(za, zb))
+               for za, zb in zip(pdia.zones, tdia.zones))
+    A, B = pdia.to_scipy(), tdia.to_scipy()
+    A.sort_indices()
+    B.sort_indices()
+    assert np.array_equal(A.indptr, B.indptr)
+    assert np.array_equal(A.indices, B.indices)
+    assert np.array_equal(A.data, B.data)
+
+
+@pytest.mark.parametrize("order,dims", CASES, ids=IDS)
+def test_strip_layout_and_plain_apply_match_tpufem(order, dims):
+    tdia, pdia, _, ndofs = _ops(order, dims)
+    tpu = TpuStrip.from_dia(tdia, dtype=jnp.float64, use_pallas=False)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    assert op.dims == tpu.dims and op.channels == tpu.channels
+    if tpu.kplan is not None:
+        assert op.kplan == tpu.kplan
+        assert np.array_equal(op.mid_pack.numpy(), np.asarray(tpu.mid_pack))
+        assert np.array_equal(op.dlt_pack.numpy(), np.asarray(tpu.dlt_pack))
+    else:  # full mode: the port's plan is its own, the matrix the same
+        assert any(len(kd) for _, kd in op.kplan)
+    u = np.random.default_rng(3).standard_normal(ndofs)
+    xf = op.to_strips(torch.from_numpy(u))
+    xf_t = np.asarray(jax.jit(tpu.to_strips)(jnp.asarray(u)))
+    assert np.array_equal(xf.numpy(), xf_t)
+    assert np.array_equal(op.from_strips(xf).numpy(),
+                          np.asarray(jax.jit(tpu.from_strips)(xf_t)))
+    assert np.array_equal(op.from_strips(xf).numpy(), u)
+    y = op.apply_strips(xf).numpy()
+    np.testing.assert_allclose(y, np.asarray(tpu._apply_xla(jnp.asarray(xf_t))),
+                               rtol=1e-13, atol=1e-13)
+    if tpu.kplan is not None and order < 3:
+        pal = TpuStrip.from_dia(tdia, dtype=jnp.float64, use_pallas=True)
+        np.testing.assert_allclose(
+            y, np.asarray(pal._apply_pallas(jnp.asarray(xf_t))),
+            rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(op.apply(torch.from_numpy(u)).numpy(),
+                               tdia.apply_np(u), rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("order,dims", [(2, (8, 9, 8)), (2, (8, 8, 6))],
+                         ids=["P2", "P2-full"])
+def test_strip_padding_stays_zero(order, dims):
+    """Pad, guard and out-of-extent planes of the output are exactly
+    zero, so buffer dots equal dof dots through a channel-resident CG."""
+    _, pdia, _, ndofs = _ops(order, dims)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.standard_normal(ndofs))
+    xf = op.to_strips(u)
+    mask = op.to_strips(torch.ones(ndofs, dtype=F64)) != 0.0
+    yf = op.apply_strips(xf)
+    assert bool((yf[~mask] == 0.0).all())
+    y = op.from_strips(yf)
+    assert np.isclose(float((yf * xf).sum()), float(y @ u), rtol=1e-12)
+
+
+def _rhs(ndofs, bc_dofs, seed):
+    b = np.random.default_rng(seed).standard_normal(ndofs)
+    b[bc_dofs] = 0.0
+    return b
+
+
+@pytest.mark.parametrize("order,dims,maxit", [(1, (9, 8, 10), 120),
+                                              (2, (6, 6, 7), 300)],
+                         ids=["P1", "P2"])
+def test_cg_resident_plain_matches_cg_pallas(order, dims, maxit):
+    """The whole-CG kernel's plain version against tpufem's cg_pallas in
+    interpret mode, on the cases of tests/test_strip_op.py."""
+    tdia, pdia, bc_dofs, ndofs = _ops(order, dims)
+    tpu = TpuStrip.from_dia(tdia, dtype=jnp.float64, use_pallas=True)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    assert op.cg_kernel_ok
+    b = _rhs(ndofs, bc_dofs, 5)
+    x_t, it_t, rel_t = jax.jit(lambda r: tpu.cg_pallas(r, rtol=1e-8,
+                                                       maxit=maxit))(
+        tpu.to_strips(jnp.asarray(b)))
+    x_f, it, rel = op.cg_resident(op.to_strips(torch.from_numpy(b)), 1e-8,
+                                  maxit)
+    assert it.dtype == torch.int32 and rel.dtype == F64
+    assert abs(int(it) - int(it_t)) <= 1
+    assert float(rel) < 1e-8 and float(rel_t) < 1e-8
+    x = op.from_strips(x_f).numpy()
+    r = b - pdia.apply_np(x)
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-7
+    np.testing.assert_allclose(x, np.asarray(tpu.from_strips(x_t)),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_cg_resident_plain_maxit_cap():
+    """With an unreachable tolerance the loop runs exactly maxit steps
+    and reports the recurrence residual there, as cg_pallas does."""
+    tdia, pdia, bc_dofs, ndofs = _ops(1, (8, 8, 8))
+    tpu = TpuStrip.from_dia(tdia, dtype=jnp.float64, use_pallas=True)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    b = _rhs(ndofs, bc_dofs, 6)
+    _, it, rel = op.cg_resident(op.to_strips(torch.from_numpy(b)), 1e-30, 7)
+    _, it_t, rel_t = tpu.cg_pallas(tpu.to_strips(jnp.asarray(b)),
+                                   rtol=1e-30, maxit=7)
+    assert int(it) == int(it_t) == 7
+    # cg_pallas reports rel in float32
+    assert float(rel) == pytest.approx(float(rel_t), rel=1e-6)
+
+
+def test_fused_cg_on_strips_matches_tpufem():
+    """The port's cg_solve_fused on the strip operator follows tpufem's
+    (the split form of the cgpoisson P2/P3 loop)."""
+    tdia, pdia, bc_dofs, ndofs = _ops(2, (8, 8, 8))
+    tpu = TpuStrip.from_dia(tdia, dtype=jnp.float64, use_pallas=False)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    b = _rhs(ndofs, bc_dofs, 1)
+    x_t, it_t, _ = jax.jit(lambda r: tpu_cg_fused(
+        tpu.apply_strips, r, x0=None, rtol=1e-8, maxit=400))(
+        tpu.to_strips(jnp.asarray(b)))
+    x_f, it, rel = cg_solve_fused(op.apply_strips,
+                                  op.to_strips(torch.from_numpy(b)),
+                                  rtol=1e-8, maxit=400)
+    assert abs(it - int(it_t)) <= 1 and rel < 1e-8
+    np.testing.assert_allclose(op.from_strips(x_f).numpy(),
+                               np.asarray(tpu.from_strips(x_t)),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("order,dims", [(2, (4, 5, 6)), (3, (4, 4, 5))],
+                         ids=["P2", "P3"])
+def test_structured_operator_matches_tpufem(order, dims):
+    mesh = TpuMesh(*dims)
+    space = TpuSpace(mesh, order)
+    bc = TpuBC.from_space(
+        space, mesh.locate_boundary_facets(tpu_common.poisson_bc_marker))
+    tpu = TpuStructured.build(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
+                              dtype=jnp.float64, device=True)
+    op = StructuredOperator.build(BoxTetMesh(*dims), order, "poisson",
+                                  bc_dofs=bc.flat_dofs(), dtype=F64,
+                                  device=torch.device("cpu"))
+    assert np.array_equal(op.Ap, tpu.Ap)
+    u = np.random.default_rng(2).standard_normal(space.ndofs)
+    y_raw = np.asarray(tpu.apply_raw(jnp.asarray(u)))
+    np.testing.assert_allclose(op.apply_raw(torch.from_numpy(u)).numpy(),
+                               y_raw, rtol=1e-13, atol=1e-13)
+    assert np.array_equal(op.apply_raw_np(u), tpu.apply_raw_np(u))
+    # the two BC conventions around apply_raw (structured_op.py:318-328)
+    mask = np.zeros(space.ndofs, dtype=bool)
+    mask[bc.flat_dofs()] = True
+    np.testing.assert_allclose(
+        op.apply_bc_rows_zero(torch.from_numpy(u)).numpy(),
+        np.where(mask, 0.0, y_raw), rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(op.apply(torch.from_numpy(u)).numpy(),
+                               tpu.apply_np(u), rtol=1e-13, atol=1e-13)
+
+
+def test_build_operator_picks_tpufem_forms():
+    """P2/P3 const DIA when the lattice allows it, else the per-perm
+    operator; the multi-kind DIA has no device apply."""
+    from tpufem_torch.fem.dia_op import build_operator
+    cpu = torch.device("cpu")
+    big = build_operator(BoxTetMesh(6, 6, 8), 3, "poisson", dtype=F64,
+                         device=cpu)
+    assert isinstance(big, DiaOperator) and big.is_const()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        big.apply(torch.zeros(big.layout.ndofs, dtype=F64))
+    small = build_operator(BoxTetMesh(4, 4, 6), 3, "poisson", dtype=F64,
+                           device=cpu)
+    assert isinstance(small, StructuredOperator)

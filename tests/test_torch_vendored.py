@@ -1,0 +1,96 @@
+"""The port's own copies of tpufem's jax-free host modules (mesh,
+reference element, function space, configuration and argument parsing)
+agree with tpufem's, and the port runs with ``tpufem`` unimportable."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from tpufem.cli import parse_args as tpu_parse_args
+from tpufem.fem.reference import ReferenceTet as TpuRef
+from tpufem.fem.space import FunctionSpace as TpuSpace
+from tpufem.mesh import structured as tpu_structured
+
+from tpufem_torch import cli
+from tpufem_torch.fem.reference import ReferenceTet
+from tpufem_torch.fem.space import FunctionSpace
+from tpufem_torch.mesh import structured
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_box_sizing_matches_tpufem(order):
+    for ndofs in (1000, 3000, 15000, 50000, 146461, 500000, 2_000_000):
+        for strong in (False, True):
+            args = (ndofs, strong, 1, order, 1)
+            assert (structured.compute_box_size_structured(*args)
+                    == tpu_structured.compute_box_size_structured(*args))
+
+
+def test_mesh_tables_match_tpufem():
+    for name in ("CELL_VERTEX_OFFSETS", "EDGE_TYPES", "LOCAL_EDGES",
+                 "LOCAL_FACES", "FACE_TYPES"):
+        assert np.array_equal(getattr(structured, name),
+                              getattr(tpu_structured, name)), name
+    assert structured._EDGE_TYPE_OF == tpu_structured._EDGE_TYPE_OF
+    assert structured._FACE_TYPE_OF == tpu_structured._FACE_TYPE_OF
+    mine, ref = structured.BoxTetMesh(3, 4, 5), tpu_structured.BoxTetMesh(3, 4, 5)
+    assert np.array_equal(mine._edge_dims(), ref._edge_dims())
+    assert np.array_equal(mine._face_dims(), ref._face_dims())
+    assert np.array_equal(mine.boundary_faces(), ref.boundary_faces())
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_reference_element_bitwise(order):
+    mine, ref = ReferenceTet(order), TpuRef(order)
+    for name in ("nodes", "stiffness_tensors", "mass_tensor",
+                 "facet_mass_tensors"):
+        assert np.array_equal(getattr(mine, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_function_space_matches_tpufem(order):
+    mine = FunctionSpace(structured.BoxTetMesh(3, 4, 5), order)
+    ref = TpuSpace(tpu_structured.BoxTetMesh(3, 4, 5), order)
+    assert mine.ndofs == ref.ndofs and mine.ndofs_scalar == ref.ndofs_scalar
+    assert np.array_equal(mine.cell_dofs, ref.cell_dofs)
+    assert np.array_equal(mine.scalar_dof_coords(), ref.scalar_dof_coords())
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--problem_type", "cgpoisson", "--ndofs", "500000", "--order", "3",
+     "--scaling_type", "strong", "-cg_kernel", "on", "-cg_rtol", "1e-6"],
+    ["--dtype", "float64", "-ksp_rtol", "1e-8", "-pc_type", "gmg",
+     "-ksp_max_it", "100", "-totally_bogus", "-1e-3"],
+], ids=["defaults", "cgpoisson", "poisson"])
+def test_parse_args_gives_tpufem_config(argv):
+    cfg, device = cli.parse_args(argv + ["--device", "cpu"])
+    assert device.type == "cpu"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(tpu_parse_args(argv))
+
+
+def test_runs_with_tpufem_unimportable():
+    """``sys.modules["tpufem"] = None`` makes any import of tpufem raise:
+    the port's poisson and cgpoisson CLI runs must not need it."""
+    code = (
+        "import sys\n"
+        "sys.modules['tpufem'] = None\n"
+        "import tpufem_torch.problems.cgpoisson as c\n"
+        "c.TIMING_PASSES = c.TIMING_REPS = 1\n"
+        "from tpufem_torch.cli import main\n"
+        "a = main(['--ndofs', '3000', '--dtype', 'float64', '--device', 'cpu'])\n"
+        "b = main(['--problem_type', 'cgpoisson', '--order', '2',"
+        " '--ndofs', '3000', '--dtype', 'float32', '--device', 'cpu'])\n"
+        "assert a.iterations > 0 and b.iterations > 0\n"
+        "print('JAX_LOADED', any(m == 'jax' or m.startswith('jax.')"
+        " for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX_LOADED False" in out.stdout

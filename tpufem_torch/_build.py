@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``load()`` compiles every ``csrc/*.cu`` of the package with ``nvcc`` into
-one shared library with a plain C interface, at first use, and loads it
+``load()`` compiles every ``csrc/*.cu`` of the package with ``nvcc``, one
+process per source, all started together, links the objects into one
+shared library with a plain C interface, at first use, and loads it
 with ctypes.  The library lands in ``_build/<hash>/`` beside this file,
-keyed by a hash of the sources and the flags, so an unchanged checkout
-builds once.  Nothing here needs ninja or PyTorch's extension builder,
+keyed by a hash of the sources, headers and flags, so an unchanged
+checkout builds once.  Nothing here needs ninja or PyTorch's extension builder,
 and a missing ``nvcc`` or a failed build raises with the compiler's
 output.  Only the CUDA branch of a kernel wrapper imports this module.
 """
@@ -27,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libtpufem_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CG_THREADS = 256  # threads per block of the whole-CG kernel (csrc/strip_cg.cu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         # device, x, F, y, Z, Y, X, R, D, offsets (host int32 [D*3]), stream
         fn.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
         fn.restype = ci
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"tpufem_strip_apply_{suffix}")
+        # device, x, mid, dlt, mid_ptr, mid_ent, dlt_ptr, dlt_ent, zk, y,
+        # C, Zc, Zp, LW, TILE, G, stream
+        fn.argtypes = [ci] + [vp] * 9 + [ci] * 6 + [vp]
+        fn.restype = ci
+        fn = getattr(lib, f"tpufem_strip_cg_{suffix}")
+        # device, b, mid, dlt, mid_ptr, mid_ent, dlt_ptr, dlt_ent, zk, x,
+        # work, partials, it, rel, C, Zc, Zp, LW, TILE, G, rtol2, maxit,
+        # nblk, stream
+        fn.argtypes = ([ci] + [vp] * 13 + [ci] * 6
+                       + [ctypes.c_double, ci, ci, vp])
+        fn.restype = ci
+        fn = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")
+        fn.argtypes = [ci]  # device -> co-resident blocks, or -cuda error
+        fn.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
 
@@ -71,25 +89,38 @@ def load() -> Kernels:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
     seconds, log = 0.0, ""
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_nvcc(), *NVCC_FLAGS]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
         # build beside the target and rename: a concurrent loader never
         # sees a half-written library
         with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+            objs = [os.path.join(tmp, s.stem + ".o") for s in sources]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                    for s, o in zip(sources, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in cmds]
+            logs = [p.communicate()[0] for p in procs]
+            log = "".join(logs)
+            for c, p, lg in zip(cmds, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                       f"{' '.join(c)}\n{lg}")
             tmp_lib = os.path.join(tmp, LIB_NAME)
-            proc = subprocess.run(cmd + ["-o", tmp_lib] + [str(s) for s in sources],
-                                  capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
+            link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-shared", "-o", tmp_lib, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                   f"{' '.join(cmd)}\n{log}")
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                                   f"{' '.join(link)}\n{log}")
             os.replace(tmp_lib, out)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))

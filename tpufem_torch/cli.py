@@ -1,17 +1,21 @@
 """Command-line entry point of the port (counterpart of tpufem/cli.py).
 
-Takes tpufem's flags (its ``parse_args``) plus ``--device`` (default
-``cuda``; there is no fallback to the CPU), builds the cube mesh, runs
-the Poisson problem on one device, prints the reproducibility summary,
-the ZZZ timing table, the Krylov iterations, the solution norm and the
-certified true residual.
+Takes tpufem's flags (``parse_args`` is a copy of tpufem's) plus
+``--device`` (default ``cuda``; there is no fallback to the CPU), builds
+the cube mesh, runs the Poisson or matrix-free CG Poisson problem on one
+device, prints the reproducibility summary, the ZZZ timing table, the
+Krylov iterations, the solution norm and, for ``poisson``, the certified
+true residual.
 
 Out of this slice (each raises NotImplementedError naming its ROADMAP
-item): cgpoisson and elasticity, the unstructured mesh, orders above 1,
-more than one shard, -pc_type amg, --output and --memory_profiling.
+item): elasticity, the unstructured mesh, Poisson orders above 1,
+``cgpoisson -use_flat``, more than one shard, -pc_type amg, --output and
+--memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda
+      python -m tpufem_torch --problem_type cgpoisson --order 3 \\
+          --ndofs 500000 --scaling_type strong --device cuda
 """
 
 from __future__ import annotations
@@ -21,14 +25,13 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from tpufem.cli import parse_args as _tpufem_parse_args
-from tpufem.config import Config
-from tpufem.logutil import init_logging, int64_to_human
-from tpufem.mesh.structured import BoxTetMesh, compute_box_size_structured
-
 from tpufem_torch import __version__
+from tpufem_torch.config import Config, SolverOptions
 from tpufem_torch.la.vector import norm
-from tpufem_torch.problems import common, poisson
+from tpufem_torch.logutil import init_logging, int64_to_human
+from tpufem_torch.mesh.structured import (BoxTetMesh,
+                                          compute_box_size_structured)
+from tpufem_torch.problems import cgpoisson, common, poisson
 from tpufem_torch.timing import Timer, list_timings
 
 
@@ -39,6 +42,80 @@ class SolveResult(NamedTuple):
     refine_passes: int
     refine_iterations: int
     problem: common.Problem
+    x: torch.Tensor
+
+
+def _parse_config(argv: Optional[List[str]] = None) -> Config:
+    """tpufem's ``parse_args`` (tpufem/cli.py:28-97): the double-hyphen
+    app flags, and single-hyphen options passed through to the solver
+    namespace (the PETSc options DB analogue, reference main.cpp:77-81)."""
+    parser = argparse.ArgumentParser(
+        prog="tpufem_torch", description="FEM scaling test (PyTorch + CUDA)",
+        allow_abbrev=False)
+    parser.add_argument("--problem_type", default="poisson",
+                        help="problem (poisson, cgpoisson, or elasticity)")
+    parser.add_argument("--mesh_type", default="cube",
+                        help="mesh (cube or unstructured)")
+    parser.add_argument("--scaling_type", default="weak",
+                        help="scaling (weak or strong)")
+    parser.add_argument("--ndofs", type=int, default=50000,
+                        help="number of degrees of freedom")
+    parser.add_argument("--order", type=int, default=1, help="polynomial order")
+    parser.add_argument("--scatterer", default="neighbor",
+                        help="ghost exchange schedule (neighbor or p2p)")
+    parser.add_argument("--output", default="",
+                        help="output directory (no output unless set)")
+    parser.add_argument("--memory_profiling", action="store_true")
+    parser.add_argument("--subcomm_partition", action="store_true")
+    parser.add_argument("--dtype", default="float32",
+                        choices=["float32", "float64", "mixed"])
+    parser.add_argument("--num_shards", type=int, default=0,
+                        help="device shards (0 = all visible devices)")
+    args, unknown = parser.parse_known_args(argv)
+
+    solver = SolverOptions()
+    i = 0
+    while i < len(unknown):
+        tok = unknown[i]
+        if not tok.startswith("-"):
+            raise SystemExit(f"unrecognized argument: {tok}")
+        key = tok.lstrip("-")
+        val: object = True
+
+        def _is_number(s: str) -> bool:
+            try:
+                float(s)
+                return True
+            except ValueError:
+                return False
+
+        # a following token is this option's value unless it starts a
+        # new flag; negative numbers ("-ksp_rtol -1e-6") are values
+        if i + 1 < len(unknown) and (not unknown[i + 1].startswith("-")
+                                     or _is_number(unknown[i + 1])):
+            raw = unknown[i + 1]
+            try:
+                val = int(raw)
+            except ValueError:
+                try:
+                    val = float(raw)
+                except ValueError:
+                    val = raw
+            i += 1
+        if hasattr(solver, key) and key not in ("extra",):
+            setattr(solver, key, type(getattr(solver, key))(val)
+                    if not isinstance(val, bool) else val)
+        else:
+            solver.extra[key] = val
+        i += 1
+
+    return Config(
+        problem_type=args.problem_type, mesh_type=args.mesh_type,
+        scaling_type=args.scaling_type, ndofs=args.ndofs, order=args.order,
+        scatterer=args.scatterer, output=args.output,
+        memory_profiling=args.memory_profiling,
+        subcomm_partition=args.subcomm_partition, dtype=args.dtype,
+        num_shards=args.num_shards, solver=solver)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> Tuple[Config, torch.device]:
@@ -48,7 +125,7 @@ def parse_args(argv: Optional[List[str]] = None) -> Tuple[Config, torch.device]:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     args, rest = p.parse_known_args(argv)
-    return _tpufem_parse_args(rest), resolve_device(args.device)
+    return _parse_config(rest), resolve_device(args.device)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -67,14 +144,17 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _check_scope(cfg: Config) -> None:
+    cg = cfg.problem_type == "cgpoisson"
     unported = [
-        (cfg.problem_type == "cgpoisson",
-         "--problem_type cgpoisson: ROADMAP M8"),
         (cfg.problem_type == "elasticity",
          "--problem_type elasticity: ROADMAP M12"),
-        (cfg.mesh_type != "cube",
-         f"--mesh_type {cfg.mesh_type}: ROADMAP M14, M15"),
-        (cfg.order != 1, f"--order {cfg.order}: ROADMAP M10"),
+        (cg and cfg.mesh_type != "cube",
+         f"--problem_type cgpoisson --mesh_type {cfg.mesh_type} (the "
+         "matrix-free gather/scatter action): ROADMAP M9"),
+        (cfg.mesh_type != "cube", f"--mesh_type {cfg.mesh_type}: ROADMAP M14, M15"),
+        (not cg and cfg.order != 1, f"--order {cfg.order}: ROADMAP M10"),
+        (cg and bool(cfg.solver.extra.get("use_flat")),
+         "-use_flat (the channel-plane operator, TPU kernel K5): ROADMAP K5"),
         (cfg.num_shards > 1, f"--num_shards {cfg.num_shards}: ROADMAP M16"),
         (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
         (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),
@@ -109,7 +189,8 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     with Timer("ZZZ Create facets and facet->cell connectivity"):
         mesh.boundary_facet_cells(mesh.boundary_faces())
 
-    prob = poisson.problem(mesh, cfg.order, cfg, device)
+    problems = {"poisson": poisson.problem, "cgpoisson": cgpoisson.problem}
+    prob = problems[cfg.problem_type](mesh, cfg.order, cfg, device)
 
     num_dofs = prob.space.ndofs
     num_cells = mesh.num_cells_global
@@ -141,16 +222,17 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     sol_norm = float(norm(x, solver.acc_dtype))
     print(f"*** Number of Krylov iterations: {num_iter}")
     print(f"*** Solution norm:  {sol_norm}", flush=True)
-    if solver.true_rel is not None:
-        print(f"*** True residual ||b-Ax||/||b|| (f64): {solver.true_rel:.3e}"
-              f" ({solver.refine_passes} refinement pass(es), "
-              f"+{solver.refine_iterations} iterations)", flush=True)
+    true_rel = getattr(solver, "true_rel", None)
+    passes = getattr(solver, "refine_passes", 0)
+    extra = getattr(solver, "refine_iterations", 0)
+    if true_rel is not None:
+        print(f"*** True residual ||b-Ax||/||b|| (f64): {true_rel:.3e}"
+              f" ({passes} refinement pass(es), +{extra} iterations)",
+              flush=True)
     cfg.solver.warn_options_left()
-    return SolveResult(iterations=num_iter, norm=sol_norm,
-                       true_rel=solver.true_rel,
-                       refine_passes=solver.refine_passes,
-                       refine_iterations=solver.refine_iterations,
-                       problem=prob)
+    return SolveResult(iterations=num_iter, norm=sol_norm, true_rel=true_rel,
+                       refine_passes=passes, refine_iterations=extra,
+                       problem=prob, x=x)
 
 
 def main(argv: Optional[List[str]] = None) -> SolveResult:

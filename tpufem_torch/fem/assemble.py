@@ -12,7 +12,7 @@ import functools
 
 import numpy as np
 
-from tpufem.fem.reference import ReferenceTet
+from tpufem_torch.fem.reference import ReferenceTet
 
 
 @functools.lru_cache(maxsize=None)

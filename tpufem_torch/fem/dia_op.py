@@ -1,29 +1,33 @@
-"""DIA (shift-diagonal stencil) operator of the P1 Kuhn lattice
-(counterpart of tpufem/fem/dia_op.py).
+"""DIA (shift-diagonal stencil) operator of the Kuhn lattice
+(counterpart of tpufem/fem/dia_op.py, scalar operators).
 
-The BC-eliminated P1 matrix is stored as shift diagonals of the vertex
-grid:
+The matrix is stored as shift diagonals between typed dof grids
+(fem.structured_op.grid_layout):
 
-  y(z, y, x) += W_d(z, y, x) * x(z+dz, y+dy, x+dx)
+  y[dst](z, y, x) += W[(dst, src, d)](z, y, x) * x[src](z+dz, y+dy, x+dx)
 
 with 15 diagonals for P1 (the Kuhn cube couples each vertex to 14
-neighbours).  The host build is tpufem's numpy code restricted to P1
-scalar operators, so its tables are bitwise equal to tpufem's:
+neighbours) and 230 / 1311 terms for P2 / P3.  The host build is
+tpufem's numpy code for scalar operators, so its tables are bitwise
+equal to tpufem's:
 
-- const mode (lattices with >= 6 cubes per axis): each diagonal's weight
-  field is translation-invariant away from the lattice boundary, so it
-  is built on an 8^3 surrogate lattice and expanded to z-zone fields
-  (lo[3, Y, X], mid[1, Y, X] broadcast along z, hi[3, Y, X]; grids under
-  7 planes keep the full field);
-- dense mode (smaller lattices): one full weight array per diagonal.
+- const mode: each term's weight field is translation-invariant away
+  from the lattice boundary, so it is built on an 8^3 surrogate lattice
+  and expanded to z-zone fields (lo[3, Y, X], mid[1, Y, X] broadcast
+  along z, hi[3, Y, X]; grids under 7 planes keep the full field).  P1
+  takes it on lattices with >= 6 cubes per axis; P2/P3 through
+  ``try_const`` (None when the lattice is too small);
+- dense mode (smaller P1 lattices): one full weight array per diagonal.
 
 Dirichlet elimination (zeroed rows and columns, unit diagonal) is baked
-into the weights.  On the device the fields are stacked into one
-[D, R, Y, X] tensor and ``apply`` is ONE stencil launch
-(fem.stencil.stencil_apply, the CUDA kernel on a card).
+into the weights (``bake_bc=True``), or only recorded in the mask
+(``bake_bc=False``, the matrix-free rows-zero convention).  On the
+device a P1 operator stacks its fields into one [D, R, Y, X] tensor and
+``apply`` is ONE stencil launch (fem.stencil.stencil_apply, the CUDA
+kernel on a card).  A P2/P3 operator stays on the host: the device runs
+it as a fem.strip_op.StripOperator built from its tables.
 
-Higher orders and the bs = 3 elasticity operator raise
-NotImplementedError (ROADMAP M10, M12).
+The bs = 3 elasticity operator raises NotImplementedError (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -34,26 +38,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpufem.mesh.structured import BoxTetMesh
-
 from tpufem_torch.fem.stencil import stencil_apply
-from tpufem_torch.fem.structured_op import (GridLayout, dof_slice_plan,
-                                            grid_layout,
-                                            perm_element_matrices)
+from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
+                                            dof_slice_plan, grid_layout,
+                                            np_dtype, perm_element_matrices)
+from tpufem_torch.mesh.structured import BoxTetMesh
 
 _SHELL = 2  # per-axis shell margin: truncation (1) + BC adjacency (1)
 _SURR = 8   # surrogate lattice cubes per axis
-
-_NP_DTYPE = {torch.float32: np.dtype(np.float32),
-             torch.float64: np.dtype(np.float64)}
-
-
-def np_dtype(dtype: torch.dtype) -> np.dtype:
-    """numpy twin of a floating torch dtype."""
-    if dtype not in _NP_DTYPE:
-        raise TypeError(f"operators are float32 or float64, not {dtype}")
-    return _NP_DTYPE[dtype]
-
 
 def _overlap(Zo, Yo, Xo, Zi, Yi, Xi, d):
     """Static dst-slice bounds such that src = dst + d stays in range."""
@@ -81,11 +73,7 @@ def _clamp_index(Lr: int, Ls: int, m: int) -> np.ndarray:
     return q
 
 
-def _p1_scalar_only(order: int, problem: str) -> None:
-    if order != 1:
-        raise NotImplementedError(
-            f"order {order}: the port's DiaOperator is P1 only "
-            "(P2/P3 const tables and StructuredOperator: ROADMAP M10)")
+def _scalar_only(problem: str) -> None:
     if problem == "elasticity":
         raise NotImplementedError(
             "bs = 3 (elasticity) DIA operators: ROADMAP M12")
@@ -93,17 +81,19 @@ def _p1_scalar_only(order: int, problem: str) -> None:
 
 @dataclasses.dataclass
 class DiaOperator:
-    """P1 DIA stencil matrix of the vertex grid.
+    """Scalar DIA stencil matrix between typed dof grids.
 
     Host state (numpy, equal to tpufem's): ``plan`` holds one entry per
-    shift diagonal, ``(0, 0, 0, 0, (dx, dy, dz), dst-slice bounds,
-    kind)`` with kind "table" (const mode: ``weights`` holds the absolute
-    surrogate table) or None (dense mode: ``weights`` holds the dst-slice
-    array); ``zone_plan``/``zones`` the precomputed z-zone fields of a
-    const-mode operator; ``bc_mask_np`` the Dirichlet mask.
+    (dst, src, shift) term, ``(dst kind, dst slot, src kind, src slot,
+    (dx, dy, dz), dst-slice bounds, mode)`` with mode "table" (const
+    mode: ``weights`` holds the absolute surrogate table) or None (dense
+    mode: ``weights`` holds the dst-slice array); ``zone_plan``/``zones``
+    the precomputed z-zone fields of a const-mode operator;
+    ``bc_mask_np`` the Dirichlet mask.
 
-    Device state (after ``_finalize(device)``): ``fields`` [D, R, Y, X],
-    ``offsets`` (D triples (dx, dy, dz)) and ``bc_mask``.
+    Device state (after ``_finalize(device)``): ``bc_mask``, and for a
+    P1 (single-kind) operator ``fields`` [D, R, Y, X] and ``offsets`` (D
+    triples (dx, dy, dz)).
     """
 
     weights: List[np.ndarray]
@@ -132,31 +122,59 @@ class DiaOperator:
         return (lay.Nz + 1, lay.Ny + 1, lay.Nx + 1)
 
     # -- construction -----------------------------------------------------------
+    @property
+    def multi_kind(self) -> bool:
+        """True for P2/P3 layouts (more than the vertex grid)."""
+        return len(self.layout.kinds) > 1
+
     @classmethod
     def build(cls, mesh: BoxTetMesh, order: int, problem: str,
               bc_dofs: Optional[np.ndarray] = None,
               dtype: torch.dtype = torch.float32, mode: str = "auto",
-              device: Optional[torch.device] = None) -> "DiaOperator":
-        """``mode``: "const" | "dense" | "auto" (const on lattices with
-        >= 6 cubes per axis).  ``device=None`` keeps the operator on the
-        host (numpy twins only)."""
-        _p1_scalar_only(order, problem)
+              device: Optional[torch.device] = None,
+              bake_bc: bool = True) -> "DiaOperator":
+        """``mode``: "const" | "dense" | "auto" (const for P1 on lattices
+        with >= 6 cubes per axis, dense otherwise).  ``bake_bc=False``
+        records the BC mask without eliminating rows/cols in the weights.
+        ``device=None`` keeps the operator on the host (numpy twins
+        only)."""
+        _scalar_only(problem)
         npdtype = np_dtype(dtype)
         if mode == "auto":
-            mode = "const" if min(mesh.Nx, mesh.Ny, mesh.Nz) >= 6 else "dense"
+            mode = ("const" if order == 1
+                    and min(mesh.Nx, mesh.Ny, mesh.Nz) >= 6 else "dense")
         op = None
         if mode == "const":
-            op = cls._build_const(mesh, order, problem, bc_dofs, npdtype)
+            op = cls._build_const(mesh, order, problem, bc_dofs, npdtype,
+                                  bake_bc)
         if op is None:
-            op = cls._build_dense(mesh, order, problem, bc_dofs, npdtype)
+            op = cls._build_dense(mesh, order, problem, bc_dofs, npdtype,
+                                  bake_bc=bake_bc)
         return op._finalize(device)
+
+    @classmethod
+    def try_const(cls, mesh: BoxTetMesh, order: int, problem: str,
+                  bc_dofs: Optional[np.ndarray] = None,
+                  dtype: torch.dtype = torch.float32, bake_bc: bool = True,
+                  device: Optional[torch.device] = None
+                  ) -> Optional["DiaOperator"]:
+        """Const-mode build (no dense fallback) or None: the scalar P2/P3
+        path; callers fall back to StructuredOperator."""
+        _scalar_only(problem)
+        op = cls._build_const(mesh, order, problem, bc_dofs,
+                              np_dtype(dtype), bake_bc)
+        return None if op is None else op._finalize(device)
 
     def _finalize(self, device: Optional[torch.device]) -> "DiaOperator":
         """Precompute the zone fields (const mode) and, given a device,
-        ship the stacked fields and the bc mask there."""
+        ship the bc mask and (single-kind operators) the stacked fields
+        there."""
         if self.is_const() and self.zones is None:
             self._build_zones_np()
         if device is None:
+            return self
+        self.bc_mask = torch.from_numpy(self.bc_mask_np).to(device)
+        if self.multi_kind:
             return self
         if self.zones is not None:
             fields = np.stack([np.concatenate(z, axis=0) for z in self.zones])
@@ -167,12 +185,11 @@ class DiaOperator:
             offsets = tuple(meta[4] for meta in self.plan)
         self.fields = torch.from_numpy(np.ascontiguousarray(fields)).to(device)
         self.offsets = tuple(tuple(int(v) for v in d) for d in offsets)
-        self.bc_mask = torch.from_numpy(self.bc_mask_np).to(device)
         return self
 
     @classmethod
     def _build_dense(cls, mesh, order, problem, bc_dofs, npdtype,
-                     h_override=None) -> "DiaOperator":
+                     h_override=None, bake_bc: bool = True) -> "DiaOperator":
         lay = grid_layout(mesh, order)
         splan = dof_slice_plan(order)
         Ap = perm_element_matrices(mesh, order, problem, h_override=h_override)
@@ -199,7 +216,7 @@ class DiaOperator:
                     acc[key][oz: oz + Nz, oy: oy + Ny, ox: ox + Nx] += c
 
         bc_grids = None
-        if bc_dofs is not None and len(bc_dofs):
+        if bake_bc and bc_dofs is not None and len(bc_dofs):
             mask = np.zeros(lay.ndofs * bs, dtype=bool)
             mask[bc_dofs] = True
             mask = mask.reshape(-1, bs)
@@ -237,11 +254,11 @@ class DiaOperator:
                    layout=lay)
 
     @classmethod
-    def _build_const(cls, mesh, order, problem, bc_dofs,
-                     npdtype) -> Optional["DiaOperator"]:
-        """O(1) constant-weight build via a surrogate lattice; None when
-        the weight structure is not shell-representable (the caller falls
-        back to the dense build)."""
+    def _build_const(cls, mesh, order, problem, bc_dofs, npdtype,
+                     bake_bc: bool = True) -> Optional["DiaOperator"]:
+        """O(1) constant-weight build via a surrogate lattice, for every
+        typed dof grid of the layout; None when the weight structure is
+        not shell-representable (the caller falls back)."""
         M = _SHELL
         lay = grid_layout(mesh, order)
         bs = 1
@@ -261,6 +278,7 @@ class DiaOperator:
         sbc_flat = None
         if bc_dofs is not None and len(bc_dofs):
             flat_mask[bc_dofs] = True
+        if bake_bc and bc_dofs is not None and len(bc_dofs):
             mask2 = flat_mask.reshape(-1, bs)
             parts = []
             for (b, (X, Y, Zd), s), (Zr, Yr, Xr), (Zs, Ys, Xs) in zip(
@@ -278,7 +296,8 @@ class DiaOperator:
             sbc_flat = np.nonzero(np.concatenate(parts).reshape(-1))[0]
 
         surr = cls._build_dense(smesh, order, problem, sbc_flat,
-                                np.dtype(np.float64), h_override=h)
+                                np.dtype(np.float64), h_override=h,
+                                bake_bc=bake_bc)
 
         plan = []
         weights: List[np.ndarray] = []
@@ -347,9 +366,19 @@ class DiaOperator:
     # -- apply ------------------------------------------------------------------
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x on the operator's device (one stencil launch)."""
+        if self.multi_kind:
+            raise NotImplementedError(
+                "the device apply of a P2/P3 DIA operator (-use_strip 0) is "
+                "not ported: ROADMAP M8b (the default runs it as a "
+                "StripOperator)")
         if self.fields is None:
             raise RuntimeError("host-only operator: build it with a device")
         return stencil_apply(x, self.fields, self.offsets, self.grid_dims)
+
+    def apply_bc_rows_zero(self, x: torch.Tensor) -> torch.Tensor:
+        """cgpoisson convention for an unbaked operator: zero BC rows only
+        (reference cgpoisson_problem.cpp:207)."""
+        return torch.where(self.bc_mask, 0.0, self.apply(x))
 
     # -- host twins (numpy float64) ----------------------------------------------
     def _clamp_maps_np(self, kind: int = 0):
@@ -389,11 +418,15 @@ class DiaOperator:
         return np.concatenate([o.reshape(-1, bs) for o in outs]).reshape(-1)
 
     def to_scipy(self):
-        """The operator as a scipy CSR matrix (float64): one dof kind and
-        one term per shift diagonal, so col = row + constant shift and
-        the CSR comes out sorted without a dedup pass."""
+        """The operator as a scipy CSR matrix (float64).  P1: one dof
+        kind and one term per shift diagonal, so col = row + constant
+        shift and the CSR comes out sorted without a dedup pass; P2/P3:
+        triplets per term (no (row, col) pair repeats across terms, so
+        the values are the weights themselves)."""
         import scipy.sparse as sp
         lay = self.layout
+        if self.multi_kind:
+            return self._to_scipy_kinds(sp)
         plan = list(self.terms())
         shifts_seen = [meta[4] for meta, _ in plan]
         if len(set(shifts_seen)) != len(shifts_seen):
@@ -428,6 +461,34 @@ class DiaOperator:
                 + shifts[None, :])[keep].astype(np.int32)
         return sp.csr_matrix((V[keep], cols, indptr), shape=(n, n))
 
+    def _to_scipy_kinds(self, sp):
+        """Triplet export of a multi-kind operator (tpufem's general
+        ``to_scipy`` path, with scipy's COO -> CSR in place of its native
+        helper)."""
+        lay = self.layout
+        kinds = lay.kinds
+
+        def flat_nodes(kind, slot, z0, z1, y0, y1, x0, x1):
+            b, (X, Y, Z), s = kinds[kind]
+            z, y, x = np.meshgrid(np.arange(z0, z1), np.arange(y0, y1),
+                                  np.arange(x0, x1), indexing="ij")
+            return b + ((z * Y + y) * X + x) * s + slot
+
+        rows_l, cols_l, vals_l = [], [], []
+        for meta, W in self.terms():
+            (ko, so, ki, si, d, (z0, z1, y0, y1, x0, x1), _) = meta
+            rows_l.append(flat_nodes(ko, so, z0, z1, y0, y1, x0, x1).ravel())
+            cols_l.append(flat_nodes(ki, si, z0 + d[2], z1 + d[2], y0 + d[1],
+                                     y1 + d[1], x0 + d[0], x1 + d[0]).ravel())
+            vals_l.append(self._dense_weight_np(meta, W).ravel())
+        n = lay.ndofs
+        A = sp.coo_matrix((np.concatenate(vals_l),
+                           (np.concatenate(rows_l), np.concatenate(cols_l))),
+                          shape=(n, n)).tocsr()
+        A.sum_duplicates()
+        A.eliminate_zeros()
+        return A
+
     def apply_np(self, x: np.ndarray) -> np.ndarray:
         """Host float64 twin of ``apply`` (setup-phase spectral estimates,
         certification)."""
@@ -449,8 +510,24 @@ class DiaOperator:
 def build_operator(mesh: BoxTetMesh, order: int, problem: str,
                    bc_dofs: Optional[np.ndarray] = None,
                    dtype: torch.dtype = torch.float32,
-                   device: Optional[torch.device] = None) -> DiaOperator:
-    """The structured operator of the port: the P1 DIA stencil (const
-    zone form on lattices with >= 6 cubes per axis, dense below)."""
-    return DiaOperator.build(mesh, order, problem, bc_dofs=bc_dofs,
-                             dtype=dtype, device=device)
+                   device: Optional[torch.device] = None,
+                   bake_bc: bool = True):
+    """The structured operator (tpufem/fem/dia_op.py:741-775, scalar):
+
+    - P1: the DIA stencil (const zone form on lattices with >= 6 cubes
+      per axis, dense below);
+    - P2/P3: the const-table DIA across all typed dof grids, or the
+      per-perm StructuredOperator when the lattice is too small for the
+      shell reconstruction.
+    """
+    if order == 1:
+        return DiaOperator.build(mesh, order, problem, bc_dofs=bc_dofs,
+                                 dtype=dtype, device=device, bake_bc=bake_bc)
+    if order in (2, 3):
+        op = DiaOperator.try_const(mesh, order, problem, bc_dofs=bc_dofs,
+                                   dtype=dtype, bake_bc=bake_bc,
+                                   device=device)
+        if op is not None:
+            return op
+    return StructuredOperator.build(mesh, order, problem, bc_dofs=bc_dofs,
+                                    dtype=dtype, device=device)

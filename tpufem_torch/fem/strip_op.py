@@ -1,0 +1,440 @@
+"""Channel-strip P2/P3 stencil operator (counterpart of
+tpufem/fem/strip_op.py), with the CUDA kernels of TPU kernels K3 and K4.
+
+The const-table DiaOperator's matrix is evaluated on a channel-resident
+buffer ``[C, Zp, LW]``: every (kind, slot) typed dof grid is one channel
+``c``; per channel the z-planes are rows and the zero-padded (y, x)
+plane, flattened and led by a 128-lane guard, is the lane axis, so a
+lattice shift (dx, dy, dz) is (row offset dz, lane offset dy * Xp + dx).
+Every row is 128 values wide (aligned, coalesced loads), and the
+layout, ``to_strips`` and ``from_strips`` are tpufem's, value for value.
+
+The apply is the kernel form of tpufem's ``_apply_pallas``: per output
+channel co, the sum over its mid terms of ``mid[mi] * x[ci, z+dz,
+lane+off]`` over the channel's whole z range, plus sparse delta rows
+where a z-boundary plane deviates from the mid strip (lo/hi minus mid).
+A term whose grid is too short for z-zones (under 7 planes, tpufem's
+"full" mode, where tpufem has no kernel plan and runs its XLA twin) is
+written as a zero mid strip (left out) plus one delta row per nonzero
+plane: the same matrix, so every operator has a kernel plan.
+
+Pad, guard and out-of-extent planes are exactly zero in every output,
+so CG runs on the padded buffer and buffer dots equal dof dots.
+
+- ``apply_strips`` (K3, replaces ``StripOperator._apply_pallas``,
+  tpufem/fem/strip_op.py:300): csrc/strip_apply.cu on a CUDA tensor, the
+  plain PyTorch version ``apply_strips_plain`` on a CPU tensor;
+- ``cg_resident`` (K4, replaces ``StripOperator.cg_pallas``,
+  strip_op.py:434): the whole Chronopoulos-Gear CG as one cooperative
+  kernel (csrc/strip_cg.cu) on a CUDA tensor, the plain version
+  ``cg_resident_plain`` on a CPU tensor.
+
+A CUDA tensor launches the kernel or raises; nothing falls back.  Each
+wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpufem_torch.fem.dia_op import DiaOperator
+from tpufem_torch.fem.structured_op import GridLayout, np_dtype
+
+_GUARD = 128  # left lane guard >= max |in-plane shift| (|dy| * Xp + |dx|)
+_M = 3        # z-zone shell width (dia_op._SHELL + 1)
+CG_RESIDENT_LIMIT = 14 * 2**20  # tpufem's whole-CG residency gate (bytes)
+
+
+def _rup(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclasses.dataclass
+class StripOperator:
+    """Channel-strip const-stencil matrix (scalar P2/P3 cube path).
+
+    ``mid_pack`` [NT, TILE] holds the mid strips, ``dlt_pack`` [ND, TILE]
+    the delta rows (at least one row, zero when there is none).
+    ``kplan[co] = (mid entries (mi, ci, dz, off), delta entries (di, row,
+    ci, dz, off))`` is the per-output-channel plan; ``tables`` the same
+    as device int32 CSR tables (see ``_tables``)."""
+
+    mid_pack: torch.Tensor
+    dlt_pack: torch.Tensor
+    kplan: Tuple
+    layout: GridLayout
+    channels: Tuple          # per channel (kind, slot)
+    kdims: Tuple             # per kind (Z, Y, X)
+    dims: Tuple              # (C, Zc, Yp, Xp, PF, TILE, LW, Zp)
+    bc_mask: np.ndarray      # flat BC mask of the underlying matrix
+    tables: Tuple[torch.Tensor, ...]
+
+    # -- construction -----------------------------------------------------------
+    @classmethod
+    def from_dia(cls, dia: DiaOperator, dtype: torch.dtype = torch.float32,
+                 device: torch.device = torch.device("cpu")
+                 ) -> Optional["StripOperator"]:
+        """Build from a const-mode scalar DiaOperator, or None when the
+        structure does not fit (non-const, or in-plane shifts beyond the
+        lane guard)."""
+        if not dia.is_const():
+            return None
+        lay = dia.layout
+        channels = []
+        kdims = []
+        for kind, (base, (X, Y, Z), s) in enumerate(lay.kinds):
+            for slot in range(s):
+                channels.append((kind, slot))
+            kdims.append((Z, Y, X))
+        C = len(channels)
+        chan_of = {ks: c for c, ks in enumerate(channels)}
+        Zc = max(d[0] for d in kdims)
+        Yc = max(d[1] for d in kdims)
+        Xc = max(d[2] for d in kdims)
+        Yp, Xp = Yc + 2, Xc + 2
+        if any(abs(d[4][1]) * Xp + abs(d[4][0]) > _GUARD
+               or abs(d[4][2]) > 1 for d in dia.plan):
+            return None
+        PF = Yp * Xp
+        TILE = _rup(PF, 128)
+        LW = _GUARD + TILE + 128
+        Zp = Zc + 2
+        npdt = np_dtype(dtype)
+
+        mids: List[np.ndarray] = []
+        dlts: List[np.ndarray] = []
+        kmid = [[] for _ in range(C)]   # per co: (mi, ci, dz, off)
+        kdlt = [[] for _ in range(C)]   # per co: (di, row, ci, dz, off)
+        for term_meta, T in dia.terms():
+            (ko, so, ki, si, d, (z0, z1, y0, y1, x0, x1), _c) = term_meta
+            co = chan_of[(ko, so)]
+            ci = chan_of[(ki, si)]
+            Zk, Yk, Xk = kdims[ko]
+            off = d[1] * Xp + d[0]
+            # full dst-grid weight field, zero outside the slice bounds
+            # (exactly dia._dense_weight_np's reconstruction)
+            F = np.zeros((Zk, Yk, Xk))
+            F[z0:z1, y0:y1, x0:x1] = dia._dense_weight_np(term_meta, T)
+            if not F.any():
+                continue
+
+            def embed(planes: np.ndarray) -> np.ndarray:
+                """[nz, Yk, Xk] -> lane strips [nz, TILE] at (1 + y, 1 + x)."""
+                nz = planes.shape[0]
+                canvas = np.zeros((nz, Yp, Xp))
+                canvas[:, 1:1 + Yk, 1:1 + Xk] = planes
+                out = np.zeros((nz, TILE), dtype=npdt)
+                out[:, :PF] = canvas.reshape(nz, PF)
+                return out
+
+            if Zk >= 2 * _M + 1:
+                # mid-zone constancy in z follows from the clamp maps;
+                # checked so a violation can never give a wrong operator
+                mid = F[_M: Zk - _M]
+                if not (mid == mid[:1]).all():
+                    return None
+                lo_s, mid_s, hi_s = (embed(F[:_M]), embed(F[_M: _M + 1]),
+                                     embed(F[Zk - _M:]))
+                kmid[co].append((len(mids), ci, d[2], off))
+                mids.append(mid_s[0])
+                for r in range(_M):
+                    if not np.array_equal(lo_s[r], mid_s[0]):
+                        kdlt[co].append((len(dlts), r, ci, d[2], off))
+                        dlts.append(lo_s[r] - mid_s[0])
+                    if not np.array_equal(hi_s[r], mid_s[0]):
+                        kdlt[co].append((len(dlts), Zk - _M + r, ci,
+                                         d[2], off))
+                        dlts.append(hi_s[r] - mid_s[0])
+            else:
+                # a short grid: zero mid strip, one delta row per plane
+                full = embed(F)
+                for r in range(Zk):
+                    if full[r].any():
+                        kdlt[co].append((len(dlts), r, ci, d[2], off))
+                        dlts.append(full[r])
+
+        kplan = tuple((tuple(kmid[c]), tuple(kdlt[c])) for c in range(C))
+        mid_pack = np.stack(mids) if mids else np.zeros((1, TILE), npdt)
+        dlt_pack = np.stack(dlts) if dlts else np.zeros((1, TILE), npdt)
+        dims = (C, Zc, Yp, Xp, PF, TILE, LW, Zp)
+        zk = [kdims[kind][0] for kind, _ in channels]
+        return cls(mid_pack=torch.from_numpy(mid_pack).to(device),
+                   dlt_pack=torch.from_numpy(dlt_pack).to(device),
+                   kplan=kplan, layout=lay, channels=tuple(channels),
+                   kdims=tuple(kdims), dims=dims,
+                   bc_mask=np.asarray(dia.bc_mask_np),
+                   tables=_tables(kplan, zk, Zc, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mid_pack.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.mid_pack.dtype
+
+    # -- layout conversion --------------------------------------------------------
+    def to_strips(self, u: torch.Tensor) -> torch.Tensor:
+        """[ndofs] -> [C, Zp, LW] zero-padded channel buffer (once per
+        solve; the CG loop stays channel-resident)."""
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        canvas = torch.zeros((C, Zp, Yp, Xp), dtype=self.dtype,
+                             device=u.device)
+        grids = self.layout.split(u.to(self.dtype).reshape(-1, 1))
+        for c, (kind, slot) in enumerate(self.channels):
+            Zk, Yk, Xk = self.kdims[kind]
+            canvas[c, 1:1 + Zk, 1:1 + Yk, 1:1 + Xk] = grids[kind][..., slot, 0]
+        out = torch.zeros((C, Zp, LW), dtype=self.dtype, device=u.device)
+        out[:, :, _GUARD:_GUARD + PF] = canvas.reshape(C, Zp, PF)
+        return out
+
+    def from_strips(self, yb: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        view = yb[:, :, _GUARD:_GUARD + PF].reshape(C, Zp, Yp, Xp)
+        chan_of = {ks: c for c, ks in enumerate(self.channels)}
+        outs = []
+        for kind, (base, (X, Y, Z), s) in enumerate(self.layout.kinds):
+            cols = [view[chan_of[(kind, slot)], 1:1 + Z, 1:1 + Y, 1:1 + X]
+                    for slot in range(s)]
+            outs.append(cols[0].reshape(-1) if s == 1
+                        else torch.stack(cols, dim=-1).reshape(-1))
+        y = torch.cat(outs)
+        return y.to(dtype) if dtype is not None else y
+
+    # -- apply (K3) ---------------------------------------------------------------
+    def _check_strips(self, x: torch.Tensor) -> None:
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        if tuple(x.shape) != (C, Zp, LW):
+            raise ValueError(f"strip buffer of shape {tuple(x.shape)}, "
+                             f"expected {(C, Zp, LW)}")
+        if x.dtype != self.dtype or x.device != self.device:
+            raise TypeError(f"strip buffer {x.dtype}@{x.device} does not "
+                            f"match the operator {self.dtype}@{self.device}")
+        if not x.is_contiguous():
+            raise ValueError("strip buffer must be contiguous")
+
+    def apply_strips(self, x: torch.Tensor) -> torch.Tensor:
+        """[C, Zp, LW] -> [C, Zp, LW]: the stencil apply.  A CPU tensor
+        takes the plain version; a CUDA tensor launches the K3 kernel
+        (counted in ``StripOperator.apply_strips.launches``)."""
+        self._check_strips(x)
+        if x.device.type == "cpu":
+            return self.apply_strips_plain(x)
+        if x.device.type != "cuda":
+            raise RuntimeError(f"no strip kernel for device {x.device}")
+        return self._launch_apply(x)
+
+    def _plain_index(self):
+        """Index tensors of the plain version (built once)."""
+        got = self.__dict__.get("_plain_idx")
+        if got is not None:
+            return got
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        mid = [(co, mi, ci, dz, off) for co, (km, _) in enumerate(self.kplan)
+               for (mi, ci, dz, off) in km]
+        dlt = [(co, di, row, ci, dz, off)
+               for co, (_, kd) in enumerate(self.kplan)
+               for (di, row, ci, dz, off) in kd]
+        dev = self.device
+
+        def cols(rows, n):
+            a = np.asarray(rows, dtype=np.int64).reshape(-1, n)
+            return [torch.from_numpy(a[:, j].copy()).to(dev) for j in range(n)]
+
+        m_co, m_mi, m_ci, m_dz, m_off = cols(mid, 5)
+        d_co, d_di, d_row, d_ci, d_dz, d_off = cols(dlt, 6)
+        z = torch.arange(Zc, device=dev)
+        lane = torch.arange(TILE, device=dev)
+        zk = torch.tensor([self.kdims[k][0] for k, _ in self.channels],
+                          device=dev)
+        got = dict(
+            m_co=m_co, m_mi=m_mi, m_ci=m_ci[:, None, None],
+            m_z=(1 + m_dz)[:, None, None] + z[None, :, None],
+            m_lane=(_GUARD + m_off)[:, None, None] + lane[None, None, :],
+            d_co=d_co, d_row=d_row, d_di=d_di, d_ci=d_ci[:, None],
+            d_z=(1 + d_row + d_dz)[:, None],
+            d_lane=(_GUARD + d_off)[:, None] + lane[None, :],
+            planes=(z[None, :] < zk[:, None])[..., None])
+        self.__dict__["_plain_idx"] = got
+        return got
+
+    def apply_strips_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch version of K3, the kernel's arithmetic: mid terms
+        over the full z range (rows past a channel's extent masked off),
+        then the delta rows, written to the body [1:1+Zk, G:G+TILE];
+        every other slot zero."""
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        ix = self._plain_index()
+        body = torch.zeros((C, Zc, TILE), dtype=x.dtype, device=x.device)
+        if ix["m_co"].numel():
+            src = x[ix["m_ci"], ix["m_z"], ix["m_lane"]]   # [NT, Zc, TILE]
+            body.index_add_(0, ix["m_co"],
+                            self.mid_pack[ix["m_mi"]][:, None, :] * src)
+        body = body * ix["planes"]
+        if ix["d_co"].numel():
+            src = x[ix["d_ci"], ix["d_z"], ix["d_lane"]]   # [ND, TILE]
+            body.index_put_((ix["d_co"], ix["d_row"]),
+                            self.dlt_pack[ix["d_di"]] * src, accumulate=True)
+        y = torch.zeros_like(x)
+        y[:, 1:1 + Zc, _GUARD:_GUARD + TILE] = body
+        return y
+
+    def _launch_apply(self, x: torch.Tensor) -> torch.Tensor:
+        from tpufem_torch import _build
+        lib = _build.load().lib
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        fn = (lib.tpufem_strip_apply_f32 if x.dtype == torch.float32
+              else lib.tpufem_strip_apply_f64)
+        y = torch.empty_like(x)
+        mptr, ment, dptr, dent, zk = self.tables
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.device.index, x.data_ptr(), self.mid_pack.data_ptr(),
+                self.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
+                dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), y.data_ptr(),
+                C, Zc, Zp, LW, TILE, _GUARD, stream)
+        _raise_on(lib, rc, f"strip_apply on [{C}, {Zp}, {LW}]")
+        StripOperator.apply_strips.launches += 1
+        return y
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        """Flat dof-vector apply (tests / drop-in use; the CG loop runs
+        channel-resident through ``apply_strips``)."""
+        return self.from_strips(self.apply_strips(self.to_strips(u)),
+                                dtype=u.dtype)
+
+    # -- whole-CG kernel (K4) -------------------------------------------------------
+    def cg_resident_bytes(self) -> int:
+        """Resident state of the in-kernel CG: b (in), x (out), p/s/r,
+        plus the weight packs (tpufem's VMEM gate; on the card the state
+        sits in the 50 MB L2)."""
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        itemsize = self.mid_pack.element_size()
+        packs = (self.mid_pack.shape[0] + self.dlt_pack.shape[0]) * TILE
+        return (5 * C * Zp * LW + packs) * itemsize
+
+    @property
+    def cg_kernel_ok(self) -> bool:
+        """tpufem's gate: a kernel plan (every port operator has one) and
+        a resident state within 14 MiB."""
+        return self.cg_resident_bytes() <= CG_RESIDENT_LIMIT
+
+    def cg_resident(self, b_strips: torch.Tensor, rtol: float, maxit: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The whole unpreconditioned Chronopoulos-Gear CG from a zero
+        guess: (x_strips, iterations, rel) with iterations an int32 and
+        rel (sqrt(rr / rr0) of the recurrence) a 0-d tensor of the
+        working dtype, both on the buffer's device.  A CPU tensor takes
+        the plain version; a CUDA tensor launches the K4 kernel (counted
+        in ``StripOperator.cg_resident.launches``)."""
+        self._check_strips(b_strips)
+        if b_strips.device.type == "cpu":
+            return self.cg_resident_plain(b_strips, rtol, maxit)
+        if b_strips.device.type != "cuda":
+            raise RuntimeError(f"no CG kernel for device {b_strips.device}")
+        return self._launch_cg(b_strips, rtol, maxit)
+
+    def cg_resident_plain(self, b: torch.Tensor, rtol: float, maxit: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Plain version of K4: tpufem's ``cg_pallas`` recurrence
+        (strip_op.py:487-520) as a torch loop.  s is updated in place as
+        s <- beta s + A r and w.r is recovered as s_new.r - beta s_old.r;
+        once rr <= rtol^2 rr0 the step is frozen, after which no later
+        step changes x, r, rr or the count, so the loop stops there (the
+        kernel stops at the same step).  Dots accumulate in the working
+        dtype, as cg_pallas's do."""
+        x = torch.zeros_like(b)
+        p = torch.zeros_like(b)
+        s = torch.zeros_like(b)
+        r = b.clone()
+        rr0 = torch.sum(r * r)
+        thresh = float(rtol) ** 2 * rr0
+        rr, rr_prev = rr0, torch.ones_like(rr0)
+        alpha_prev = torch.ones_like(rr0)
+        cnt = 0
+        for k in range(int(maxit)):
+            if not bool(rr > thresh):
+                break
+            beta = torch.zeros_like(rr) if k == 0 else rr / rr_prev
+            sr_old = torch.sum(s * r)
+            s = beta * s + self.apply_strips_plain(r)
+            wr = torch.sum(s * r) - beta * sr_old
+            alpha = rr / (wr - beta * rr / alpha_prev)
+            p = r + beta * p
+            x = x + alpha * p
+            r = r - alpha * s
+            rr_prev, rr, alpha_prev = rr, torch.sum(r * r), alpha
+            cnt += 1
+        it = torch.tensor(cnt, dtype=torch.int32, device=b.device)
+        return x, it, torch.sqrt(rr / rr0)
+
+    def _launch_cg(self, b: torch.Tensor, rtol: float, maxit: int):
+        from tpufem_torch import _build
+        lib = _build.load().lib
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        suffix = "f32" if b.dtype == torch.float32 else "f64"
+        fn = getattr(lib, f"tpufem_strip_cg_{suffix}")
+        nblk = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")(b.device.index)
+        if nblk <= 0:
+            _raise_on(lib, -nblk, "strip_cg occupancy query")
+        nblk = min(nblk, -(-C * Zp * LW // _build.CG_THREADS))
+        x = torch.empty_like(b)
+        work = torch.empty((3, C, Zp, LW), dtype=b.dtype, device=b.device)
+        # per-block partials: [sr_old, sr_new] and rr, in separate arrays
+        partials = torch.empty(3 * nblk, dtype=b.dtype, device=b.device)
+        it = torch.empty((), dtype=torch.int32, device=b.device)
+        rel = torch.empty((), dtype=b.dtype, device=b.device)
+        mptr, ment, dptr, dent, zk = self.tables
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = fn(b.device.index, b.data_ptr(), self.mid_pack.data_ptr(),
+                self.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
+                dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), x.data_ptr(),
+                work.data_ptr(), partials.data_ptr(), it.data_ptr(),
+                rel.data_ptr(), C, Zc, Zp, LW, TILE, _GUARD,
+                float(rtol) ** 2, int(maxit), nblk, stream)
+        _raise_on(lib, rc, f"strip_cg on [{C}, {Zp}, {LW}] with {nblk} blocks")
+        StripOperator.cg_resident.launches += 1
+        return x, it, rel
+
+
+StripOperator.apply_strips.launches = 0
+StripOperator.cg_resident.launches = 0
+
+
+def _tables(kplan, zk, Zc: int, device: torch.device):
+    """The plan as int32 CSR tables for the kernels: mid entries (mi, ci,
+    dz, off) grouped by output channel (``mid_ptr`` [C + 1]); delta
+    entries (di, ci, dz, off) grouped by (channel, row) (``dlt_ptr``
+    [C * Zc + 1], row-major); ``zk`` [C] the channel's plane count."""
+    C = len(kplan)
+    mid_ptr = np.zeros(C + 1, dtype=np.int32)
+    mid_ent: List[Tuple[int, ...]] = []
+    dlt_ptr = np.zeros(C * Zc + 1, dtype=np.int32)
+    dlt_ent: List[Tuple[int, ...]] = []
+    for co, (km, kd) in enumerate(kplan):
+        mid_ent.extend(km)
+        mid_ptr[co + 1] = len(mid_ent)
+        by_row = [[] for _ in range(Zc)]
+        for (di, row, ci, dz, off) in kd:
+            by_row[row].append((di, ci, dz, off))
+        for row in range(Zc):
+            dlt_ent.extend(by_row[row])
+            dlt_ptr[co * Zc + row + 1] = len(dlt_ent)
+
+    def dev(a, n):
+        a = np.asarray(a, dtype=np.int32).reshape(-1, n) if n else a
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (dev(mid_ptr, 0), dev(mid_ent or np.zeros((0, 4)), 4),
+            dev(dlt_ptr, 0), dev(dlt_ent or np.zeros((0, 4)), 4),
+            dev(np.asarray(zk, dtype=np.int32), 0))
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.tpufem_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: {msg} (cuda error {rc})")

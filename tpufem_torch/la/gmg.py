@@ -27,13 +27,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpufem.fem.space import FunctionSpace
-from tpufem.mesh.structured import BoxTetMesh
-
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.la.chebyshev import (chebyshev_smoother,
                                        chebyshev_smoother_zero)
+from tpufem_torch.mesh.structured import BoxTetMesh
 
 
 # ---------------------------------------------------------------------------

@@ -19,21 +19,22 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from tpufem.config import Config
-from tpufem.fem.space import FunctionSpace
-from tpufem.mesh.structured import CELL_VERTEX_OFFSETS, LOCAL_FACES, BoxTetMesh
-
+from tpufem_torch.config import Config
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
-from tpufem_torch.fem.structured_op import dof_gids_for_cells
+from tpufem_torch.fem.space import FunctionSpace
+from tpufem_torch.fem.structured_op import (StructuredOperator,
+                                            dof_gids_for_cells)
 from tpufem_torch.la.cg import cg_solve
 from tpufem_torch.la.refine import Certifier
+from tpufem_torch.mesh.structured import (CELL_VERTEX_OFFSETS, LOCAL_FACES,
+                                          BoxTetMesh)
 from tpufem_torch.problems import common
 from tpufem_torch.timing import Timer
 
 
 def _facet_rhs_structured_np(space: FunctionSpace) -> np.ndarray:
-    """Host O(surface) boundary term of L on a BoxTetMesh (P1), from the
+    """Host O(surface) boundary term of L on a BoxTetMesh, from the
     closed-form facet -> cell table."""
     mesh = space.mesh
     facets = mesh.boundary_faces()
@@ -45,24 +46,36 @@ def _facet_rhs_structured_np(space: FunctionSpace) -> np.ndarray:
     area2 = np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0],
                                     tri[:, 2] - tri[:, 0]), axis=-1)
     W = space.element.facet_mass_tensors[lf] * area2[:, None, None]
-    # P1: g only at the facet vertices (their gids decode to coords)
-    g_cells = common.poisson_g(
-        mesh.vertex_coords(cd_cells.reshape(-1))).reshape(cd_cells.shape)
+    if space.order == 1:
+        # g only at the facet vertices (their gids decode to coords)
+        g_cells = common.poisson_g(
+            mesh.vertex_coords(cd_cells.reshape(-1))).reshape(cd_cells.shape)
+    else:
+        g_cells = space.interpolate(common.poisson_g)[cd_cells]
     contrib = np.einsum("fij,fj->fi", W, g_cells)
     return np.bincount(cd_cells.reshape(-1), weights=contrib.reshape(-1),
                        minlength=space.ndofs_scalar)
 
 
 def assemble_poisson_rhs_structured_dev(space: FunctionSpace,
-                                        bc: DirichletBC,
-                                        mass: DiaOperator) -> torch.Tensor:
-    """Device RHS (P1): f evaluated on the device from coordinates (it
-    varies only in (x, y)), one apply of the device mass operator
-    ``mass`` (no BC), the host facet term added at its nonzero dofs, and
-    the BC values set."""
+                                        bc: DirichletBC, mass) -> torch.Tensor:
+    """Device RHS: one apply of the device mass operator ``mass`` (no
+    BC), the host facet term, and the BC values set.  P1 (``mass`` a
+    DiaOperator): f evaluated on the device from coordinates (it varies
+    only in (x, y)), the facet term added at its nonzero dofs.  P2/P3
+    (``mass`` a StructuredOperator): f interpolated on the host, as
+    tpufem/problems/poisson.py:145-159 does."""
     mesh = space.mesh
-    dtype, device = mass.fields.dtype, mass.fields.device
     b_facet = _facet_rhs_structured_np(space)
+    if space.order != 1:
+        dtype, device = mass.A_dev.dtype, mass.A_dev.device
+        nd = np_dtype(dtype)
+        f = torch.from_numpy(
+            space.interpolate(common.poisson_f).astype(nd)).to(device)
+        b = mass.apply_raw(f) + torch.from_numpy(b_facet.astype(nd)).to(device)
+        return b.index_fill(0, torch.from_numpy(bc.flat_dofs()).to(device),
+                            bc.value)
+    dtype, device = mass.fields.dtype, mass.fields.device
     fnz = np.flatnonzero(b_facet != 0.0)
     Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
     x = torch.arange(Nx + 1, dtype=dtype, device=device) / Nx
@@ -77,12 +90,18 @@ def assemble_poisson_rhs_structured_dev(space: FunctionSpace,
 
 
 def assemble_poisson_rhs_np(space: FunctionSpace) -> np.ndarray:
-    """Host float64 RHS: mass-stencil apply of the interpolated f plus
-    the facet term (no BC values)."""
-    mass = DiaOperator.build(space.mesh, space.order, "mass",
-                             dtype=torch.float64)
+    """Host float64 RHS: mass apply of the interpolated f plus the facet
+    term (no BC values); the P1 mass stencil, or for P2/P3 tpufem's
+    per-perm host apply (tpufem/problems/poisson.py:175-190)."""
     f = space.interpolate(common.poisson_f)
-    return mass.apply_np(f) + _facet_rhs_structured_np(space)
+    if space.order == 1:
+        mass = DiaOperator.build(space.mesh, 1, "mass", dtype=torch.float64)
+        vol = mass.apply_np(f)
+    else:
+        mass = StructuredOperator.build(space.mesh, space.order, "mass",
+                                        dtype=torch.float64)
+        vol = mass.apply_raw_np(f)
+    return vol + _facet_rhs_structured_np(space)
 
 
 class Solver:

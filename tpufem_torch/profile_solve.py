@@ -4,10 +4,13 @@ Runs the CLI once (which builds the problem and its preconditioner), then
 times ``--solves`` warm uncertified solves, and profiles one more with
 ``torch.profiler``.  It prints the wall time of the profiled solve, the
 device's busy time (the union of its kernel and copy intervals) and busy
-share, the kernel launches per CG iteration, the stencil kernel's
-launches and device time, and the profiler's op table by device time.
+share, the kernel launches per CG iteration, each of the port's CUDA
+kernels' launches and device time, and the profiler's op table by device
+time.
 
     python -m tpufem_torch.profile_solve                # 500k f32 GMG, cuda
+    python -m tpufem_torch.profile_solve -- --problem_type cgpoisson \\
+        --order 3 --ndofs 500000 --scaling_type strong --device cuda
     python -m tpufem_torch.profile_solve --solves 10 -- --ndofs 15000 \\
         --dtype float32 --device cpu                    # CPU: no device rows
 
@@ -29,7 +32,10 @@ MAIN_PATH = ["--problem_type", "poisson", "--ndofs", "500000",
              "--scaling_type", "strong", "--dtype", "float32",
              "-pc_type", "gmg", "-ksp_rtol", "1e-8", "-ksp_max_it", "100",
              "--device", "cuda"]
-_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaLaunchCooperativeKernel")
+# the port's CUDA kernels, by the name of their device function
+PORT_KERNELS = ("stencil_p1_kernel", "strip_apply_kernel", "strip_cg_kernel")
 
 
 def busy_us(intervals) -> float:
@@ -83,7 +89,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    stencil = [e for e in kernels if "stencil_p1_kernel" in e.name]
+    ours = {k: [e for e in kernels if k in e.name] for k in PORT_KERNELS}
     out = dict(
         iterations=its, solves=runs,
         median_s=statistics.median(runs) if runs else None,
@@ -93,8 +99,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         launch_calls=sum(e.name in _LAUNCH_CALLS for e in events),
         device_kernels=len(kernels),
         device_copies=len(dev) - len(kernels),
-        stencil_kernels=len(stencil),
-        stencil_device_s=sum(e.time_range.elapsed_us() for e in stencil) / 1e6)
+        port_kernels={k: (len(v), sum(e.time_range.elapsed_us() for e in v)
+                          / 1e6) for k, v in ours.items()})
     where = (torch.cuda.get_device_name(prob.b.device) if on_cuda
              else "cpu")
     if runs:
@@ -105,9 +111,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"{out['busy_s']:.4f} s ({100 * out['busy_s'] / wall:.1f}%), "
           f"{out['launch_calls']} launch calls, {out['device_kernels']} "
           f"device kernels ({out['device_kernels'] / max(its, 1):.1f} per "
-          f"iteration) + {out['device_copies']} copies/fills, stencil "
-          f"{out['stencil_kernels']} kernels, {1e3 * out['stencil_device_s']:.3f}"
-          f" ms device  [{where}]")
+          f"iteration) + {out['device_copies']} copies/fills  [{where}]")
+    for k, (n, s) in out["port_kernels"].items():
+        if n:
+            print(f"  {k}: {n} launches, {1e3 * s:.3f} ms device")
     sort = "self_cuda_time_total" if on_cuda else "self_cpu_time_total"
     print(prof.key_averages().table(sort_by=sort, row_limit=25))
     return out

@@ -1,30 +1,59 @@
 """Scoped timers and the ZZZ timing table (counterpart of tpufem/timing.py).
 
-The registry and table are tpufem's.  PyTorch launches CUDA work
-asynchronously, so a timer given a CUDA ``device`` synchronises it before
-the clock stops, where tpufem calls ``jax.block_until_ready``.
+Equivalent of ``dolfinx::common::Timer`` + ``dolfinx::list_timings``
+(reference: src/main.cpp:130,145,208,226).  Stage names keep the
+reference's ``ZZZ`` prefix so timing tables compare line for line.  The
+registry and the table are tpufem's; PyTorch launches CUDA work
+asynchronously, so a timer given a CUDA ``device`` synchronises it
+before the clock stops, where tpufem calls ``jax.block_until_ready``.
 """
 
 from __future__ import annotations
 
+import collections
 import time
-from typing import Any, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
-from tpufem import timing as _timing
 
-_SOLVE_NOTE = "(ZZZ Solve includes preconditioner setup — see 'ZZZ PC setup')"
+class TimingRegistry:
+    """Accumulates (count, total seconds) per timer name."""
 
+    def __init__(self) -> None:
+        self._data: "collections.OrderedDict[str, List[float]]" = \
+            collections.OrderedDict()
 
-class TimingRegistry(_timing.TimingRegistry):
-    """tpufem's registry; its solve note names jax compilation, which the
-    port does not have (its kernel build is a stage of its own)."""
+    def add(self, name: str, elapsed: float) -> None:
+        rec = self._data.setdefault(name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += elapsed
 
-    def table(self, ranks: int = 1) -> str:
-        lines = super().table(ranks).split("\n")
-        if lines[-1].startswith("(ZZZ Solve includes"):
-            lines[-1] = _SOLVE_NOTE
+    def rows(self) -> List[Tuple[str, int, float]]:
+        return [(k, int(v[0]), v[1]) for k, v in self._data.items()]
+
+    def get(self, name: str) -> float:
+        return self._data.get(name, [0, 0.0])[1]
+
+    def reset(self) -> None:
+        self._data.clear()
+
+    def table(self) -> str:
+        """Render the timing table (the ``list_timings`` analogue; one
+        process, so there are no min/avg/max columns over ranks)."""
+        name_w = max([len("Summary")] + [len(k) for k, _, _ in self.rows()]) + 2
+        lines = [
+            f"{'Summary':<{name_w}}{'reps':>6}  {'wall avg':>12}  {'wall tot':>12}",
+        ]
+        has_solve = False
+        for name, reps, tot in self.rows():
+            avg = tot / max(reps, 1)
+            lines.append(f"{name:<{name_w}}{reps:>6}  {avg:>12.6f}  {tot:>12.6f}")
+            has_solve = has_solve or name == "ZZZ Solve"
+        if has_solve:
+            # the kernel build is a stage of its own ("ZZZ Build kernels")
+            lines.append("(ZZZ Solve includes preconditioner setup — see "
+                         "'ZZZ PC setup')")
         return "\n".join(lines)
 
 
@@ -61,6 +90,7 @@ class Timer:
         self.stop()
 
 
-def list_timings(registry: Optional[TimingRegistry] = None,
-                 ranks: int = 1) -> str:
-    return _timing.list_timings(registry or REGISTRY, ranks=ranks)
+def list_timings(registry: Optional[TimingRegistry] = None) -> str:
+    s = (registry or REGISTRY).table()
+    print(s, flush=True)
+    return s
