@@ -6,11 +6,14 @@ Runs, with JAX on the CPU, the loop tpufem's ``cgpoisson.problem`` runs
 on the cube mesh for P2/P3 (tpufem/problems/cgpoisson.py:259-266): the
 device RHS, the const-table DIA as a StripOperator, and
 ``cg_solve_fused`` on the strip buffer; for P1 the baked DIA with
-``cg_solve_fused``.  It prints one JSON line per configuration: the
+``cg_solve_fused``.  With ``--flat`` (P2/P3) it runs the ``-use_flat 1``
+loop instead (cgpoisson.py:268-277): the DIA as a FlatOperator (its XLA
+interior twin on the CPU) and ``cg_solve_fused`` on the float32
+channel-plane buffer.  It prints one JSON line per configuration: the
 lattice, ndofs, iterations, the recurrence rel and the solution norm.
 
     python scripts/cgpoisson_reference.py --order 3 --ndofs 500000 \\
-        --scaling_type strong --dtype float32
+        --scaling_type strong --dtype float32 [--flat]
 
 float64 turns on jax's x64 mode, as tpufem's CLI does; float32 keeps it
 off, so dots accumulate in float32, as in a tpufem float32 run.
@@ -21,7 +24,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pathlib
+import sys
 import time
+
+# run as a script from anywhere: tpufem is the repository's own package
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
 def main() -> None:
@@ -32,6 +40,8 @@ def main() -> None:
     p.add_argument("--dtype", default="float32")
     p.add_argument("--rtol", type=float, default=1e-6)
     p.add_argument("--kmax", type=int, default=100)
+    p.add_argument("--flat", action="store_true",
+                   help="the -use_flat 1 operator (P2/P3)")
     a = p.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
@@ -42,6 +52,7 @@ def main() -> None:
     import numpy as np
 
     from tpufem.fem.dia_op import build_operator
+    from tpufem.fem.flat_op import FlatOperator
     from tpufem.fem.dirichlet import DirichletBC
     from tpufem.fem.space import FunctionSpace
     from tpufem.fem.strip_op import StripOperator
@@ -67,7 +78,16 @@ def main() -> None:
         b = jnp.asarray(b_np)
     op = build_operator(mesh, a.order, "poisson", bc_dofs=bc.flat_dofs(),
                         dtype=dtype, bake_bc=True)
-    if a.order >= 2:
+    if a.flat:
+        op = FlatOperator.from_dia(op)
+        if op is None:
+            raise SystemExit("the lattice does not fit the flat operator")
+
+        def run(r):
+            x_f, it, rel = cg_solve_fused(op.apply_flat, op.to_flat(r),
+                                          x0=None, rtol=a.rtol, maxit=a.kmax)
+            return op.from_flat(x_f).astype(r.dtype), it, rel
+    elif a.order >= 2:
         op = StripOperator.from_dia(op, dtype=dtype)
 
         def run(r):
@@ -83,7 +103,7 @@ def main() -> None:
     x = np.asarray(x)
     print(json.dumps({
         "order": a.order, "ndofs": int(space.ndofs), "lattice": [nx, ny, nz],
-        "scaling_type": a.scaling_type, "dtype": a.dtype,
+        "scaling_type": a.scaling_type, "dtype": a.dtype, "flat": a.flat,
         "iterations": int(it), "rel": float(rel),
         "norm": float(np.linalg.norm(x.astype(np.float64))),
         "norm_in_dtype": float(jnp.sqrt(jnp.sum(jnp.asarray(x) ** 2))),

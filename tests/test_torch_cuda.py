@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the P1 stencil, the strip apply K3 and the
-whole-CG kernel K4) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (the P1 stencil, the strip apply K3, the
+whole-CG kernel K4 and the flat interior K5) against their plain PyTorch
+versions, on the card.
 Marked ``cuda``: without a CUDA device every test skips.
 
 This file imports no jax, so it also runs on a machine without jax; the
@@ -16,6 +17,7 @@ import torch
 
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.flat_op import FlatOperator
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_plain
 from tpufem_torch.fem.strip_op import StripOperator
@@ -204,5 +206,70 @@ def test_cgpoisson_cli_engages_the_kernels(device):
         assert on.problem.solver_function.cg_kernel_engaged
         assert abs(on.iterations - off.iterations) <= 1
         assert abs(on.norm - off.norm) <= 1e-9 * off.norm
+    finally:
+        cgpoisson.TIMING_PASSES, cgpoisson.TIMING_REPS = 3, 10
+
+
+# |kernel - plain| <= tol * sum |WT| |x|: K = 120 (P2) or 480 (P3) terms
+# per element in two orders (cuBLAS or the CPU's bmm against sequential
+# fused multiply-adds): 480 * 2^-24 and 480 * 2^-53, rounded up
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("order,dims", [
+    (2, (8, 9, 10)), (3, (8, 8, 9)), (3, (24, 24, 32))],
+    ids=["P2", "P3", "P3-500k"])
+def test_flat_interior_kernel_matches_plain(device, order, dims, dtype, tol):
+    import dataclasses
+    _, _, dia = _strip(order, dims, torch.float32, device)
+    op = FlatOperator.from_dia(dia, device=device).astype(dtype)
+    g = op.geom
+    rng = np.random.default_rng(0)
+    # a nonzero halo: the kernel reads it on the tile's halo lanes
+    x = torch.from_numpy(rng.standard_normal((g.Zp, g.CP, g.LW))).to(
+        device, dtype)
+    before = FlatOperator.interior.launches
+    y = op.interior(x)
+    assert FlatOperator.interior.launches == before + 1
+    yp = op.interior_plain(x)
+    absop = dataclasses.replace(op, W0=op.W0.abs(), AZT=op.AZT.abs())
+    bound = absop.interior_plain(x.abs())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    body = torch.zeros_like(y, dtype=torch.bool)
+    body[1:1 + g.Zc, :, 128:128 + g.TILE] = True
+    assert bool((y[~body] == 0).all())
+
+
+def test_flat_interior_rejects_mismatched_buffers(device):
+    _, _, dia = _strip(2, (8, 9, 10), torch.float32, device)
+    op = FlatOperator.from_dia(dia, device=device)
+    g = op.geom
+    with pytest.raises(TypeError):
+        op.interior(torch.zeros((g.Zp, g.CP, g.LW), device=device,
+                                dtype=torch.float64))
+    with pytest.raises(ValueError):
+        op.interior(torch.zeros((g.Zp, g.CP, g.LW + 128), device=device))
+
+
+def test_cgpoisson_use_flat_engages_the_kernel(device):
+    """-use_flat 1 runs the flat interior kernel and no strip kernel,
+    and solves the same system as the strip form (both converged)."""
+    from tpufem_torch import cli
+    from tpufem_torch.problems import cgpoisson
+    cgpoisson.TIMING_PASSES = cgpoisson.TIMING_REPS = 1
+    try:
+        argv = ["--problem_type", "cgpoisson", "--order", "2", "--ndofs",
+                "6000", "--dtype", "float32", "--device", "cuda",
+                "-cg_kmax", "1000"]
+        k3, k5 = (StripOperator.apply_strips.launches,
+                  FlatOperator.interior.launches)
+        flat = cli.main(argv + ["-use_flat", "1"])
+        assert isinstance(flat.problem.solver_function.op, FlatOperator)
+        assert FlatOperator.interior.launches > k5
+        assert StripOperator.apply_strips.launches == k3
+        strip = cli.main(argv)
+        err = float((flat.x - strip.x).norm() / strip.x.norm())
+        assert err <= 1e-4, err
     finally:
         cgpoisson.TIMING_PASSES, cgpoisson.TIMING_REPS = 3, 10

@@ -77,7 +77,8 @@ def test_parse_args_gives_tpufem_config(argv):
 
 def test_runs_with_tpufem_unimportable():
     """``sys.modules["tpufem"] = None`` makes any import of tpufem raise:
-    the port's poisson and cgpoisson CLI runs must not need it."""
+    the port's poisson, cgpoisson and cgpoisson -use_flat CLI runs must
+    not need it."""
     code = (
         "import sys\n"
         "sys.modules['tpufem'] = None\n"
@@ -87,7 +88,10 @@ def test_runs_with_tpufem_unimportable():
         "a = main(['--ndofs', '3000', '--dtype', 'float64', '--device', 'cpu'])\n"
         "b = main(['--problem_type', 'cgpoisson', '--order', '2',"
         " '--ndofs', '3000', '--dtype', 'float32', '--device', 'cpu'])\n"
-        "assert a.iterations > 0 and b.iterations > 0\n"
+        "f = main(['--problem_type', 'cgpoisson', '--order', '2',"
+        " '--ndofs', '6000', '-use_flat', '1', '--device', 'cpu'])\n"
+        "assert type(f.problem.solver_function.op).__name__ == 'FlatOperator'\n"
+        "assert a.iterations > 0 and b.iterations > 0 and f.iterations > 0\n"
         "print('JAX_LOADED', any(m == 'jax' or m.startswith('jax.')"
         " for m in sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -78,8 +78,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")
         fn.argtypes = [ci]  # device -> co-resident blocks, or -cuda error
         fn.restype = ci
+        fn = getattr(lib, f"tpufem_flat_interior_{suffix}")
+        # device, x, W0, AZT, slot_of, y, CP, K, D, dz (host int32 [D]),
+        # off (host int32 [D]), Zc, ZB, Zp, LW, TILE, G, NZP, stream
+        fn.argtypes = [ci] + [vp] * 5 + [ci] * 3 + [vp] * 2 + [ci] * 7 + [vp]
+        fn.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
+
+
+def raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a nonzero CUDA error code returned by a kernel's C entry."""
+    if rc != 0:
+        msg = lib.tpufem_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: {msg} (cuda error {rc})")
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,14 +8,13 @@ Krylov iterations, the solution norm and, for ``poisson``, the certified
 true residual.
 
 Out of this slice (each raises NotImplementedError naming its ROADMAP
-item): elasticity, the unstructured mesh, Poisson orders above 1,
-``cgpoisson -use_flat``, more than one shard, -pc_type amg, --output and
---memory_profiling.
+item): elasticity, the unstructured mesh, Poisson orders above 1, more
+than one shard, -pc_type amg, --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda
       python -m tpufem_torch --problem_type cgpoisson --order 3 \\
-          --ndofs 500000 --scaling_type strong --device cuda
+          --ndofs 500000 --scaling_type strong --device cuda [-use_flat 1]
 """
 
 from __future__ import annotations
@@ -153,8 +152,6 @@ def _check_scope(cfg: Config) -> None:
          "matrix-free gather/scatter action): ROADMAP M9"),
         (cfg.mesh_type != "cube", f"--mesh_type {cfg.mesh_type}: ROADMAP M14, M15"),
         (not cg and cfg.order != 1, f"--order {cfg.order}: ROADMAP M10"),
-        (cg and bool(cfg.solver.extra.get("use_flat")),
-         "-use_flat (the channel-plane operator, TPU kernel K5): ROADMAP K5"),
         (cfg.num_shards > 1, f"--num_shards {cfg.num_shards}: ROADMAP M16"),
         (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
         (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),

@@ -1,8 +1,9 @@
 """Carry tpufem's operator and multigrid state into the port.
 
-Both functions take tpufem's state as numpy arrays (never jax objects):
-a tpufem ``DiaOperator`` built with ``device=False`` and a ``GMG``'s
-per-level arrays read back with ``np.asarray``.  The tests use them to
+Every function takes tpufem's state as numpy arrays (never jax objects):
+a tpufem ``DiaOperator`` built with ``device=False``, a ``GMG``'s
+per-level arrays and a ``FlatOperator``'s tables read back with
+``np.asarray``.  The tests use them to
 run both packages on identical weights; on a card the port builds the
 same arrays itself (no jax there), and the tests check that its builders
 agree with tpufem's.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from tpufem_torch.fem.dia_op import DiaOperator
+from tpufem_torch.fem.flat_op import FlatGeom, FlatOperator
 from tpufem_torch.fem.structured_op import GridLayout
 from tpufem_torch.la.gmg import GLevel, GMG
 
@@ -60,3 +62,20 @@ def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                    np.array(coarse_bc_mask, dtype=bool)).to(device),
                dims=tuple(tuple(d) for d in dims),
                smoother_degree=smoother_degree)
+
+
+def flat_from_numpy(W0, AZT, slot_of, TY, TX, BYZ, BZX, BYX, CC, fmask,
+                    meta: Tuple, device: torch.device) -> FlatOperator:
+    """A port FlatOperator on ``device`` from a tpufem ``FlatOperator``'s
+    ten tables and its ``meta`` (geometry tuple, channels, layout, ...)."""
+    geom, channels, lay = meta[0], meta[1], meta[2]
+    layout = GridLayout(order=lay.order, Nx=lay.Nx, Ny=lay.Ny, Nz=lay.Nz,
+                        kinds=tuple((int(b), tuple(int(v) for v in dims),
+                                     int(s)) for b, dims, s in lay.kinds))
+    tables = dict(W0=W0, AZT=AZT, slot_of=slot_of, TY=TY, TX=TX, BYZ=BYZ,
+                  BZX=BZX, BYX=BYX, CC=CC, fmask=fmask)
+    return FlatOperator(
+        **{k: torch.from_numpy(np.array(v)).to(device)
+           for k, v in tables.items()},
+        geom=FlatGeom(*geom), channels=tuple(tuple(c) for c in channels),
+        layout=layout)

@@ -297,7 +297,7 @@ class StripOperator:
                 self.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
                 dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), y.data_ptr(),
                 C, Zc, Zp, LW, TILE, _GUARD, stream)
-        _raise_on(lib, rc, f"strip_apply on [{C}, {Zp}, {LW}]")
+        _build.raise_on(lib, rc, f"strip_apply on [{C}, {Zp}, {LW}]")
         StripOperator.apply_strips.launches += 1
         return y
 
@@ -380,7 +380,7 @@ class StripOperator:
         fn = getattr(lib, f"tpufem_strip_cg_{suffix}")
         nblk = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")(b.device.index)
         if nblk <= 0:
-            _raise_on(lib, -nblk, "strip_cg occupancy query")
+            _build.raise_on(lib, -nblk, "strip_cg occupancy query")
         nblk = min(nblk, -(-C * Zp * LW // _build.CG_THREADS))
         x = torch.empty_like(b)
         work = torch.empty((3, C, Zp, LW), dtype=b.dtype, device=b.device)
@@ -396,7 +396,8 @@ class StripOperator:
                 work.data_ptr(), partials.data_ptr(), it.data_ptr(),
                 rel.data_ptr(), C, Zc, Zp, LW, TILE, _GUARD,
                 float(rtol) ** 2, int(maxit), nblk, stream)
-        _raise_on(lib, rc, f"strip_cg on [{C}, {Zp}, {LW}] with {nblk} blocks")
+        _build.raise_on(lib, rc,
+                        f"strip_cg on [{C}, {Zp}, {LW}] with {nblk} blocks")
         StripOperator.cg_resident.launches += 1
         return x, it, rel
 
@@ -432,9 +433,3 @@ def _tables(kplan, zk, Zc: int, device: torch.device):
     return (dev(mid_ptr, 0), dev(mid_ent or np.zeros((0, 4)), 4),
             dev(dlt_ptr, 0), dev(dlt_ent or np.zeros((0, 4)), 4),
             dev(np.asarray(zk, dtype=np.int32), 0))
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.tpufem_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} failed: {msg} (cuda error {rc})")

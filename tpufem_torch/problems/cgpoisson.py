@@ -18,7 +18,12 @@ chain (cgpoisson.py:110-212):
   ``-cg_kernel on`` and a resident state within tpufem's 14 MiB gate,
   the whole CG loop is one launch of the cooperative CG kernel (K4);
   lattices too small for the const form use the per-perm
-  StructuredOperator with the rows-zero convention.
+  StructuredOperator with the rows-zero convention;
+- P2/P3 with ``-use_flat 1``: the same matrix on the channel-plane layout
+  (fem.flat_op), one launch of the flat interior kernel (K5) per apply
+  plus the slab corrections in torch; float32 whatever ``--dtype``, as in
+  tpufem.  Where the lattice does not fit that layout, tpufem's warning
+  and the strip form.
 
 With b[bc] = 0 the Krylov trajectory on a baked operator equals the
 reference's rows-zero convention (cgpoisson_problem.cpp:207).
@@ -35,6 +40,7 @@ import torch
 from tpufem_torch.config import Config
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.flat_op import FlatOperator
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.strip_op import StripOperator
 from tpufem_torch.fem.structured_op import StructuredOperator
@@ -95,6 +101,13 @@ class Solver:
                                               rtol=self.rtol, maxit=self.kmax,
                                               acc_dtype=self.acc_dtype)
             return op.from_strips(x_f, dtype=rhs.dtype), it, rel
+        if isinstance(op, FlatOperator):
+            # channel-resident loop on the float32 plane buffer; pad and
+            # guard lanes stay exactly zero (the fmask product)
+            x_f, it, rel = cg_solve_fused(op.apply_flat, op.to_flat(rhs),
+                                          rtol=self.rtol, maxit=self.kmax,
+                                          acc_dtype=self.acc_dtype)
+            return op.from_flat(x_f).to(rhs.dtype), it, rel
         return cg_solve_fused(self.apply, rhs, rtol=self.rtol,
                               maxit=self.kmax, acc_dtype=self.acc_dtype)
 
@@ -145,9 +158,21 @@ def _operator(mesh: BoxTetMesh, order: int, bc: DirichletBC, cfg: Config,
         if extra["use_pallas"]:
             logger.info("use_pallas ignored: the CUDA stencil kernel is "
                         "already the P1 operator")
+    if order >= 2 and baked and extra.get("use_flat"):
+        fop = FlatOperator.from_dia(op, device=device)
+        if fop is None:
+            logger.warning("use_flat ignored: operator structure does not fit "
+                           "(non-unit shifts, tiny grid, or bs > 1)")
+        else:
+            if dtype != torch.float32:
+                logger.info("use_flat: the channel-plane operator and its CG "
+                            "loop run in float32 (as tpufem's flat form), "
+                            "whatever --dtype")
+            op = fop
+    consumed.add("use_flat")
     use_strip = int(extra.get("use_strip", 1))
     consumed.add("use_strip")
-    if order >= 2 and baked:
+    if order >= 2 and baked and isinstance(op, DiaOperator):
         if not use_strip:
             raise NotImplementedError(
                 "-use_strip 0: the device apply of the P2/P3 DIA operator "

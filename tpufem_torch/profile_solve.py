@@ -10,7 +10,8 @@ time.
 
     python -m tpufem_torch.profile_solve                # 500k f32 GMG, cuda
     python -m tpufem_torch.profile_solve -- --problem_type cgpoisson \\
-        --order 3 --ndofs 500000 --scaling_type strong --device cuda
+        --order 3 --ndofs 500000 --scaling_type strong --device cuda \\
+        [-use_flat 1]
     python -m tpufem_torch.profile_solve --solves 10 -- --ndofs 15000 \\
         --dtype float32 --device cpu                    # CPU: no device rows
 
@@ -35,7 +36,8 @@ MAIN_PATH = ["--problem_type", "poisson", "--ndofs", "500000",
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cudaLaunchCooperativeKernel")
 # the port's CUDA kernels, by the name of their device function
-PORT_KERNELS = ("stencil_p1_kernel", "strip_apply_kernel", "strip_cg_kernel")
+PORT_KERNELS = ("stencil_p1_kernel", "strip_apply_kernel", "strip_cg_kernel",
+                "flat_interior_kernel")
 
 
 def busy_us(intervals) -> float:
