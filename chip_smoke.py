@@ -32,7 +32,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 7. cgpoisson P3 at 150k with ``-cg_kernel off`` and then ``on``: the
    whole-CG kernel (K4) must engage and launch, and the two solutions
    agree; K4 against its plain version in float32 there and in float64
-   at a size within the residency gate;
+   at a size within the residency gate, with its time per solve beside
+   the time of the same grid through the grid barriers alone
+   (``barrier_floor_ms``);
 8. cgpoisson P2 and P3 at 500k with ``-use_flat 1``: the channel-plane
    operator, which must launch the flat interior kernel (K5, counted
    from zero around each run) and no strip kernel, run 100 iterations
@@ -40,7 +42,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    apply must equal the strip apply of phase 5 (the same matrix), and a
    solve of each form to rtol 1e-6 the other's; K5 against its plain
    version in float32 and, with the tables cast, float64, with times,
-   the bound and one ``torch.bmm`` of the same product;
+   the wrapper's host cost, the bound and one ``torch.bmm`` of the same
+   product;
 9. float64 goldens of the matrix-free path: cgpoisson15k of
    tests/test_golden.py (P1 through the stencil kernel, 100 iterations,
    norm 26.535020300527723 at rel 1e-9) and P3 at 9,025 dofs against
@@ -195,6 +198,21 @@ def device_ms(fn, reps: int = 20):
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     return busy_us(spans) / reps / 1e3 if spans else None
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time per call: the host clock over ``calls`` queued calls
+    (none waits for the device), after a warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
 
 
 def full_fields(fields: "torch.Tensor", Z: int) -> "torch.Tensor":
@@ -409,7 +427,7 @@ def strip_cg_compare(op, b, rtol: float, maxit: int, x_tol: float,
                      name: str, gpu: str):
     """K4 against its plain version on one right-hand side: iterations
     +-1, the solutions within ``x_tol`` (norm-wise relative), padding
-    zero; with times per solve."""
+    zero; with times per solve and the grid-barrier floor."""
     import torch
     xk, itk, relk = op.cg_resident(b, rtol, maxit)
     xp, itp, relp = op.cg_resident_plain(b, rtol, maxit)
@@ -431,12 +449,32 @@ def strip_cg_compare(op, b, rtol: float, maxit: int, x_tol: float,
                          reps=1, samples=3)
     nbytes, flops = strip_cg_work(op, int(itk))
     b_ms, b_by = bound_ms(nbytes, flops)
+    bricks, halo, _, nblk = op._cg_launch_shape(b.dtype)
+    nsync = 2 * int(itk) + 1
+    floor_ms = median_ms(lambda: grid_barriers(op, nblk, nsync), reps=3,
+                         samples=5)
     print(f"whole-CG kernel {name}: {ms:.4f} ms per solve, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  [{gpu}]",
-          flush=True)
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); {nblk} blocks "
+          f"own {bricks.shape[0]} bricks of 2 planes x 32 lanes (halo "
+          f"{halo}); the same grid through {nsync} grid barriers alone {floor_ms:.4f} ms"
+          f"  [{gpu}]", flush=True)
     return dict(name=name, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, iterations=int(itk))
+                bound_ms=b_ms, bound_by=b_by, iterations=int(itk),
+                barrier_floor_ms=floor_ms, blocks=nblk,
+                bricks=int(bricks.shape[0]))
+
+
+def grid_barriers(op, nblk: int, nsync: int) -> None:
+    """The whole-CG kernel's grid (``nblk`` co-resident blocks) through
+    ``nsync`` grid barriers and nothing else."""
+    import torch
+    from tpufem_torch import _build
+    lib = _build.load().lib
+    rc = lib.tpufem_strip_cg_sync_floor(
+        op.device.index, nblk, nsync,
+        torch.cuda.current_stream(op.device).cuda_stream)
+    _build.raise_on(lib, rc, f"{nsync} grid barriers of {nblk} blocks")
 
 
 def flat_work(op):
@@ -532,6 +570,15 @@ def flat_kernel_phase(ops, gpu: str):
             plain_ms = median_ms(lambda: op.interior_plain(x))
             dev = device_ms(lambda: op.interior(x))
             plain_dev = device_ms(lambda: op.interior_plain(x))
+            host = host_ms(lambda: op.interior(x))
+            # each block width on its own (the wrapper lets the launch
+            # choose): the same bits
+            width_dev = {}
+            for lanes in (4, 2):
+                fixed = op._prepare_interior(lanes)
+                check(torch.equal(fixed(x), yk), f"flat interior {name} "
+                      f"{dtype}: blocks of {32 * lanes} lanes differ")
+                width_dev[32 * lanes] = device_ms(lambda: fixed(x))
             WT, S = op.plane_weights(), op.shift_stack(x)
             lib_ms = median_ms(lambda: torch.bmm(WT, S))
             nbytes, flops = flat_work(op)
@@ -541,11 +588,20 @@ def flat_kernel_phase(ops, gpu: str):
             rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
                              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              device_ms=dev, plain_device_ms=plain_dev,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                             host_ms=host,
+                             call_minus_device_ms=(None if dev is None
+                                                   else ms - dev),
+                             width_device_ms=width_dev))
             print(f"flat interior {name:<26} {rows[-1]['dtype']:<7} abs "
                   f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms | device: "
-                  f"kernel {fmt_ms(dev)}, plain {fmt_ms(plain_dev)} | bound "
+                  f"kernel {fmt_ms(dev)} (128-lane blocks "
+                  f"{fmt_ms(width_dev[128])}, 64-lane blocks "
+                  f"{fmt_ms(width_dev[64])}), plain {fmt_ms(plain_dev)} | "
+                  f"wrapper's host cost {host:.4f} ms per queued call, per "
+                  f"call minus device {fmt_ms(rows[-1]['call_minus_device_ms'])}"
+                  f" | plan {len(op.sparse_plan.k)} entries | bound "
                   f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
                   f"{flops / 1e9:.4f} GFLOP needed; dense TPU form "
                   f"{dense / 1e9:.3f} GFLOP) | W0 nonzero {nnz} of "
@@ -777,14 +833,18 @@ def main() -> int:
          "launches": k4_launches, "max_abs_err": k4_row["max_abs_err"],
          "ms": k4_row["ms"], "plain_ms": k4_row["plain_ms"],
          "bound_ms": k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "barrier_floor_ms": k4_row["barrier_floor_ms"],
+         "blocks": k4_row["blocks"], "bricks": k4_row["bricks"]},
         {"name": "flat_interior", "route": "cuda",
          "source": "tpufem_torch/csrc/flat_interior.cu",
          "replaces": "tpufem/fem/flat_op.py:308",
          "launches": k5_launches, "max_abs_err": flat_worst,
          "ms": k5_row["ms"], "plain_ms": k5_row["plain_ms"],
          "bound_ms": k5_row["bound_ms"], "bound_by": k5_row["bound_by"],
-         "library_ms": k5_row["library_ms"]},
+         "library_ms": k5_row["library_ms"],
+         "device_ms": k5_row["device_ms"], "host_ms": k5_row["host_ms"],
+         "call_minus_device_ms": k5_row["call_minus_device_ms"]},
     ]
     check("tpufem" not in sys.modules and "jax" not in sys.modules,
           "tpufem or jax was imported")

@@ -163,29 +163,88 @@ def test_strip_cg_kernel_maxit_cap(device):
 
 def test_strip_cg_launch_too_large_raises(device):
     """A cooperative grid above the co-resident capacity is refused by
-    the launch, and the wrapper raises."""
+    the launch, a grid of more blocks than bricks by the entry point, and
+    the wrapper raises."""
     from tpufem_torch import _build
-    op, _, _ = _strip(2, (6, 6, 7), torch.float32, device)
+    op, _, _ = _strip(1, (40, 40, 100), torch.float32, device)
     lib = _build.load().lib
-    cap = lib.tpufem_strip_cg_blocks_f32(device.index)
-    assert cap > 0
     C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    mptr, ment, dptr, dent, zk = op.tables
+    halo = op.cg_halo
+    dcap = op.cg_delta_cap(op.cg_bricks())
+    cap = lib.tpufem_strip_cg_blocks_f32(device.index, C, halo,
+                                         ment.shape[0], dcap)
+    assert cap > 0
+    bricks = torch.from_numpy(op.cg_bricks()).to(device)
+    nbricks = bricks.shape[0]
+    assert nbricks > cap
     b = torch.zeros((C, Zp, LW), device=device)
     x = torch.empty_like(b)
     work = torch.empty((3, C, Zp, LW), device=device)
-    part = torch.empty(3 * (cap + 1), device=device)
+    part = torch.empty(3 * (nbricks + 1), device=device)
     it = torch.empty((), dtype=torch.int32, device=device)
     rel = torch.empty((), device=device)
-    mptr, ment, dptr, dent, zk = op.tables
-    rc = lib.tpufem_strip_cg_f32(
-        device.index, b.data_ptr(), op.mid_pack.data_ptr(),
-        op.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
-        dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), x.data_ptr(),
-        work.data_ptr(), part.data_ptr(), it.data_ptr(), rel.data_ptr(),
-        C, Zc, Zp, LW, TILE, 128, 1e-12, 5, cap + 1,
-        torch.cuda.current_stream().cuda_stream)
+
+    def launch(nblk):
+        return lib.tpufem_strip_cg_f32(
+            device.index, b.data_ptr(), op.mid_pack.data_ptr(),
+            op.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
+            dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(),
+            bricks.data_ptr(), x.data_ptr(), work.data_ptr(),
+            part.data_ptr(), it.data_ptr(), rel.data_ptr(), C, Zc, Zp, LW,
+            TILE, 128, nbricks, halo, ment.shape[0], dcap, 1e-12, 5, nblk,
+            torch.cuda.current_stream().cuda_stream)
+
+    rc = launch(cap + 1)
     assert rc == 720  # cudaErrorCooperativeLaunchTooLarge
     assert lib.tpufem_cuda_error_string(rc)
+    assert launch(nbricks + 1) == 1  # cudaErrorInvalidValue: blocks > bricks
+    # the refused launch left no error behind: the next launch runs
+    op.cg_resident(b, 1e-8, 3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("order,dims,max_blocks", [
+    (2, (8, 9, 10), 3), (3, (8, 8, 9), 7), (1, (40, 40, 100), None)],
+    ids=["P2-3-blocks", "P3-7-blocks", "P1-170k"])
+def test_strip_cg_kernel_more_bricks_than_blocks(device, order, dims,
+                                                 max_blocks):
+    """Blocks that own several bricks each: a grid capped far below the
+    brick count, and an operator with more bricks than the card holds
+    co-resident blocks.  The same solve as the plain version (float64,
+    both converged to 1e-8 within a step of each other, so the solutions
+    differ by at most one step's update: 1e-6)."""
+    op, bc, _ = _strip(order, dims, torch.float64, device)
+    bricks, _, _, nblk = op._cg_launch_shape(torch.float64)
+    if max_blocks is None:
+        assert bricks.shape[0] > nblk
+    else:
+        assert bricks.shape[0] > max_blocks
+    b = np.random.default_rng(8).standard_normal(op.layout.ndofs)
+    b[bc.flat_dofs()] = 0.0
+    bs = op.to_strips(torch.from_numpy(b).to(device))
+    x_k, it_k, rel_k = op._launch_cg(bs, 1e-8, 600, max_blocks=max_blocks)
+    x_p, it_p, rel_p = op.cg_resident_plain(bs, 1e-8, 600)
+    torch.cuda.synchronize()
+    assert abs(int(it_k) - int(it_p)) <= 1
+    assert float(rel_k) < 1e-8 and float(rel_p) < 1e-8
+    err = float((x_k - x_p).norm() / x_p.norm())
+    assert err <= 1e-6, err
+    mask = op.to_strips(torch.ones(op.layout.ndofs, device=device,
+                                   dtype=torch.float64)) != 0
+    assert bool((x_k[~mask] == 0).all())
+
+
+def test_strip_cg_sync_floor_runs(device):
+    """The barrier-only kernel of the whole-CG grid launches and ends."""
+    from tpufem_torch import _build
+    op, _, _ = _strip(2, (6, 6, 7), torch.float32, device)
+    lib = _build.load().lib
+    _, _, _, nblk = op._cg_launch_shape(torch.float32)
+    rc = lib.tpufem_strip_cg_sync_floor(
+        device.index, nblk, 20, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
 
 
 def test_cgpoisson_cli_engages_the_kernels(device):
@@ -216,13 +275,15 @@ def test_cgpoisson_cli_engages_the_kernels(device):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
                                        (torch.float64, 1e-13)])
 @pytest.mark.parametrize("order,dims", [
-    (2, (8, 9, 10)), (3, (8, 8, 9)), (3, (24, 24, 32))],
-    ids=["P2", "P3", "P3-500k"])
+    (2, (8, 9, 10)), (3, (8, 8, 9)), (3, (24, 24, 32)), (2, (14, 14, 8))],
+    ids=["P2", "P3", "P3-500k", "P2-3-tiles"])
 def test_flat_interior_kernel_matches_plain(device, order, dims, dtype, tol):
     import dataclasses
     _, _, dia = _strip(order, dims, torch.float32, device)
     op = FlatOperator.from_dia(dia, device=device).astype(dtype)
     g = op.geom
+    if dims == (14, 14, 8):  # an odd count of 128-lane tiles
+        assert g.TILE == 384
     rng = np.random.default_rng(0)
     # a nonzero halo: the kernel reads it on the tile's halo lanes
     x = torch.from_numpy(rng.standard_normal((g.Zp, g.CP, g.LW))).to(
@@ -239,6 +300,9 @@ def test_flat_interior_kernel_matches_plain(device, order, dims, dtype, tol):
     body = torch.zeros_like(y, dtype=torch.bool)
     body[1:1 + g.Zc, :, 128:128 + g.TILE] = True
     assert bool((y[~body] == 0).all())
+    # blocks of 64 and of 128 lanes (2 and 4 a thread) give the same bits
+    for lanes in (2, 4):
+        assert torch.equal(op._prepare_interior(lanes)(x), y)
 
 
 def test_flat_interior_rejects_mismatched_buffers(device):

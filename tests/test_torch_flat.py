@@ -133,6 +133,70 @@ def test_interior_plain_matches_pallas_interpret():
     assert not got[:, :, :128].any() and not got[:, :, 128 + g.TILE:].any()
 
 
+def _sparse_interior(op, x):
+    """The interior product from the sparse plan alone: per entry gather
+    the shifted source row, multiply by the plane's weight, and sum into
+    the entry's output channel."""
+    g, plan = op.geom, op.sparse_plan
+    co = torch.from_numpy(np.repeat(np.arange(g.CP), np.diff(plan.ptr)))
+    row = torch.from_numpy(plan.ent[:, 0].astype(np.int64))
+    off = torch.from_numpy(plan.ent[:, 1].astype(np.int64))
+    bp = 1 + torch.arange(g.Zc)
+    slot = op.slot_of[0, :g.Zc].long()
+    vals = plan.vals[torch.where(slot >= 0, 1 + slot, 0)]      # [Zc, nnz]
+    plane = bp[:, None] - 1 + row[None, :] // g.CP             # [Zc, nnz]
+    lane = 128 + off[:, None] + torch.arange(g.TILE)[None, :]  # [nnz, TILE]
+    src = x[plane[:, :, None], (row % g.CP)[None, :, None], lane[None]]
+    body = torch.zeros((g.Zc, g.CP, g.TILE), dtype=x.dtype)
+    body.index_add_(1, co, vals[:, :, None] * src)
+    y = torch.zeros_like(x)
+    y[1:1 + g.Zc, :, 128:128 + g.TILE] = body
+    return y
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("order,dims", CASES, ids=["P2", "P3"])
+def test_sparse_plan_equals_interior_plain(order, dims, dtype, tol):
+    """K5's sparse plan (what the CUDA kernel walks) against the dense
+    plain version on an operator with boundary-plane deltas: the same
+    terms, so they differ by the summation order only (relative to the
+    largest output: 1e-6 in float32, 1e-13 in float64); the entries
+    ascend in k within a channel and cover every nonzero of W0 and AZT."""
+    _, pdia, _ = _dias(order, dims)
+    op = FlatOperator.from_dia(pdia).astype(dtype)
+    g, plan = op.geom, op.sparse_plan
+    assert bool((op.AZT != 0).any()) and bool((op.slot_of >= 0).any())
+    assert plan.ptr[0] == 0 and plan.ptr[-1] == len(plan.k)
+    assert plan.vals.shape == (1 + op.AZT.shape[0], len(plan.k))
+    assert plan.vals.dtype == dtype
+    covered = np.zeros((g.CP, g.K), dtype=bool)
+    for co in range(g.CP):
+        k = plan.k[plan.ptr[co]:plan.ptr[co + 1]]
+        assert np.all(np.diff(k) > 0)
+        covered[co, k] = True
+    nonzero = ((op.W0 != 0) | (op.AZT != 0).any(dim=0)).numpy()
+    assert np.array_equal(covered, nonzero)
+    # every entry's source row and lane offset are its shift's
+    dz, off = op.shift_tables
+    j, ci = np.divmod(plan.k, g.CP)
+    assert np.array_equal(plan.ent[:, 0], (dz[j] + 1) * g.CP + ci)
+    assert np.array_equal(plan.ent[:, 1], off[j])
+    # the weights are the planes' dense weights at those positions
+    co_of = np.repeat(np.arange(g.CP), np.diff(plan.ptr))
+    WT = op.plane_weights()
+    slot = op.slot_of[0, :g.Zc].long()
+    assert torch.equal(plan.vals[torch.where(slot >= 0, 1 + slot, 0)],
+                       WT[:, co_of, plan.k])
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (g.Zp, g.CP, g.LW))).to(dtype)
+    ref = op.interior_plain(x)
+    got = _sparse_interior(op, x)
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert not got[0].any() and not got[1 + g.Zc:].any()
+
+
 @pytest.mark.parametrize("order,dims", CASES, ids=["P2", "P3"])
 def test_apply_matches_tpufem_and_dia(order, dims):
     tdia, pdia, ndofs = _dias(order, dims)

@@ -170,6 +170,41 @@ def test_cg_resident_plain_maxit_cap():
     assert float(rel) == pytest.approx(float(rel_t), rel=1e-6)
 
 
+@pytest.mark.parametrize("order,dims", [(2, (8, 9, 10)), (3, (8, 8, 9)),
+                                        (1, (9, 8, 10)), (2, (8, 8, 6))],
+                         ids=IDS)
+def test_cg_bricks_cover_the_body_once(order, dims):
+    """The whole-CG kernel's brick table: every body element (all
+    channels, planes 1..Zc, lanes G..G + TILE) lies in exactly one brick,
+    every dof lies in the body, and the halo covers every lane offset of
+    the plan without leaving the buffer."""
+    _, pdia, _, ndofs = _ops(order, dims)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    lanes, planes = 32, 2  # the kernel's brick: 2 planes of 32 lanes
+    bricks = op.cg_bricks()
+    assert bricks.dtype == np.int32 and bricks.shape[1] == 3
+    count = np.zeros((C, Zp, LW), dtype=np.int64)
+    for z0, nz, l0 in bricks:
+        assert 1 <= nz <= planes and l0 % lanes == 0
+        count[:, 1 + z0:1 + z0 + nz, l0:l0 + lanes] += 1
+    body = np.zeros((C, Zp, LW), dtype=bool)
+    body[:, 1:1 + Zc, 128:128 + TILE] = True
+    assert np.array_equal(count, body.astype(np.int64))
+    dofs = op.to_strips(torch.ones(ndofs, dtype=F64)).numpy() != 0
+    assert not (dofs & ~body).any()
+    halo = op.cg_halo
+    offs = [abs(e[-1]) for km, kd in op.kplan for e in km + kd]
+    assert halo % 4 == 0 and max(offs) <= halo <= 128
+    assert bricks[:, 2].min() - halo >= 0
+    assert bricks[:, 2].max() + lanes + halo <= LW
+    # the delta entries a brick stages: its planes' rows of every channel
+    per_brick = [sum(1 for _, kd in op.kplan for e in kd
+                     if z0 <= e[1] < z0 + nz) for z0, nz, _ in bricks]
+    assert op.cg_delta_cap(bricks) == max(per_brick)
+    assert sum(per_brick) * lanes == TILE * sum(len(kd) for _, kd in op.kplan)
+
+
 def test_fused_cg_on_strips_matches_tpufem():
     """The port's cg_solve_fused on the strip operator follows tpufem's
     (the split form of the cgpoisson P2/P3 loop)."""

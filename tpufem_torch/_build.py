@@ -29,7 +29,17 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libtpufem_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CG_THREADS = 256  # threads per block of the whole-CG kernel (csrc/strip_cg.cu)
+
+
+class FlatLaunch(ctypes.Structure):
+    """What a flat interior launch needs beside x, y and the stream
+    (csrc/flat_interior.cu:FlatLaunch), filled once per operator."""
+
+    _fields_ = ([(k, ctypes.c_void_p)
+                 for k in ("ptr", "ent", "val", "slot_of")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "CP", "Zc", "Zp", "LW", "TILE", "G",
+                             "halo", "nnz", "nvar", "lanes")])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,20 +79,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [ci] + [vp] * 9 + [ci] * 6 + [vp]
         fn.restype = ci
         fn = getattr(lib, f"tpufem_strip_cg_{suffix}")
-        # device, b, mid, dlt, mid_ptr, mid_ent, dlt_ptr, dlt_ent, zk, x,
-        # work, partials, it, rel, C, Zc, Zp, LW, TILE, G, rtol2, maxit,
-        # nblk, stream
-        fn.argtypes = ([ci] + [vp] * 13 + [ci] * 6
+        # device, b, mid, dlt, mid_ptr, mid_ent, dlt_ptr, dlt_ent, zk,
+        # bricks, x, work, partials, it, rel, C, Zc, Zp, LW, TILE, G,
+        # nbricks, halo, nmid, dcap, rtol2, maxit, nblk, stream
+        fn.argtypes = ([ci] + [vp] * 14 + [ci] * 10
                        + [ctypes.c_double, ci, ci, vp])
         fn.restype = ci
         fn = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")
-        fn.argtypes = [ci]  # device -> co-resident blocks, or -cuda error
+        # device, C, halo, nmid, dcap -> co-resident blocks, or -cuda error
+        fn.argtypes = [ci] * 5
         fn.restype = ci
         fn = getattr(lib, f"tpufem_flat_interior_{suffix}")
-        # device, x, W0, AZT, slot_of, y, CP, K, D, dz (host int32 [D]),
-        # off (host int32 [D]), Zc, ZB, Zp, LW, TILE, G, NZP, stream
-        fn.argtypes = [ci] + [vp] * 5 + [ci] * 3 + [vp] * 2 + [ci] * 7 + [vp]
+        # FlatLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
         fn.restype = ci
+    # device, blocks, grid barriers, stream: the whole-CG kernel's grid
+    # through the barriers alone
+    lib.tpufem_strip_cg_sync_floor.argtypes = [ci, ci, ci, vp]
+    lib.tpufem_strip_cg_sync_floor.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
 

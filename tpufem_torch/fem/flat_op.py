@@ -25,11 +25,14 @@ The tables are float32 whatever the problem's dtype, as tpufem's are:
   tpufem/fem/flat_op.py:308): csrc/flat_interior.cu on a CUDA tensor,
   the plain PyTorch version ``interior_plain`` on a CPU tensor.  A CUDA
   tensor launches the kernel or raises; nothing falls back.  Launches
-  are counted in ``FlatOperator.interior.launches``.
+  are counted in ``FlatOperator.interior.launches``.  The kernel works
+  through the nonzero weights only (``sparse_plan``); the plain version
+  stays the dense product.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -46,6 +49,18 @@ _W = 3         # deviation width per axis end (clamp-map shell)
 
 def _rup(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+class FlatSparsePlan(NamedTuple):
+    """The nonzero weights of the interior product, CSR by output
+    channel: channel ``co`` owns entries ``ptr[co]:ptr[co + 1]``, in
+    ascending ``k`` (= shift slot j * CP + source channel ci)."""
+
+    ptr: np.ndarray      # [CP + 1] int32
+    k: np.ndarray        # [nnz] int32
+    ent: np.ndarray      # [nnz, 2] int32: (source row (dz + 1) * CP + ci,
+    #                      lane offset dy * Xp + dx)
+    vals: torch.Tensor   # [1 + NZP, nnz]: row 0 W0, row 1 + s W0 + AZT[s]
 
 
 class FlatGeom(NamedTuple):
@@ -357,23 +372,74 @@ class FlatOperator:
             self.plane_weights(), self.shift_stack(x))
         return y
 
-    def _launch_interior(self, x: torch.Tensor) -> torch.Tensor:
+    @functools.cached_property
+    def sparse_plan(self) -> FlatSparsePlan:
+        """The union of the nonzero positions of W0 and of every AZT
+        slot, with the weights of every plane variant summed in the
+        tables' dtype (what a dense kernel would sum per plane).
+        Ascending k within a channel is the order of a dense k loop, so
+        a kernel that skips the zeros gives the dense loop's bits."""
+        g = self.geom
+        mask = ((self.W0 != 0) | (self.AZT != 0).any(dim=0)).cpu().numpy()
+        co, k = np.nonzero(mask)             # row-major: k ascends per co
+        ptr = np.zeros(g.CP + 1, dtype=np.int32)
+        ptr[1:] = np.cumsum(mask.sum(axis=1))
+        dz, off = self.shift_tables
+        j, ci = np.divmod(k, g.CP)
+        ent = np.stack([(dz[j] + 1) * g.CP + ci, off[j]], axis=1)
+        variants = torch.cat([self.W0[None], self.W0[None] + self.AZT])
+        idx = (torch.from_numpy(co).to(self.device),
+               torch.from_numpy(k).to(self.device))
+        return FlatSparsePlan(ptr, k.astype(np.int32), ent.astype(np.int32),
+                              variants[:, idx[0], idx[1]].contiguous())
+
+    def _prepare_interior(self, lanes: int = 0):
+        """A launcher ``x -> y`` of the K5 kernel with everything that
+        does not change between calls (shapes, plan tables, the entry
+        point) packed once; a call passes x, y and the stream.  A block
+        covers 32 * ``lanes`` lanes (2 or 4; 0: the launch chooses by the
+        shared memory a block needs)."""
         from tpufem_torch import _build
         lib = _build.load().lib
         g = self.geom
-        fn = (lib.tpufem_flat_interior_f32 if x.dtype == torch.float32
+        plan = self.sparse_plan
+        fn = (lib.tpufem_flat_interior_f32 if self.dtype == torch.float32
               else lib.tpufem_flat_interior_f64)
-        y = torch.empty_like(x)
-        dz, off = self.shift_tables
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.device.index, x.data_ptr(), self.W0.data_ptr(),
-                self.AZT.data_ptr(), self.slot_of.data_ptr(), y.data_ptr(),
-                g.CP, g.K, g.D, dz.ctypes.data, off.ctypes.data, g.Zc,
-                g.ZB, g.Zp, g.LW, g.TILE, _GUARD, self.AZT.shape[0], stream)
-        _build.raise_on(lib, rc,
-                        f"flat_interior on [{g.Zp}, {g.CP}, {g.LW}]")
-        FlatOperator.interior.launches += 1
-        return y
+        ptr = torch.from_numpy(plan.ptr).to(self.device)
+        ent = torch.from_numpy(plan.ent).to(self.device)
+        halo = int(np.abs(plan.ent[:, 1]).max(initial=0))
+        args = _build.FlatLaunch(
+            ptr=ptr.data_ptr(), ent=ent.data_ptr(), val=plan.vals.data_ptr(),
+            slot_of=self.slot_of.data_ptr(), device=self.device.index,
+            CP=g.CP, Zc=g.Zc, Zp=g.Zp, LW=g.LW, TILE=g.TILE, G=_GUARD,
+            halo=halo, nnz=len(plan.k), nvar=plan.vals.shape[0], lanes=lanes)
+        addr = ctypes.addressof(args)
+        # what ``addr`` and the pointers packed in it point into
+        keep = (args, ptr, ent, plan, self.slot_of)
+        what = f"flat_interior on [{g.Zp}, {g.CP}, {g.LW}]"
+        # the current stream's handle as an int, without a Stream object
+        raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw_stream is None:
+            raise RuntimeError(
+                "the prepared flat_interior launch needs "
+                "torch._C._cuda_getCurrentRawStream (PyTorch 1.11 or later "
+                f"built with CUDA); torch {torch.__version__} lacks it")
+        index = self.device.index
+
+        def launch(x: torch.Tensor) -> torch.Tensor:
+            y = torch.empty_like(x)
+            rc = fn(addr, x.data_ptr(), y.data_ptr(), raw_stream(index))
+            if rc != 0:
+                _build.raise_on(lib, rc, what)
+            FlatOperator.interior.launches += 1
+            return y
+
+        launch.keep = keep
+        return launch
+
+    @functools.cached_property
+    def _launch_interior(self):
+        return self._prepare_interior()
 
     # -- slab corrections -----------------------------------------------------------
     def corrections(self, x: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,9 @@ so CG runs on the padded buffer and buffer dots equal dof dots.
 - ``cg_resident`` (K4, replaces ``StripOperator.cg_pallas``,
   strip_op.py:434): the whole Chronopoulos-Gear CG as one cooperative
   kernel (csrc/strip_cg.cu) on a CUDA tensor, the plain version
-  ``cg_resident_plain`` on a CPU tensor.
+  ``cg_resident_plain`` on a CPU tensor.  The kernel cuts the buffer's
+  body into bricks (``cg_bricks``) that its blocks own for the whole
+  solve.
 
 A CUDA tensor launches the kernel or raises; nothing falls back.  Each
 wrapper counts its launches in ``<wrapper>.launches``.
@@ -47,6 +49,9 @@ from tpufem_torch.fem.structured_op import GridLayout, np_dtype
 _GUARD = 128  # left lane guard >= max |in-plane shift| (|dy| * Xp + |dx|)
 _M = 3        # z-zone shell width (dia_op._SHELL + 1)
 CG_RESIDENT_LIMIT = 14 * 2**20  # tpufem's whole-CG residency gate (bytes)
+# a brick of the whole-CG kernel: all channels of 2 z-planes over 32 lanes
+# (csrc/strip_cg.cu's kBrickPlanes, kBrickLanes)
+_CG_BRICK_LANES, _CG_BRICK_PLANES = 32, 2
 
 
 def _rup(v: int, m: int) -> int:
@@ -328,9 +333,11 @@ class StripOperator:
         """The whole unpreconditioned Chronopoulos-Gear CG from a zero
         guess: (x_strips, iterations, rel) with iterations an int32 and
         rel (sqrt(rr / rr0) of the recurrence) a 0-d tensor of the
-        working dtype, both on the buffer's device.  A CPU tensor takes
-        the plain version; a CUDA tensor launches the K4 kernel (counted
-        in ``StripOperator.cg_resident.launches``)."""
+        working dtype, both on the buffer's device.  The pad, guard and
+        halo slots of ``b_strips`` must be zero, as ``to_strips`` leaves
+        them.  A CPU tensor takes the plain version; a CUDA tensor
+        launches the K4 kernel (counted in
+        ``StripOperator.cg_resident.launches``)."""
         self._check_strips(b_strips)
         if b_strips.device.type == "cpu":
             return self.cg_resident_plain(b_strips, rtol, maxit)
@@ -372,16 +379,69 @@ class StripOperator:
         it = torch.tensor(cnt, dtype=torch.int32, device=b.device)
         return x, it, torch.sqrt(rr / rr0)
 
-    def _launch_cg(self, b: torch.Tensor, rtol: float, maxit: int):
+    @property
+    def cg_halo(self) -> int:
+        """Lanes either side of a brick that its apply reads: the largest
+        |lane offset| of the plan, rounded up to 4 (16-byte copies)."""
+        offs = [abs(e[-1]) for km, kd in self.kplan for e in km + kd]
+        return _rup(max(offs, default=0), 4)
+
+    def cg_bricks(self) -> np.ndarray:
+        """The bricks of the whole-CG kernel, int32 [n, 3]: (first plane
+        z0, planes nz, first buffer lane).  A brick holds all channels of
+        its 2 planes (1 for the last one of an odd Zc) and 32 lanes;
+        together the bricks cover the body (z < Zc, G <= lane < G + TILE)
+        once."""
+        C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
+        lanes, planes = _CG_BRICK_LANES, _CG_BRICK_PLANES
+        return np.array([(z0, min(planes, Zc - z0), l0)
+                         for l0 in range(_GUARD, _GUARD + TILE, lanes)
+                         for z0 in range(0, Zc, planes)], dtype=np.int32)
+
+    def cg_delta_cap(self, bricks: np.ndarray) -> int:
+        """The most delta entries any one brick of ``bricks`` reads (the
+        kernel stages a brick's entries in shared memory)."""
+        Zc = self.dims[1]
+        rows = np.array([e[1] for _, kd in self.kplan for e in kd],
+                        dtype=np.int64)
+        per_plane = np.bincount(rows, minlength=Zc)
+        ends = np.concatenate([[0], np.cumsum(per_plane)])
+        return int((ends[bricks[:, 0] + bricks[:, 1]]
+                    - ends[bricks[:, 0]]).max())
+
+    def _cg_launch_shape(self, dtype: torch.dtype):
+        """(bricks on the device, halo, delta entries to stage, co-resident
+        blocks to launch) of the whole-CG kernel for ``dtype``, built once
+        per dtype."""
+        cache = self.__dict__.setdefault("_cg_shapes", {})
+        if dtype not in cache:
+            from tpufem_torch import _build
+            lib = _build.load().lib
+            C = self.dims[0]
+            bricks = self.cg_bricks()
+            halo = self.cg_halo
+            dcap = self.cg_delta_cap(bricks)
+            suffix = "f32" if dtype == torch.float32 else "f64"
+            nblk = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")(
+                self.device.index, C, halo, self.tables[1].shape[0], dcap)
+            if nblk <= 0:
+                _build.raise_on(lib, -nblk, "strip_cg occupancy query")
+            cache[dtype] = (torch.from_numpy(bricks).to(self.device), halo,
+                            dcap, min(nblk, len(bricks)))
+        return cache[dtype]
+
+    def _launch_cg(self, b: torch.Tensor, rtol: float, maxit: int,
+                   max_blocks: Optional[int] = None):
+        """Launch K4 on ``b``; ``max_blocks`` caps the grid below the
+        co-resident capacity (a block then owns more bricks)."""
         from tpufem_torch import _build
         lib = _build.load().lib
         C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
         suffix = "f32" if b.dtype == torch.float32 else "f64"
         fn = getattr(lib, f"tpufem_strip_cg_{suffix}")
-        nblk = getattr(lib, f"tpufem_strip_cg_blocks_{suffix}")(b.device.index)
-        if nblk <= 0:
-            _build.raise_on(lib, -nblk, "strip_cg occupancy query")
-        nblk = min(nblk, -(-C * Zp * LW // _build.CG_THREADS))
+        bricks, halo, dcap, nblk = self._cg_launch_shape(b.dtype)
+        if max_blocks is not None:
+            nblk = min(nblk, max_blocks)
         x = torch.empty_like(b)
         work = torch.empty((3, C, Zp, LW), dtype=b.dtype, device=b.device)
         # per-block partials: [sr_old, sr_new] and rr, in separate arrays
@@ -392,12 +452,14 @@ class StripOperator:
         stream = torch.cuda.current_stream(b.device).cuda_stream
         rc = fn(b.device.index, b.data_ptr(), self.mid_pack.data_ptr(),
                 self.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
-                dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), x.data_ptr(),
-                work.data_ptr(), partials.data_ptr(), it.data_ptr(),
-                rel.data_ptr(), C, Zc, Zp, LW, TILE, _GUARD,
+                dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(),
+                bricks.data_ptr(), x.data_ptr(), work.data_ptr(),
+                partials.data_ptr(), it.data_ptr(), rel.data_ptr(), C, Zc, Zp,
+                LW, TILE, _GUARD, bricks.shape[0], halo, ment.shape[0], dcap,
                 float(rtol) ** 2, int(maxit), nblk, stream)
         _build.raise_on(lib, rc,
-                        f"strip_cg on [{C}, {Zp}, {LW}] with {nblk} blocks")
+                        f"strip_cg on [{C}, {Zp}, {LW}] with {nblk} blocks "
+                        f"of {bricks.shape[0]} bricks")
         StripOperator.cg_resident.launches += 1
         return x, it, rel
 
