@@ -17,8 +17,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 3. the stencil kernel against its plain PyTorch version on the card, on
    the operators the main path built (the CG matrix, the four smoothed
    GMG levels and the RHS mass operator, zone form = TPU kernel K1; the
-   CG matrix in full-field form = K2), in float32 and float64, with
-   median times;
+   CG matrix in full-field form = K2), in float32 and float64, through
+   the public ``stencil_apply`` and the prepared launch an operator
+   keeps, with median times, the wrapper's host cost and the bound;
 4. float64 on the card: the poisson50k golden of tests/test_golden.py
    (10 iterations, norm 48.94285576880367 at rel 1e-9);
 5. the matrix-free cgpoisson path at the bench's sizes: ``python -m
@@ -28,7 +29,10 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    and agree with tpufem's own float32 CPU run (CGPOISSON_REF);
 6. the strip kernel against its plain version on the P2 and P3
    operators those runs built, in float32 and, with the same tables
-   cast, float64, with times;
+   cast, float64, with times, the wrapper's host cost and the bound
+   (and again on the P3 150k operator of phase 7, the small float64 P3
+   operator of phase 9 and a 40x6x6-cube P3 operator: other z extents,
+   and a halo so wide that the delta weights stay in global memory);
 7. cgpoisson P3 at 150k with ``-cg_kernel off`` and then ``on``: the
    whole-CG kernel (K4) must engage and launch, and the two solutions
    agree; K4 against its plain version in float32 there and in float64
@@ -229,7 +233,8 @@ def kernel_phase(problem, gpu: str):
     in float32 and, with the same weights cast, float64.  Returns (rows,
     worst abs error)."""
     import torch
-    from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_plain
+    from tpufem_torch.fem.stencil import (prepare_stencil, stencil_apply,
+                                          stencil_apply_plain)
 
     solver = problem.solver_function
     ops = [("CG matrix", solver.A)]
@@ -255,6 +260,10 @@ def kernel_phase(problem, gpu: str):
             x = torch.randn(fields.shape[2] * fields.shape[3] * dims[0],
                             generator=gen, device=device, dtype=dtype)
             yk = stencil_apply(x, *args)
+            # what a DiaOperator keeps: the same launch, prepared once
+            prepared = prepare_stencil(*args)
+            check(torch.equal(prepared(x), yk), f"{name} {dtype}: the "
+                  "prepared launch and stencil_apply differ")
             yp = stencil_apply_plain(x, *args)
             bound = stencil_apply_plain(x.abs(), fields.abs(), *args[1:])
             torch.cuda.synchronize()
@@ -265,23 +274,33 @@ def kernel_phase(problem, gpu: str):
                   f"{name} {dtype}: kernel disagrees with the plain "
                   f"version (max abs err {abs_err:.3e})")
             worst = max(worst, abs_err)
-            ms = median_ms(lambda: stencil_apply(x, *args))
-            plain_ms = median_ms(lambda: stencil_apply_plain(x, *args))
-            dev = device_ms(lambda: stencil_apply(x, *args))
+            ms = median_ms(lambda: prepared(x))
+            public_ms = median_ms(lambda: stencil_apply(x, *args))
+            plain_ms = median_ms(lambda: stencil_apply_plain(x, *args),
+                                 reps=10, samples=5)
+            dev = device_ms(lambda: prepared(x))
             plain_dev = device_ms(lambda: stencil_apply_plain(x, *args))
+            host = host_ms(lambda: prepared(x))
+            b_ms, b_by = bound_ms(*stencil_work(fields, dims))
             rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
                              D=fields.shape[0], R=fields.shape[1],
                              max_abs_err=abs_err, max_rel_err=rel_err,
-                             ms=ms, plain_ms=plain_ms, device_ms=dev,
-                             plain_device_ms=plain_dev))
+                             ms=ms, public_ms=public_ms, plain_ms=plain_ms,
+                             device_ms=dev, plain_device_ms=plain_dev,
+                             host_ms=host, bound_ms=b_ms, bound_by=b_by,
+                             call_minus_device_ms=(None if dev is None
+                                                   else ms - dev)))
 
             def fmt(v):
                 return "not measured" if v is None else f"{v:.4f} ms"
             print(f"kernel {name:<34} {rows[-1]['dtype']:<7} "
                   f"D={rows[-1]['D']:<2} R={rows[-1]['R']:<3} "
                   f"abs {abs_err:.3e} rel {rel_err:.3e} | per call: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | device: "
-                  f"kernel {fmt(dev)}, plain {fmt(plain_dev)}  [{gpu}]",
+                  f"kernel {ms:.4f} ms (through stencil_apply, which packs "
+                  f"the launch anew, {public_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms | device: kernel {fmt(dev)}, plain "
+                  f"{fmt(plain_dev)} | wrapper's host cost {host:.4f} ms per "
+                  f"queued call | bound {b_ms:.4f} ms ({b_by})  [{gpu}]",
                   flush=True)
     return rows, worst
 
@@ -405,22 +424,47 @@ def strip_kernel_phase(ops, gpu: str):
                   f"strip kernel {name} {dtype}: nonzero padding")
             worst = max(worst, abs_err)
             ms = median_ms(lambda: op.apply_strips(x))
-            plain_ms = median_ms(lambda: op.apply_strips_plain(x))
+            plain_ms = median_ms(lambda: op.apply_strips_plain(x), reps=5,
+                                 samples=5)
             dev = device_ms(lambda: op.apply_strips(x))
-            plain_dev = device_ms(lambda: op.apply_strips_plain(x))
+            plain_dev = device_ms(lambda: op.apply_strips_plain(x), reps=5)
+            host = host_ms(lambda: op.apply_strips(x))
             nbytes, flops = strip_work(op)
             b_ms, b_by = bound_ms(nbytes, flops)
+            run, staged = op.apply_shape(op.mid_pack.element_size())
             rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
                              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              device_ms=dev, plain_device_ms=plain_dev,
-                             bound_ms=b_ms, bound_by=b_by))
+                             bound_ms=b_ms, bound_by=b_by, host_ms=host,
+                             call_minus_device_ms=(None if dev is None
+                                                   else ms - dev)))
             print(f"strip kernel {name:<28} {rows[-1]['dtype']:<7} abs "
                   f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms | device: kernel {fmt_ms(dev)}, plain "
-                  f"{fmt_ms(plain_dev)} | bound {b_ms:.4f} ms ({b_by}, "
-                  f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)  [{gpu}]",
-                  flush=True)
+                  f"{fmt_ms(plain_dev)} | wrapper's host cost {host:.4f} ms "
+                  f"per queued call | z runs of {run} planes, delta weights "
+                  f"{'in shared memory' if staged else 'from global memory'}"
+                  f" | bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.1f} MFLOP)  [{gpu}]", flush=True)
     return rows, worst
+
+
+def wide_halo_operator(device):
+    """The P3 strip operator of a 40 x 6 x 6 cube lattice (a lane halo of
+    124, 7 planes), float32."""
+    import torch
+    from tpufem_torch.fem.dia_op import DiaOperator
+    from tpufem_torch.fem.dirichlet import DirichletBC
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.fem.strip_op import StripOperator
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    from tpufem_torch.problems.common import poisson_bc_marker
+    mesh = BoxTetMesh(40, 6, 6)
+    bc = DirichletBC.from_space(
+        FunctionSpace(mesh, 3), mesh.locate_boundary_facets(poisson_bc_marker))
+    dia = DiaOperator.try_const(mesh, 3, "poisson", bc_dofs=bc.flat_dofs(),
+                                dtype=torch.float32)
+    return StripOperator.from_dia(dia, dtype=torch.float32, device=device)
 
 
 def strip_cg_compare(op, b, rtol: float, maxit: int, x_tol: float,
@@ -705,8 +749,6 @@ def main() -> int:
           f"{GOLD_ITERATIONS}")
     check(rel <= 1e-9, f"poisson50k norm off by rel {rel:.2e}")
 
-    A = solver.A
-    st_ms, st_by = bound_ms(*stencil_work(A.fields, A.grid_dims))
     del res, prob, solver, gold, x
     torch.cuda.empty_cache()
 
@@ -761,6 +803,12 @@ def main() -> int:
     b150 = op150.to_strips(on.problem.b)
     k4_row = strip_cg_compare(op150, b150, s_on.rtol, s_on.kmax,
                               CG_F32_X_TOL, "P3 150k float32", gpu)
+    # K3 on this operator too: another z extent and lane count
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op150.dims
+    rows150, worst150 = strip_kernel_phase(
+        [(f"P3 150k [{C},{Zp},{LW}]", op150)], gpu)
+    strip_rows += rows150
+    strip_worst = max(strip_worst, worst150)
     del off, on, s_on, op150, b150
     torch.cuda.empty_cache()
 
@@ -810,7 +858,18 @@ def main() -> int:
     s3 = p3.problem.solver_function
     b3 = s3.op.to_strips(p3.problem.b)
     strip_cg_compare(s3.op, b3, 1e-8, 400, 1e-6, "P3 9025 float64", gpu)
-    del g15, p3, s3, b3
+    # K3 on this small operator, and on one with a halo of 124 lanes: no
+    # run's delta weights fit the shared memory beside its planes there,
+    # so they come from global memory
+    wide = wide_halo_operator(s3.op.device)
+    check(not wide.apply_shape(4)[1] and not wide.apply_shape(8)[1],
+          "the 40x6x6 P3 operator's delta weights fit the shared memory")
+    small_ops = [(f"P3 {name} [{op.dims[0]},{op.dims[7]},{op.dims[6]}]", op)
+                 for name, op in (("9025", s3.op), ("40x6x6", wide))]
+    rows9k, worst9k = strip_kernel_phase(small_ops, gpu)
+    strip_rows += rows9k
+    strip_worst = max(strip_worst, worst9k)
+    del g15, p3, s3, b3, wide, small_ops
 
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
@@ -819,14 +878,25 @@ def main() -> int:
                      "tpufem/fem/pallas_stencil.py:185 (K2)",
          "launches": launches, "max_abs_err": worst,
          "ms": cg_f32["ms"], "plain_ms": cg_f32["plain_ms"],
-         "bound_ms": st_ms, "bound_by": st_by, "library_ms": None},
+         "bound_ms": cg_f32["bound_ms"], "bound_by": cg_f32["bound_by"],
+         "library_ms": None, "device_ms": cg_f32["device_ms"],
+         "host_ms": cg_f32["host_ms"],
+         "call_minus_device_ms": cg_f32["call_minus_device_ms"],
+         "grids": [{k: r[k] for k in ("name", "R", "ms", "device_ms",
+                                      "host_ms", "plain_ms", "bound_ms")}
+                   for r in rows if r["dtype"] == "float32"]},
         {"name": "strip_apply", "route": "cuda",
          "source": "tpufem_torch/csrc/strip_apply.cu",
          "replaces": "tpufem/fem/strip_op.py:300",
          "launches": k3_launches, "max_abs_err": strip_worst,
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "device_ms": k3_row["device_ms"],
+         "host_ms": k3_row["host_ms"],
+         "call_minus_device_ms": k3_row["call_minus_device_ms"],
+         "operators": [{k: r[k] for k in ("name", "dtype", "ms", "device_ms",
+                                          "host_ms", "plain_ms", "bound_ms")}
+                       for r in strip_rows]},
         {"name": "strip_cg", "route": "cuda",
          "source": "tpufem_torch/csrc/strip_cg.cu",
          "replaces": "tpufem/fem/strip_op.py:434",

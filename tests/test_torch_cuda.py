@@ -76,14 +76,102 @@ def test_mixed_devices_raise(device):
 def test_refused_launch_reports_cuda_error(device):
     from tpufem_torch import _build
     lib = _build.load().lib
-    offs = np.zeros(3, dtype=np.int32)
     x = torch.zeros(8, device=device)
+    args = _build.StencilLaunch(F=x.data_ptr(), device=0, Z=2, Y=2, X=2, R=2,
+                                D=0, run=1)
     rc = lib.tpufem_stencil_p1_f32(
-        0, x.data_ptr(), x.data_ptr(), x.data_ptr(), 2, 2, 2, 2, 0,
-        offs.ctypes.data_as(ctypes.c_void_p),
+        ctypes.addressof(args), x.data_ptr(), x.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0  # D = 0 diagonals is refused before any launch
     assert lib.tpufem_cuda_error_string(rc)
+
+
+def test_refused_prepared_launches_raise_with_the_cuda_error(device,
+                                                             monkeypatch):
+    """A prepared launch the entry point refuses (a z run longer than the
+    kernel's) raises from the wrapper, with CUDA's name for the error."""
+    from tpufem_torch.fem import stencil
+    sop, _, _ = _strip(2, (8, 9, 10), torch.float32, device)
+    monkeypatch.setattr(StripOperator, "apply_shape",
+                        lambda self, itemsize: (99, True))
+    x = torch.zeros(sop.dims[0], sop.dims[7], sop.dims[6], device=device)
+    with pytest.raises(RuntimeError, match=r"strip_apply.*invalid argument"):
+        sop.apply_strips(x)
+    op = _op((6, 6, 6), "const", torch.float32, device)
+    monkeypatch.setattr(stencil, "stencil_runs",
+                        lambda dims, R, itemsize: np.array([[0, 99]]))
+    with pytest.raises(RuntimeError, match=r"stencil_p1.*invalid argument"):
+        op.apply(torch.zeros(op.layout.ndofs, device=device))
+    torch.cuda.synchronize()
+
+
+# grids narrower than a warp, of exactly 7 planes (every plane a zone
+# plane), of fewer (full fields), wide ones, and the 500k-dof grid
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("dims,mode", [
+    ((20, 9, 6), "const"), ((7, 4, 3), "dense"), ((300, 6, 6), "const"),
+    ((9, 9, 40), "const"), ((64, 80, 96), "dense")])
+def test_kernel_matches_plain_on_odd_grids(device, dims, mode, dtype, tol):
+    op = _op(dims, mode, dtype, device)
+    Z = op.grid_dims[0]
+    assert op.fields.shape[1] == (7 if mode == "const" else Z)
+    args = (op.fields, op.offsets, op.grid_dims)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(op.layout.ndofs)).to(device,
+                                                                   dtype)
+    before = stencil_apply.launches
+    y = op.apply(x)                      # the operator's prepared launch
+    assert stencil_apply.launches == before + 1
+    assert torch.equal(stencil_apply(x, *args), y)
+    yp = stencil_apply_plain(x, *args)
+    bound = stencil_apply_plain(x.abs(), op.fields.abs(), *args[1:])
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    with pytest.raises(ValueError):
+        op.apply(x[:-1])
+
+
+# all 27 offsets of the cube (the kernel's other static bound), in zone
+# form, with full fields, and under 7 planes; 27-term sums: 2 x the P1 bound
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 2e-13)])
+@pytest.mark.parametrize("dims,R", [((9, 11, 13), 9), ((9, 11, 13), 7),
+                                    ((5, 4, 70), 5)])
+def test_kernel_matches_plain_with_27_diagonals(device, dims, R, dtype, tol):
+    Z, Y, X = dims
+    offs = tuple((dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                 for dx in (-1, 0, 1))
+    rng = np.random.default_rng(1)
+    F = torch.from_numpy(rng.standard_normal((27, R, Y, X))).to(device, dtype)
+    x = torch.from_numpy(rng.standard_normal(Z * Y * X)).to(device, dtype)
+    y = stencil_apply(x, F, offs, dims)
+    yp = stencil_apply_plain(x, F, offs, dims)
+    bound = stencil_apply_plain(x.abs(), F.abs(), offs, dims)
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+
+
+def test_kernel_matches_plain_on_a_gmg_hierarchy(device):
+    """Every operator of a Poisson CG+GMG solve (the CG matrix, the four
+    levels, the RHS mass operator) through its prepared launch."""
+    from tpufem_torch import cli
+    res = cli.main(["--problem_type", "poisson", "--ndofs", "500000",
+                    "--scaling_type", "strong", "--dtype", "float32",
+                    "-pc_type", "gmg", "--device", "cuda"])
+    solver = res.problem.solver_function
+    ops = [solver.A, res.problem.rhs_op] + [lv.op for lv in solver.pc.levels]
+    assert len(solver.pc.levels) == 4
+    rng = np.random.default_rng(2)
+    for op in ops:
+        x = torch.from_numpy(rng.standard_normal(op.layout.ndofs)).to(
+            device, torch.float32)
+        args = (op.fields, op.offsets, op.grid_dims)
+        y = op.apply(x)
+        yp = stencil_apply_plain(x, *args)
+        bound = stencil_apply_plain(x.abs(), op.fields.abs(), *args[1:])
+        torch.cuda.synchronize()
+        assert bool(((y - yp).abs() <= 1e-5 * bound).all()), op.grid_dims
 
 
 def _strip(order, dims, dtype, device):
@@ -122,6 +210,51 @@ def test_strip_apply_kernel_matches_plain(device, order, dims, dtype, tol):
     assert bool(((y - yp).abs() <= tol * bound).all())
     mask = op.to_strips(torch.ones_like(u)) != 0
     assert bool((y[~mask] == 0).all())
+
+
+# other block shapes of the K3 kernel: a lane tile with a ragged tail (289
+# of 384 lanes hold dofs), a halo so wide that no run's delta weights fit
+# the shared memory beside its planes (they come from global memory), and
+# the 128-thread blocks of few channels; on a stream of its own
+@pytest.mark.parametrize("order,dims,dtype,tol,staged", [
+    (2, (14, 14, 8), torch.float32, 2e-5, True),
+    (3, (40, 6, 6), torch.float32, 2e-5, False),
+    (3, (40, 6, 6), torch.float64, 1e-13, False),
+    (3, (24, 24, 32), torch.float64, 1e-13, True),
+    (1, (9, 8, 10), torch.float64, 1e-13, True)],
+    ids=["ragged-tile", "global-deltas-f32", "global-deltas-f64",
+         "P3-500k-f64", "P1"])
+def test_strip_apply_kernel_shapes_and_streams(device, order, dims, dtype,
+                                               tol, staged):
+    import dataclasses
+    op, _, _ = _strip(order, dims, dtype, device)
+    run, got = op.apply_shape(op.mid_pack.element_size())
+    assert got is staged and 1 <= run <= 8
+    zk = {op.kdims[kind][0] for kind, _ in op.channels}
+    assert order == 1 or len(zk) > 1     # channels of unequal z extent
+    rng = np.random.default_rng(3)
+    u = torch.from_numpy(rng.standard_normal(op.layout.ndofs)).to(device, dtype)
+    x = op.to_strips(u)
+    y0 = op.apply_strips(x)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        y = op.apply_action(x)(x)        # the solver loop's route
+    side.synchronize()
+    assert torch.equal(y, y0)
+    yp = op.apply_strips_plain(x)
+    absop = dataclasses.replace(op, mid_pack=op.mid_pack.abs(),
+                                dlt_pack=op.dlt_pack.abs())
+    bound = absop.apply_strips_plain(x.abs())
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    mask = op.to_strips(torch.ones_like(u)) != 0
+    assert bool((y[~mask] == 0).all())
+    # pad and guard slots are written, not left as they were
+    with torch.cuda.stream(side):
+        z = op.apply_strips(torch.zeros_like(x))
+    side.synchronize()
+    assert bool((z == 0).all())
 
 
 @pytest.mark.parametrize("dtype,rel_tol", [(torch.float64, 1e-8),

@@ -203,3 +203,73 @@ def test_wrapper_checks_and_never_falls_back():
     assert torch.equal(stencil_apply(x, f, offs, grid),
                        stencil_apply_plain(x, f, offs, grid))
     assert stencil_apply.launches == before  # the CPU path launches nothing
+
+
+# -- what the prepared launch packs (csrc/stencil_p1.cu) ---------------------
+@pytest.mark.parametrize("dims", DIMS)
+def test_packed_offsets_reproduce_the_operator(dims):
+    from tpufem_torch.fem.stencil import MAX_DIAGONALS, pack_offsets
+    op = DiaOperator.build(BoxTetMesh(*dims), 1, "poisson",
+                           dtype=torch.float64, device=CPU)
+    dx, dy, dz = pack_offsets(op.offsets)
+    D = len(op.offsets)
+    assert all(a.dtype == np.int8 and a.shape == (MAX_DIAGONALS,)
+               for a in (dx, dy, dz))
+    assert tuple(zip(dx[:D].tolist(), dy[:D].tolist(),
+                     dz[:D].tolist())) == op.offsets
+    assert not dx[D:].any() and not dy[D:].any() and not dz[D:].any()
+
+
+@pytest.mark.parametrize("dims,R,itemsize", [
+    ((97, 81, 65), 7, 4), ((49, 41, 33), 7, 4), ((13, 11, 9), 7, 8),
+    ((7, 7, 7), 7, 4), ((8, 7, 9), 7, 8), ((10, 5, 5), 7, 4),
+    ((97, 81, 65), 97, 4), ((4, 5, 8), 4, 8), ((20, 3, 4000), 7, 8)])
+def test_stencil_runs_cover_the_grid_once(dims, R, itemsize):
+    """The kernel's z runs cover every plane once, every plane of a run
+    has the same field row (one weight load a run), a run has at most 8
+    planes and its staged planes fit the shared memory."""
+    from tpufem_torch.fem import stencil
+    Z, Y, X = dims
+    runs = stencil.stencil_runs(dims, R, itemsize)
+    assert runs.dtype == np.int32 and runs.shape[1] == 2
+    assert runs[:, 1].sum() == Z and runs[0, 0] == 0
+    assert (runs[1:, 0] == np.cumsum(runs[:-1, 1])).all()
+    rows = [min(z, 3) if z < Z - 3 else 4 + z - (Z - 3) for z in range(Z)]
+    if R == Z:
+        rows = list(range(Z))
+    for z0, nz in runs:
+        assert 1 <= nz <= 8 and len(set(rows[z0:z0 + nz])) == 1
+        assert stencil.stencil_smem_bytes(int(nz), X, itemsize) \
+            <= stencil._MAX_SMEM
+    if R == 7 and Z > 7:
+        # three single planes either end, the mid zone in equal runs
+        assert runs[:3, 1].tolist() == [1, 1, 1] == runs[-3:, 1].tolist()
+        mid = runs[3:-3, 1]
+        assert mid.max() - mid[:-1].min(initial=mid.max()) == 0
+    with pytest.raises(RuntimeError, match="shared memory"):
+        stencil.stencil_runs((9, 3, 40000), 7, 8)
+
+
+def test_stencil_launch_struct_mirrors_the_kernel():
+    """_build.StencilLaunch lays out csrc/stencil_p1.cu's StencilLaunch:
+    the fields pointer, 7 ints, then dx, dy, dz as 27 int8 each."""
+    import ctypes
+    from tpufem_torch import _build
+    L = _build.StencilLaunch
+    assert [n for n, _ in L._fields_] == ["F", "device", "Z", "Y", "X", "R",
+                                          "D", "run", "dx", "dy", "dz"]
+    assert (L.device.offset, L.run.offset) == (8, 32)
+    assert (L.dx.offset, L.dy.offset, L.dz.offset) == (36, 63, 90)
+    assert ctypes.sizeof(L) == 120
+
+
+def test_dia_apply_on_the_cpu_takes_the_plain_version():
+    op = DiaOperator.build(BoxTetMesh(6, 7, 9), 1, "poisson",
+                           dtype=torch.float64, device=CPU)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        op.layout.ndofs))
+    before = stencil_apply.launches
+    assert torch.equal(op.apply(x), stencil_apply_plain(
+        x, op.fields, op.offsets, op.grid_dims))
+    assert stencil_apply.launches == before
+    assert "_stencil" not in op.__dict__  # no launch was prepared

@@ -265,3 +265,119 @@ def test_build_operator_picks_tpufem_forms():
     small = build_operator(BoxTetMesh(4, 4, 6), 3, "poisson", dtype=F64,
                            device=cpu)
     assert isinstance(small, StructuredOperator)
+
+
+# -- the host tables of the apply kernel (csrc/strip_apply.cu) ---------------
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("order,dims", CASES, ids=IDS)
+def test_apply_runs_and_units_cover_the_body_once(order, dims, itemsize):
+    """The apply kernel's blocks (32 lanes x a z run) and their units
+    (a channel of ``apply_order`` x 4 planes) cover every body element
+    (all channels, planes 1..Zc, lanes G..G + TILE) exactly once, the
+    guard columns take the rest, and a block fits the shared memory."""
+    from tpufem_torch.fem import strip_op
+    _, pdia, _, _ = _ops(order, dims)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    C, Zc, Yp, Xp, PF, TILE, LW, Zp = op.dims
+    run, staged = op.apply_shape(itemsize)
+    runs = op.apply_runs(itemsize)
+    assert runs.dtype == np.int32 and runs.shape[1] == 2
+    assert 1 <= run <= 8 and int(runs[:, 1].max()) == run
+    assert op.apply_smem_bytes(run, itemsize, staged) <= strip_op._MAX_SMEM
+    order_ = op.apply_order
+    assert sorted(order_.tolist()) == list(range(C))
+    counts = [len(op.kplan[c][0]) for c in order_]
+    assert counts == sorted(counts, reverse=True)
+    count = np.zeros((C, Zp, LW), dtype=np.int64)
+    for col in range(LW // 32):
+        l0 = 32 * col
+        if not 128 <= l0 < 128 + TILE:
+            continue  # a guard column: its blocks write zeros
+        for z0, nz in runs:
+            groups = -(-nz // 4)
+            for u in range(C * groups):
+                co, p0 = order_[u // groups], 4 * (u % groups)
+                n = min(4, nz - p0)
+                count[co, 1 + z0 + p0:1 + z0 + p0 + n, l0:l0 + 32] += 1
+    body = np.zeros((C, Zp, LW), dtype=bool)
+    body[:, 1:1 + Zc, 128:128 + TILE] = True
+    assert np.array_equal(count, body.astype(np.int64))
+    # the delta entries a run stages: its planes' rows of every channel
+    per_run = [sum(1 for _, kd in op.kplan for e in kd if z0 <= e[1] < z0 + nz)
+               for z0, nz in runs]
+    assert op.apply_delta_cap(run) == max(per_run)
+    assert sum(per_run) == sum(len(kd) for _, kd in op.kplan)
+    ends = op.delta_plane_ends
+    assert ends[0] == 0 and ends[-1] == sum(per_run)
+
+
+@pytest.mark.parametrize("order,dims", CASES, ids=IDS)
+def test_kernel_tables_reproduce_kplan(order, dims):
+    """The int32 CSR tables the kernels walk hold kplan's entries, in its
+    order: mid by output channel, delta by (channel, row)."""
+    _, pdia, _, _ = _ops(order, dims)
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    C, Zc = op.dims[0], op.dims[1]
+    mptr, ment, dptr, dent, zk = (t.numpy() for t in op.tables)
+    assert all(t.dtype == np.int32 for t in (mptr, ment, dptr, dent, zk))
+    assert zk.tolist() == [op.kdims[kind][0] for kind, _ in op.channels]
+    for co, (km, kd) in enumerate(op.kplan):
+        assert [tuple(r) for r in ment[mptr[co]:mptr[co + 1]]] == list(km)
+        for row in range(Zc):
+            got = dent[dptr[co * Zc + row]:dptr[co * Zc + row + 1]]
+            want = [(di, ci, dz, off) for di, r, ci, dz, off in kd if r == row]
+            assert [tuple(r) for r in got] == want
+    assert mptr[-1] == len(ment) and dptr[-1] == len(dent)
+
+
+def test_apply_shape_follows_the_shared_memory(monkeypatch):
+    """A block that does not fit takes a shorter z run, then leaves the
+    delta weights in global memory; one that cannot fit at all raises."""
+    from tpufem_torch.fem import strip_op
+    _, pdia, _, _ = _ops(3, (8, 8, 9))
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    Zc = op.dims[1]
+    full = op.apply_shape(4)
+    assert full == (5, True)
+    seen = set()
+    for limit in (120000, 90000, 70000, 50000, 40000):
+        monkeypatch.setattr(strip_op, "_MAX_SMEM", limit)
+        run, staged = op.apply_shape(4)
+        assert op.apply_smem_bytes(run, 4, staged) <= limit
+        runs = op.apply_runs(4)
+        assert runs[:, 1].sum() == Zc and (runs[1:, 0] ==
+                                            np.cumsum(runs[:-1, 1])).all()
+        seen.add((run, staged))
+    assert any(not staged for _, staged in seen)
+    assert any(run < full[0] for run, _ in seen)
+    monkeypatch.setattr(strip_op, "_MAX_SMEM", 10000)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        op.apply_shape(4)
+
+
+def test_strip_launch_struct_mirrors_the_kernel():
+    """_build.StripLaunch lays out csrc/strip_apply.cu's StripLaunch: 8
+    pointers, then 12 ints."""
+    import ctypes
+    from tpufem_torch import _build
+    names = [n for n, _ in _build.StripLaunch._fields_]
+    assert names == ["mid", "dlt", "mid_ptr", "mid_ent", "dlt_ptr", "dlt_ent",
+                     "zk", "order", "device", "C", "Zc", "Zp", "LW", "TILE",
+                     "G", "halo", "nmid", "run", "dcap",
+                     "stage_delta_weights"]
+    assert _build.StripLaunch.device.offset == 64
+    assert _build.StripLaunch.stage_delta_weights.offset == 64 + 11 * 4
+    assert ctypes.sizeof(_build.StripLaunch) == 112
+
+
+def test_apply_action_checks_once_and_takes_the_plain_version():
+    _, pdia, _, ndofs = _ops(2, (8, 9, 8))
+    op = StripOperator.from_dia(pdia, dtype=F64)
+    xf = op.to_strips(torch.from_numpy(
+        np.random.default_rng(1).standard_normal(ndofs)))
+    action = op.apply_action(xf)
+    assert torch.equal(action(xf), op.apply_strips(xf))
+    with pytest.raises(ValueError):
+        op.apply_action(xf[:, :, :-1])
+    with pytest.raises(TypeError):
+        op.apply_action(xf.float())

@@ -42,6 +42,29 @@ class FlatLaunch(ctypes.Structure):
                              "halo", "nnz", "nvar", "lanes")])
 
 
+class StencilLaunch(ctypes.Structure):
+    """What a P1 stencil launch needs beside x, y and the stream
+    (csrc/stencil_p1.cu:StencilLaunch), filled once per operator."""
+
+    _fields_ = ([("F", ctypes.c_void_p)]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "Z", "Y", "X", "R", "D", "run")]
+                + [(k, ctypes.c_int8 * 27) for k in ("dx", "dy", "dz")])
+
+
+class StripLaunch(ctypes.Structure):
+    """What a strip apply launch needs beside x, y and the stream
+    (csrc/strip_apply.cu:StripLaunch), filled once per operator."""
+
+    _fields_ = ([(k, ctypes.c_void_p)
+                 for k in ("mid", "dlt", "mid_ptr", "mid_ent", "dlt_ptr",
+                           "dlt_ent", "zk", "order")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "C", "Zc", "Zp", "LW", "TILE", "G",
+                             "halo", "nmid", "run", "dcap",
+                             "stage_delta_weights")])
+
+
 @dataclasses.dataclass(frozen=True)
 class Kernels:
     """The loaded library and how it was obtained."""
@@ -69,14 +92,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("tpufem_stencil_p1_f32", "tpufem_stencil_p1_f64"):
         fn = getattr(lib, name)
-        # device, x, F, y, Z, Y, X, R, D, offsets (host int32 [D*3]), stream
-        fn.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+        # StencilLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
         fn.restype = ci
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"tpufem_strip_apply_{suffix}")
-        # device, x, mid, dlt, mid_ptr, mid_ent, dlt_ptr, dlt_ent, zk, y,
-        # C, Zc, Zp, LW, TILE, G, stream
-        fn.argtypes = [ci] + [vp] * 9 + [ci] * 6 + [vp]
+        # StripLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
         fn.restype = ci
         fn = getattr(lib, f"tpufem_strip_cg_{suffix}")
         # device, b, mid, dlt, mid_ptr, mid_ent, dlt_ptr, dlt_ent, zk,
@@ -99,6 +121,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tpufem_strip_cg_sync_floor.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
+
+
+def raw_stream_getter():
+    """``device index -> the current stream's handle as an int``, without
+    the Stream object of ``torch.cuda.current_stream``, which costs a
+    prepared launch about as much host time as everything else in it."""
+    import torch
+    getter = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if getter is None:
+        raise RuntimeError(
+            "a prepared kernel launch needs "
+            "torch._C._cuda_getCurrentRawStream (PyTorch 1.11 or later "
+            f"built with CUDA); torch {torch.__version__} lacks it")
+    return getter
 
 
 def raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -1,6 +1,7 @@
-// 16-byte asynchronous copies from global to shared memory (cp.async.cg:
-// through L2, never L1, so a block reads what another SM wrote before the
-// last grid barrier), shared by flat_interior.cu and strip_cg.cu.
+// Asynchronous copies from global to shared memory, shared by the
+// kernels: 16 bytes at a time (cp.async.cg: through L2, never L1, so a
+// block reads what another SM wrote before the last grid barrier), or one
+// 4- or 8-byte value where the source is not 16-byte aligned.
 
 #pragma once
 
@@ -15,6 +16,22 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
+}
+
+// One float or double, naturally aligned (cp.async.ca: 4 or 8 bytes).
+template <typename T>
+__device__ __forceinline__ void cp_async_value(T* smem, const T* gmem) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "float or double");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  }
 }
 
 // Waits for every copy this thread has issued.

@@ -20,33 +20,87 @@
 //   K2 tpufem/fem/pallas_stencil.py:185 stencil_apply_pallas: R == Z
 //      with the dia_weights_dense arrays is exactly that kernel.
 //
-// What bounds it on an H100: bytes.  An apply reads x once from device
-// memory (the 26 neighbour reads of a point hit L1/L2: neighbouring
-// threads share them), writes y once, and reads D*7*Y*X weights that
-// stay resident in the 50 MB L2 across applies (2.2 MB in f32 at the
-// 500k-dof main path).  That is ~8 bytes per point in f32; at the
-// main-path grids (0.5M points and smaller) the launch itself costs as
-// much as the traffic.  The design: one thread per output point, a
-// 32-wide x block so loads and the store coalesce, bounds-checked
-// neighbour loads through the read-only path, and the offsets passed by
-// value in the kernel's parameters, read at constant indices (the loop
-// is unrolled to its static bound).  Shared-memory tiles, TMA and z-plane
-// reuse in registers are later work.
+// What bounds it on an H100: bytes, by the roofline: x read and y written
+// once and the weight fields read once, 6.3 MB (~1.9 us at 3.35 TB/s) in
+// zone form at the 97x81x65 grid of the 500k-dof main path, 34.7 MB with
+// full fields.  In practice, at half a million points and fewer, what a
+// thread waits for: a thread per point reads its 15 zone weights again on
+// every plane (30 MB through L2, though the mid row is the same for 91 of
+// 97 planes) and 15 bounds-checked neighbours that the planes above and
+// below share; blocks of 32 x 8 threads leave a third of the lanes idle on
+// a 65-wide row, and half on the 17- and 9-wide rows of the coarse
+// multigrid levels.
+//
+// The design:
+//
+// - The (y, x) plane is indexed flat, p = y * X + x: a block owns kTile
+//   consecutive points of the plane for a run of z planes that share
+//   their field row, so only the plane's last block has idle lanes: each
+//   of the three z-lo and three z-hi planes is a run of its own, the mid
+//   zone is cut into equal runs of at most kRun planes (21 tiles x 18
+//   runs at the 97x81x65 grid, all resident at once), and every plane of
+//   full fields (R == Z) is a run.
+// - The source planes of the run and one either side, the block's points
+//   and a halo of X + 1 points either side (the reach of a diagonal in
+//   the flat plane), are copied to shared memory once with cp.async, and
+//   zeros where the grid ends in z or the plane ends; the 15 neighbour
+//   reads of a point hit shared memory at offsets dz * SW + dy * X + dx
+//   kept in registers.  A neighbour beyond the row's or the plane's end
+//   is left out by a per-thread mask made once per run, not by six
+//   compares per term.
+// - A thread keeps its point and marches along z with its weights in
+//   registers, loaded once per run while the planes are on their way: a
+//   run that loaded new weights plane after plane (z-lo, z-hi, R == Z)
+//   waited for device memory on each.
+// - The sum runs over the diagonals in ascending d into one accumulator,
+//   as a thread per point would, so the result does not depend on the
+//   tiling.
+// - What a launch needs beside x, y and the stream (the fields, the
+//   dims, the packed offsets, the run: the wrapper cuts it shorter where
+//   the staged planes of a very wide grid would not fit 227 KB) is a
+//   StencilLaunch packed once per operator.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "async_copy.cuh"
+#include "strip_common.cuh"
+
 namespace {
 
+using tpufem::kMaxSmem;
+
 constexpr int kMaxDiagonals = 27;
+constexpr int kP1Diagonals = 15;  // the Kuhn lattice's: the other static bound
 constexpr int kZoneRows = 7;
 constexpr int kZoneHalo = 3;
+// The shape of a block, fixed from measurements on an H100
+// (scripts/kernel_shapes.py rebuilds with other values through these
+// macros; tpufem_torch/fem/stencil.py mirrors them).
+#ifndef TPUFEM_STENCIL_TILE
+#define TPUFEM_STENCIL_TILE 256
+#endif
+#ifndef TPUFEM_STENCIL_RUN
+#define TPUFEM_STENCIL_RUN 8
+#endif
+constexpr int kTile = TPUFEM_STENCIL_TILE;  // points of the plane a block owns
+constexpr int kRun = TPUFEM_STENCIL_RUN;    // most planes of a mid-zone run
+constexpr int kMaxDevices = 64;
 
 struct Offsets {
   int8_t dx[kMaxDiagonals];
   int8_t dy[kMaxDiagonals];
   int8_t dz[kMaxDiagonals];
+};
+
+// Everything a launch needs beside x, y and the stream, filled once per
+// operator (mirrored by tpufem_torch/_build.py:StencilLaunch).
+struct StencilLaunch {
+  const void* F;  // [D, R, Y, X] weight fields
+  int device, Z, Y, X, R, D;
+  int run;  // planes of a mid-zone run (1 when R == Z)
+  Offsets off;
 };
 
 __device__ __forceinline__ int field_row(int z, int Z, int R) {
@@ -55,83 +109,161 @@ __device__ __forceinline__ int field_row(int z, int Z, int R) {
   return kZoneHalo + 1 + (z - (Z - kZoneHalo));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
+// The D weights of point p on field row `row`.  Unrolled to the static
+// bound MD so that w[d] stays in a register.
+template <typename T, int MD>
+__device__ __forceinline__ void load_weights(T (&w)[MD],
+                                             const T* __restrict__ F, int D,
+                                             size_t fstride, size_t at) {
+#pragma unroll
+  for (int d = 0; d < MD; ++d) {
+    if (d >= D) break;
+    w[d] = __ldg(F + d * fstride + at);
+  }
+}
+
+// MD: the static bound of D (15 keeps a P1 operator's thread within 64
+// registers or so; 27 takes any stencil of the 3x3x3 cube).
+template <typename T, int MD>
+__global__ void __launch_bounds__(kTile)
 stencil_p1_kernel(const T* __restrict__ x, const T* __restrict__ F,
                   T* __restrict__ y, int Z, int Y, int X, int R, int D,
-                  Offsets off) {
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  const int iz = blockIdx.z;
-  if (ix >= X || iy >= Y) return;
-  const size_t plane = static_cast<size_t>(Y) * X;
-  const size_t fstride = static_cast<size_t>(R) * plane;
-  const T* f = F + static_cast<size_t>(field_row(iz, Z, R)) * plane +
-               static_cast<size_t>(iy) * X + ix;
-  T acc = T(0);
-  // unrolled to the static bound so every off.*[d] is a constant index
-  // into the parameter bank (a runtime index copies the struct to local
-  // memory: 88 bytes of stack per thread)
+                  int run, Offsets off) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);  // [run + 2][SW]
+  const int PS = Y * X;
+  const int H = X + 1;
+  const int SW = kTile + 2 * H;
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * kTile;
+  // the block's run [z0, z0 + nz): one field row
+  int z0 = blockIdx.y, nz = 1;
+  if (R != Z && z0 >= kZoneHalo) {
+    const int mid_runs = (Z - 2 * kZoneHalo + run - 1) / run;
+    if (z0 < kZoneHalo + mid_runs) {
+      z0 = kZoneHalo + (z0 - kZoneHalo) * run;
+      nz = min(run, Z - kZoneHalo - z0);
+    } else {
+      z0 += Z - 2 * kZoneHalo - mid_runs;
+    }
+  }
+
+  // planes z0 - 1 .. z0 + nz, points [p0 - H, p0 + kTile + H); zeros
+  // beyond the grid
+  for (int i = tid; i < (nz + 2) * SW; i += kTile) {
+    const int pl = i / SW;
+    const int zz = z0 - 1 + pl;
+    const int q = p0 - H + (i - pl * SW);
+    if (zz >= 0 && zz < Z && q >= 0 && q < PS) {
+      tpufem::cp_async_value(s + i, x + static_cast<size_t>(zz) * PS + q);
+    } else {
+      s[i] = T(0);
+    }
+  }
+
+  const int p = p0 + tid;
+  const bool active = p < PS;
+  const int iy = p / X;
+  const int ix = p - iy * X;
+  // unrolled to the static bound so that every off.*[d] is a constant
+  // index into the parameter bank, and o3[d] a register
+  unsigned inside = 0;
+  int o3[MD];
 #pragma unroll
-  for (int d = 0; d < kMaxDiagonals; ++d) {
+  for (int d = 0; d < MD; ++d) {
     if (d >= D) break;
-    const int zz = iz + off.dz[d];
     const int yy = iy + off.dy[d];
     const int xx = ix + off.dx[d];
-    T v = T(0);
-    if (zz >= 0 && zz < Z && yy >= 0 && yy < Y && xx >= 0 && xx < X)
-      v = __ldg(x + (static_cast<size_t>(zz) * Y + yy) * X + xx);
-    acc += __ldg(f + d * fstride) * v;
+    if (yy >= 0 && yy < Y && xx >= 0 && xx < X) inside |= 1u << d;
+    o3[d] = off.dz[d] * SW + off.dy[d] * X + off.dx[d];
   }
-  y[(static_cast<size_t>(iz) * Y + iy) * X + ix] = acc;
+  const size_t fstride = static_cast<size_t>(R) * PS;
+  T w[MD];
+  if (active)
+    load_weights(w, F, D, fstride,
+                 static_cast<size_t>(field_row(z0, Z, R)) * PS + p);
+  tpufem::cp_async_wait_all();
+  __syncthreads();
+  if (!active) return;
+
+  for (int zl = 0; zl < nz; ++zl) {
+    const T* sp = s + (1 + zl) * SW + H + tid;
+    T acc = T(0);
+#pragma unroll
+    for (int d = 0; d < MD; ++d) {
+      if (d >= D) break;
+      const T v = sp[o3[d]];
+      acc += w[d] * ((inside >> d) & 1u ? v : T(0));
+    }
+    y[static_cast<size_t>(z0 + zl) * PS + p] = acc;
+  }
+}
+
+// Raises the kernel's dynamic shared-memory limit on the current device
+// once to at least `smem` bytes.
+template <typename T, int MD>
+cudaError_t allow_smem(int device, size_t smem) {
+  static size_t allowed[kMaxDevices] = {};
+  if (smem <= 48 * 1024) return cudaSuccess;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= allowed[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      stencil_p1_kernel<T, MD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) allowed[device] = smem;
+  return err;
+}
+
+template <typename T, int MD>
+int launch_bound(const StencilLaunch& L, const void* x, void* y, int run,
+                 size_t smem, void* stream) {
+  const cudaError_t err = allow_smem<T, MD>(L.device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (L.Y * L.X + kTile - 1) / kTile;
+  const int runs = L.R == L.Z ? L.Z
+                              : 2 * kZoneHalo +
+                                    (L.Z - 2 * kZoneHalo + run - 1) / run;
+  stencil_p1_kernel<T, MD><<<dim3(tiles, runs), kTile, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(L.F), static_cast<T*>(y),
+      L.Z, L.Y, L.X, L.R, L.D, run, L.off);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(int device, const void* x, const void* F, void* y, int Z, int Y,
-           int X, int R, int D, const int* offsets, void* stream) {
-  if (D < 1 || D > kMaxDiagonals || Z < 1 || Y < 1 || X < 1 || Z > 65535)
+int launch(const void* prepared, const void* x, void* y, void* stream) {
+  if (prepared == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const StencilLaunch& L = *static_cast<const StencilLaunch*>(prepared);
+  if (L.D < 1 || L.D > kMaxDiagonals || L.Z < 1 || L.Y < 1 || L.X < 1 ||
+      static_cast<long long>(L.Y) * L.X > 0x3fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!(R == Z || (R == kZoneRows && Z >= kZoneRows)))
+  if (!(L.R == L.Z || (L.R == kZoneRows && L.Z >= kZoneRows)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Offsets off = {};
-  for (int d = 0; d < D; ++d) {
-    off.dx[d] = static_cast<int8_t>(offsets[3 * d]);
-    off.dy[d] = static_cast<int8_t>(offsets[3 * d + 1]);
-    off.dz[d] = static_cast<int8_t>(offsets[3 * d + 2]);
-  }
-  // launch on x's device, and leave the caller's current device as it was
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return static_cast<int>(err);
-  const dim3 block(32, 8);
-  const dim3 grid((X + block.x - 1) / block.x, (Y + block.y - 1) / block.y, Z);
-  stencil_p1_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(F), static_cast<T*>(y),
-      Z, Y, X, R, D, off);
-  err = cudaGetLastError();
-  if (prev != device) {
-    const cudaError_t restore = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = restore;
-  }
-  return static_cast<int>(err);
+  if (L.run < 1 || L.run > kRun) return static_cast<int>(cudaErrorInvalidValue);
+  const int run = L.run;
+  const size_t smem = (run + 2) * (kTile + 2 * (static_cast<size_t>(L.X) + 1)) *
+                      sizeof(T);
+  if (smem > kMaxSmem || L.Z > 65535 || (L.R == L.Z && run != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tpufem::DeviceScope scope(L.device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  if (L.D <= kP1Diagonals)
+    return launch_bound<T, kP1Diagonals>(L, x, y, run, smem, stream);
+  return launch_bound<T, kMaxDiagonals>(L, x, y, run, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int tpufem_stencil_p1_f32(int device, const void* x, const void* F, void* y,
-                          int Z, int Y, int X, int R, int D,
-                          const int* offsets, void* stream) {
-  return launch<float>(device, x, F, y, Z, Y, X, R, D, offsets, stream);
+int tpufem_stencil_p1_f32(const void* prepared, const void* x, void* y,
+                          void* stream) {
+  return launch<float>(prepared, x, y, stream);
 }
 
-int tpufem_stencil_p1_f64(int device, const void* x, const void* F, void* y,
-                          int Z, int Y, int X, int R, int D,
-                          const int* offsets, void* stream) {
-  return launch<double>(device, x, F, y, Z, Y, X, R, D, offsets, stream);
+int tpufem_stencil_p1_f64(const void* prepared, const void* x, void* y,
+                          void* stream) {
+  return launch<double>(prepared, x, y, stream);
 }
 
 const char* tpufem_cuda_error_string(int code) {

@@ -50,53 +50,4 @@ inline bool plan_ok(const StripPlan& P) {
          P.LW >= P.G + P.TILE && P.LW % 128 == 0;
 }
 
-// Loads of a buffer the kernel itself writes go through L2 only
-// (ld.global.cg), so no SM reads a stale L1 line after a grid barrier;
-// read-only data takes the read-only path.
-template <typename T, bool kWritten>
-__device__ __forceinline__ T load(const T* p) {
-  if constexpr (kWritten) {
-    return __ldcg(p);
-  } else {
-    return __ldg(p);
-  }
-}
-
-// Sum of the mid terms at body element (co, z, t), in plan order.
-template <typename T, bool kWritten>
-__device__ __forceinline__ T mid_terms(const T* x, const T* __restrict__ mid,
-                                       const StripPlan& P, int co, int z,
-                                       int t) {
-  T acc = T(0);
-  const int e1 = __ldg(P.mid_ptr + co + 1);
-  for (int e = __ldg(P.mid_ptr + co); e < e1; ++e) {
-    const int4 m = __ldg(P.mid_ent + e);
-    const T w = __ldg(mid + static_cast<size_t>(m.x) * P.TILE + t);
-    const T v = load<T, kWritten>(
-        x + (static_cast<size_t>(m.y) * P.Zp + 1 + z + m.z) * P.LW + P.G +
-        m.w + t);
-    acc += w * v;
-  }
-  return acc;
-}
-
-// acc plus the delta rows of (co, z), in plan order.
-template <typename T, bool kWritten>
-__device__ __forceinline__ T delta_terms(T acc, const T* x,
-                                         const T* __restrict__ dlt,
-                                         const StripPlan& P, int co, int z,
-                                         int t) {
-  const int row = co * P.Zc + z;
-  const int e1 = __ldg(P.dlt_ptr + row + 1);
-  for (int e = __ldg(P.dlt_ptr + row); e < e1; ++e) {
-    const int4 d = __ldg(P.dlt_ent + e);
-    const T w = __ldg(dlt + static_cast<size_t>(d.x) * P.TILE + t);
-    const T v = load<T, kWritten>(
-        x + (static_cast<size_t>(d.y) * P.Zp + 1 + z + d.z) * P.LW + P.G +
-        d.w + t);
-    acc += w * v;
-  }
-  return acc;
-}
-
 }  // namespace tpufem

@@ -33,12 +33,13 @@ The bs = 3 elasticity operator raises NotImplementedError (ROADMAP M12).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpufem_torch.fem.stencil import stencil_apply
+from tpufem_torch.fem.stencil import prepare_stencil, stencil_apply
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             dof_slice_plan, grid_layout,
                                             np_dtype, perm_element_matrices)
@@ -373,7 +374,14 @@ class DiaOperator:
                 "StripOperator)")
         if self.fields is None:
             raise RuntimeError("host-only operator: build it with a device")
+        if self.fields.device.type == "cuda":
+            return self._stencil(x)
         return stencil_apply(x, self.fields, self.offsets, self.grid_dims)
+
+    @functools.cached_property
+    def _stencil(self):
+        """The operator's prepared stencil launch (fields on a card)."""
+        return prepare_stencil(self.fields, self.offsets, self.grid_dims)
 
     def apply_bc_rows_zero(self, x: torch.Tensor) -> torch.Tensor:
         """cgpoisson convention for an unbaked operator: zero BC rows only

@@ -417,13 +417,7 @@ class FlatOperator:
         # what ``addr`` and the pointers packed in it point into
         keep = (args, ptr, ent, plan, self.slot_of)
         what = f"flat_interior on [{g.Zp}, {g.CP}, {g.LW}]"
-        # the current stream's handle as an int, without a Stream object
-        raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-        if raw_stream is None:
-            raise RuntimeError(
-                "the prepared flat_interior launch needs "
-                "torch._C._cuda_getCurrentRawStream (PyTorch 1.11 or later "
-                f"built with CUDA); torch {torch.__version__} lacks it")
+        raw_stream = _build.raw_stream_getter()
         index = self.device.index
 
         def launch(x: torch.Tensor) -> torch.Tensor:

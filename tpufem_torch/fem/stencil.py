@@ -19,11 +19,15 @@ source file's header has the numbers and the design).
 
 ``stencil_apply`` takes the plain version only for tensors that lie on
 the CPU; for a CUDA tensor it launches the kernel or raises.
+``prepare_stencil`` packs what does not change between the applies of
+one operator (fields, dims, offsets, the entry point) once and returns
+the launcher ``x -> y`` that fem.dia_op.DiaOperator keeps.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +36,10 @@ import torch.nn.functional as F
 MAX_DIAGONALS = 27
 ZONE_ROWS = 7
 _HALO = 3  # z-lo / z-hi zone planes
+# a block of the kernel: 256 points of the flat (y, x) plane over a z run
+# of at most 8 planes (csrc/stencil_p1.cu's kTile, kRun); 227 KB of shared
+# memory a block (sm_90)
+_TILE, _RUN, _MAX_SMEM = 256, 8, 232448
 
 
 def _check(x: torch.Tensor, fields: torch.Tensor,
@@ -87,26 +95,90 @@ def stencil_apply_plain(x: torch.Tensor, fields: torch.Tensor,
     return torch.cat(acc).reshape(-1)
 
 
-def _launch(x: torch.Tensor, fields: torch.Tensor,
-            offsets: Sequence[Tuple[int, int, int]],
-            dims: Tuple[int, int, int]) -> torch.Tensor:
+def pack_offsets(offsets: Sequence[Tuple[int, int, int]]
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The D (dx, dy, dz) triples as the kernel takes them: three int8
+    arrays of MAX_DIAGONALS entries (dx, dy, dz), zero beyond D."""
+    packed = np.zeros((3, MAX_DIAGONALS), dtype=np.int8)
+    packed[:, :len(offsets)] = np.asarray(offsets, dtype=np.int8).T
+    return packed[0], packed[1], packed[2]
+
+
+def stencil_smem_bytes(run: int, X: int, itemsize: int) -> int:
+    """Shared memory of a block whose z run has ``run`` planes: the run
+    and one plane either side, the block's points and X + 1 either side."""
+    return (run + 2) * (_TILE + 2 * (X + 1)) * itemsize
+
+
+def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int
+                 ) -> np.ndarray:
+    """The z runs of the kernel's blocks, int32 [n, 2]: (first plane,
+    planes); every plane of a run has the same field row.  Full fields
+    (R == Z): a run per plane.  Zone form: each of the three z-lo and
+    three z-hi planes is a run, and the mid zone is cut into the fewest
+    runs of at most 8 planes, of equal length but the last; where the
+    staged planes of that run do not fit a block's shared memory, into
+    shorter ones."""
+    Z, _, X = dims
+    if stencil_smem_bytes(1, X, itemsize) > _MAX_SMEM:
+        raise RuntimeError(f"stencil_p1: three planes of {_TILE} points with "
+                           f"a halo of {X + 1} do not fit a block's shared "
+                           f"memory ({stencil_smem_bytes(1, X, itemsize)} "
+                           "bytes)")
+    if R == Z:
+        return np.array([(z, 1) for z in range(Z)], dtype=np.int32)
+    m, mid = _HALO, Z - 2 * _HALO
+    run = -(-mid // -(-mid // _RUN))
+    while stencil_smem_bytes(run, X, itemsize) > _MAX_SMEM:
+        run -= 1
+    return np.array([(z, 1) for z in range(m)]
+                    + [(z0, min(run, Z - m - z0))
+                       for z0 in range(m, Z - m, run)]
+                    + [(z, 1) for z in range(Z - m, Z)], dtype=np.int32)
+
+
+def prepare_stencil(fields: torch.Tensor,
+                    offsets: Sequence[Tuple[int, int, int]],
+                    dims: Tuple[int, int, int]
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A launcher ``x -> y`` of the kernel on CUDA ``fields``, with the
+    fields' pointer, the dims, the packed offsets and the entry point
+    fixed once; a call checks x against them and passes x, y and the
+    stream.  Counts its launches in ``stencil_apply.launches``."""
     from tpufem_torch import _build
     lib = _build.load().lib
     Z, Y, X = dims
     D, R = fields.shape[:2]
-    fn = (lib.tpufem_stencil_p1_f32 if x.dtype == torch.float32
+    n = Z * Y * X
+    fn = (lib.tpufem_stencil_p1_f32 if fields.dtype == torch.float32
           else lib.tpufem_stencil_p1_f64)
-    offs = np.ascontiguousarray(offsets, dtype=np.int32).reshape(-1)
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.device.index, x.data_ptr(), fields.data_ptr(), y.data_ptr(),
-            Z, Y, X, R, D, offs.ctypes.data, stream)
-    if rc != 0:
-        msg = lib.tpufem_cuda_error_string(rc).decode()
-        raise RuntimeError(f"stencil_p1 launch failed: {msg} (cuda error "
-                           f"{rc}) on grid {Z}x{Y}x{X}, D={D}, R={R}")
-    stencil_apply.launches += 1
-    return y
+    args = _build.StencilLaunch(F=fields.data_ptr(),
+                                device=fields.device.index, Z=Z, Y=Y, X=X,
+                                R=R, D=D, run=int(stencil_runs(
+                                    dims, R, fields.element_size())[:, 1]
+                                    .max()))
+    for name, col in zip(("dx", "dy", "dz"), pack_offsets(offsets)):
+        getattr(args, name)[:] = col.tolist()
+    addr = ctypes.addressof(args)
+    what = f"stencil_p1 on grid {Z}x{Y}x{X}, D={D}, R={R}"
+    raw_stream = _build.raw_stream_getter()
+    dtype, device, index = fields.dtype, fields.device, fields.device.index
+
+    def launch(x: torch.Tensor) -> torch.Tensor:
+        if (x.dtype != dtype or x.device != device or x.shape != (n,)
+                or not x.is_contiguous()):
+            raise ValueError(f"{what}: x is {tuple(x.shape)} {x.dtype}@"
+                             f"{x.device}, expected a contiguous ({n},) "
+                             f"{dtype}@{device}")
+        y = torch.empty_like(x)
+        rc = fn(addr, x.data_ptr(), y.data_ptr(), raw_stream(index))
+        if rc != 0:
+            _build.raise_on(lib, rc, what)
+        stencil_apply.launches += 1
+        return y
+
+    launch.keep = (args, fields)  # what ``addr`` points into
+    return launch
 
 
 def stencil_apply(x: torch.Tensor, fields: torch.Tensor,
@@ -122,7 +194,7 @@ def stencil_apply(x: torch.Tensor, fields: torch.Tensor,
         return stencil_apply_plain(x, fields, offsets, dims)
     if x.device.type != "cuda":
         raise RuntimeError(f"no stencil kernel for device {x.device}")
-    return _launch(x, fields, offsets, dims)
+    return prepare_stencil(fields, offsets, dims)(x)
 
 
 stencil_apply.launches = 0

@@ -23,7 +23,11 @@ so CG runs on the padded buffer and buffer dots equal dof dots.
 
 - ``apply_strips`` (K3, replaces ``StripOperator._apply_pallas``,
   tpufem/fem/strip_op.py:300): csrc/strip_apply.cu on a CUDA tensor, the
-  plain PyTorch version ``apply_strips_plain`` on a CPU tensor;
+  plain PyTorch version ``apply_strips_plain`` on a CPU tensor.  A block
+  of the kernel owns 32 lanes of every channel for a run of z planes
+  (``apply_runs``), and its warps draw (channel, 4 planes) units,
+  heaviest channel first (``apply_order``); what a launch needs beside
+  x, y and the stream is packed once per operator (``_launch_apply``);
 - ``cg_resident`` (K4, replaces ``StripOperator.cg_pallas``,
   strip_op.py:434): the whole Chronopoulos-Gear CG as one cooperative
   kernel (csrc/strip_cg.cu) on a CUDA tensor, the plain version
@@ -37,7 +41,9 @@ wrapper counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +58,11 @@ CG_RESIDENT_LIMIT = 14 * 2**20  # tpufem's whole-CG residency gate (bytes)
 # a brick of the whole-CG kernel: all channels of 2 z-planes over 32 lanes
 # (csrc/strip_cg.cu's kBrickPlanes, kBrickLanes)
 _CG_BRICK_LANES, _CG_BRICK_PLANES = 32, 2
+# a block of the apply kernel: 32 lanes of all channels over a z run of at
+# most 8 planes, worked off in units of 4 planes (csrc/strip_apply.cu's
+# kLanes, kRun, kGroup); 227 KB of shared memory a block (sm_90)
+_APPLY_LANES, _APPLY_RUN = 32, 8
+_MAX_SMEM = 232448
 
 
 def _rup(v: int, m: int) -> int:
@@ -234,6 +245,17 @@ class StripOperator:
             raise RuntimeError(f"no strip kernel for device {x.device}")
         return self._launch_apply(x)
 
+    def apply_action(self, like: torch.Tensor):
+        """``apply_strips`` as a callable ``x -> y`` for a solver's loop
+        on buffers like ``like``: shape, dtype, device and contiguity are
+        checked once, here, and not again on every call."""
+        self._check_strips(like)
+        if like.device.type == "cpu":
+            return self.apply_strips_plain
+        if like.device.type != "cuda":
+            raise RuntimeError(f"no strip kernel for device {like.device}")
+        return self._launch_apply
+
     def _plain_index(self):
         """Index tensors of the plain version (built once)."""
         got = self.__dict__.get("_plain_idx")
@@ -289,22 +311,116 @@ class StripOperator:
         y[:, 1:1 + Zc, _GUARD:_GUARD + TILE] = body
         return y
 
-    def _launch_apply(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def apply_order(self) -> np.ndarray:
+        """The output channels in the order the apply kernel's warps draw
+        them: most mid entries first (ties in channel order), int32 [C]."""
+        counts = np.array([len(km) for km, _ in self.kplan])
+        return np.argsort(-counts, kind="stable").astype(np.int32)
+
+    @property
+    def delta_plane_ends(self) -> np.ndarray:
+        """ends[z] = the delta entries of all channels on planes below z,
+        int64 [Zc + 1]."""
+        Zc = self.dims[1]
+        rows = np.array([e[1] for _, kd in self.kplan for e in kd],
+                        dtype=np.int64)
+        return np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                          minlength=Zc))])
+
+    def apply_smem_bytes(self, run: int, itemsize: int,
+                         stage_weights: bool = True) -> int:
+        """Shared memory of an apply block whose z run has ``run`` planes:
+        the staged source planes (the run and one either side; all
+        channels; 32 lanes and the halo), with ``stage_weights`` the delta
+        weights of the longest run, the mid entries and the longest run's
+        delta entries, and the row, channel and unit tables
+        (csrc/strip_apply.cu:smem_bytes)."""
+        C = self.dims[0]
+        nmid = sum(len(km) for km, _ in self.kplan)
+        dcap = self.apply_delta_cap(run)
+        return ((C * (run + 2) * (_APPLY_LANES + 2 * self.cg_halo)
+                 + (dcap * _APPLY_LANES if stage_weights else 0)) * itemsize
+                + (nmid + dcap) * 8 + (C * (2 * run + 5) + 2) * 4)
+
+    def apply_delta_cap(self, run: int) -> int:
+        """The most delta entries of one z run of ``run`` planes."""
+        Zc = self.dims[1]
+        ends = self.delta_plane_ends
+        z0 = np.arange(0, Zc, run)
+        return int((ends[np.minimum(z0 + run, Zc)] - ends[z0]).max())
+
+    def apply_shape(self, itemsize: int) -> Tuple[int, bool]:
+        """(planes of a block's z run, whether the run's delta weights
+        are staged in shared memory) of the apply kernel, from the bytes
+        a block needs: the z range is cut into the fewest runs of at most
+        8 planes, of equal length but the last; where a block of that run
+        does not fit the shared memory, into shorter ones.  The delta
+        weights are staged unless that costs more than half the run (they
+        then come from global memory as the mid weights do)."""
+        Zc = self.dims[1]
+        longest = -(-Zc // -(-Zc // _APPLY_RUN))
+        fits = {staged: next((run for run in range(longest, 0, -1)
+                              if self.apply_smem_bytes(run, itemsize, staged)
+                              <= _MAX_SMEM), 0)
+                for staged in (True, False)}
+        if fits[False] == 0:
+            raise RuntimeError(
+                f"strip_apply: three planes of {self.dims[0]} channels with "
+                f"a halo of {self.cg_halo} lanes do not fit a block's shared "
+                f"memory ({self.apply_smem_bytes(1, itemsize, False)} bytes)")
+        staged = 2 * fits[True] >= fits[False]
+        return fits[staged], staged
+
+    def apply_runs(self, itemsize: int) -> np.ndarray:
+        """The z runs of the apply kernel's blocks, int32 [n, 2]: (first
+        plane, planes)."""
+        Zc = self.dims[1]
+        run, _ = self.apply_shape(itemsize)
+        return np.array([(z0, min(run, Zc - z0)) for z0 in range(0, Zc, run)],
+                        dtype=np.int32)
+
+    @functools.cached_property
+    def _launch_apply(self):
+        """A launcher ``x -> y`` of the K3 kernel with everything that
+        does not change between calls (shapes, table pointers, the z run,
+        the entry point) packed once; a call passes x, y and the stream."""
         from tpufem_torch import _build
         lib = _build.load().lib
         C, Zc, Yp, Xp, PF, TILE, LW, Zp = self.dims
-        fn = (lib.tpufem_strip_apply_f32 if x.dtype == torch.float32
+        item = self.mid_pack.element_size()
+        fn = (lib.tpufem_strip_apply_f32 if self.dtype == torch.float32
               else lib.tpufem_strip_apply_f64)
-        y = torch.empty_like(x)
         mptr, ment, dptr, dent, zk = self.tables
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.device.index, x.data_ptr(), self.mid_pack.data_ptr(),
-                self.dlt_pack.data_ptr(), mptr.data_ptr(), ment.data_ptr(),
-                dptr.data_ptr(), dent.data_ptr(), zk.data_ptr(), y.data_ptr(),
-                C, Zc, Zp, LW, TILE, _GUARD, stream)
-        _build.raise_on(lib, rc, f"strip_apply on [{C}, {Zp}, {LW}]")
-        StripOperator.apply_strips.launches += 1
-        return y
+        order = torch.from_numpy(self.apply_order).to(self.device)
+        run, staged = self.apply_shape(item)
+        halo = max((abs(e[-1]) for km, kd in self.kplan for e in km + kd),
+                   default=0)
+        args = _build.StripLaunch(
+            mid=self.mid_pack.data_ptr(), dlt=self.dlt_pack.data_ptr(),
+            mid_ptr=mptr.data_ptr(), mid_ent=ment.data_ptr(),
+            dlt_ptr=dptr.data_ptr(), dlt_ent=dent.data_ptr(),
+            zk=zk.data_ptr(), order=order.data_ptr(),
+            device=self.device.index, C=C, Zc=Zc, Zp=Zp, LW=LW, TILE=TILE,
+            G=_GUARD, halo=halo, nmid=ment.shape[0], run=run,
+            dcap=self.apply_delta_cap(run), stage_delta_weights=int(staged))
+        addr = ctypes.addressof(args)
+        # what ``addr`` and the pointers packed in it point into
+        keep = (args, order, self.tables, self.mid_pack, self.dlt_pack)
+        what = f"strip_apply on [{C}, {Zp}, {LW}] in runs of {run} planes"
+        raw_stream = _build.raw_stream_getter()
+        index = self.device.index
+
+        def launch(x: torch.Tensor) -> torch.Tensor:
+            y = torch.empty_like(x)
+            rc = fn(addr, x.data_ptr(), y.data_ptr(), raw_stream(index))
+            if rc != 0:
+                _build.raise_on(lib, rc, what)
+            StripOperator.apply_strips.launches += 1
+            return y
+
+        launch.keep = keep
+        return launch
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """Flat dof-vector apply (tests / drop-in use; the CG loop runs
@@ -401,11 +517,7 @@ class StripOperator:
     def cg_delta_cap(self, bricks: np.ndarray) -> int:
         """The most delta entries any one brick of ``bricks`` reads (the
         kernel stages a brick's entries in shared memory)."""
-        Zc = self.dims[1]
-        rows = np.array([e[1] for _, kd in self.kplan for e in kd],
-                        dtype=np.int64)
-        per_plane = np.bincount(rows, minlength=Zc)
-        ends = np.concatenate([[0], np.cumsum(per_plane)])
+        ends = self.delta_plane_ends
         return int((ends[bricks[:, 0] + bricks[:, 1]]
                     - ends[bricks[:, 0]]).max())
 

@@ -97,7 +97,7 @@ class Solver:
             if self.cg_kernel:
                 x_f, it, rel = op.cg_resident(r_f, self.rtol, self.kmax)
             else:
-                x_f, it, rel = cg_solve_fused(op.apply_strips, r_f,
+                x_f, it, rel = cg_solve_fused(op.apply_action(r_f), r_f,
                                               rtol=self.rtol, maxit=self.kmax,
                                               acc_dtype=self.acc_dtype)
             return op.from_strips(x_f, dtype=rhs.dtype), it, rel
