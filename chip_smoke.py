@@ -51,7 +51,18 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 9. float64 goldens of the matrix-free path: cgpoisson15k of
    tests/test_golden.py (P1 through the stencil kernel, 100 iterations,
    norm 26.535020300527723 at rel 1e-9) and P3 at 9,025 dofs against
-   tpufem's CPU run (CGPOISSON_REF).
+   tpufem's CPU run (CGPOISSON_REF);
+10. elasticity: ``python -m tpufem_torch --problem_type elasticity --ndofs
+   500000 --scaling_type strong --dtype float32 -pc_type gmg`` (468,195
+   dofs, the planar bs = 3 operator), which must launch the
+   three-component form of the stencil kernel (counted from zero around
+   this run only), converge in under 100 iterations and certify a true
+   residual <= 1e-8; warm solves and a warm build; the f64 elasticity100k
+   golden of tests/test_golden.py (18 iterations, norm
+   6.784162962970475e-05 at rel 1e-9); the three-component kernel against
+   its plain version on the CG matrix (zone and full-field forms) and the
+   four smoothed GMG levels, in float32 and float64, with times, the
+   wrapper's host cost and the bound.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -69,6 +80,8 @@ import time
 
 TOL_F32 = 1e-5   # 15-term sums: |kernel - plain| <= 15 eps |terms|, x10
 TOL_F64 = 1e-13  # same bound in float64
+TOL_BS3_F32 = 3e-5   # the three-component form: 45-term sums, 45 eps x10
+TOL_BS3_F64 = 1e-13  # 45 * 2^-53 = 5e-15, x10 and more
 MAIN_ARGS = ["--problem_type", "poisson", "--ndofs", "500000",
              "--scaling_type", "strong", "--dtype", "float32",
              "-pc_type", "gmg", "-ksp_rtol", "1e-8", "-ksp_max_it", "100",
@@ -82,6 +95,15 @@ CG_ARGS = ["--problem_type", "cgpoisson", "--scaling_type", "strong",
 CG15K_ARGS = ["--problem_type", "cgpoisson", "--ndofs", "15000",
               "--dtype", "float64", "--device", "cuda"]
 CG15K_NORM = 26.535020300527723
+ELAST_ARGS = ["--problem_type", "elasticity", "--ndofs", "500000",
+              "--scaling_type", "strong", "--dtype", "float32",
+              "-pc_type", "gmg", "-ksp_rtol", "1e-8", "-ksp_max_it", "100",
+              "--device", "cuda"]
+ELAST_DOFS = 468195
+ELAST_GOLD_ARGS = ["--problem_type", "elasticity", "--ndofs", "100000",
+                   "--scaling_type", "weak", "--dtype", "float64",
+                   "-ksp_rtol", "1e-8", "--device", "cuda"]
+ELAST_GOLD_ITERATIONS, ELAST_GOLD_NORM = 18, 6.784162962970475e-05
 # tpufem's own matrix-free cgpoisson runs on the CPU (jax 0.9.0, x64 off
 # in float32, as tpufem's CLI runs it), from
 #   python scripts/cgpoisson_reference.py --order O --ndofs N \
@@ -226,20 +248,31 @@ def full_fields(fields: "torch.Tensor", Z: int) -> "torch.Tensor":
     return fields[:, rows].contiguous()
 
 
-def kernel_phase(problem, gpu: str):
+def kernel_phase(problem, gpu: str, comps: int = 1):
     """The kernel against its plain version on the operators the main
     path ran: the CG matrix, every smoothed GMG level and the RHS mass
     operator (zone form, K1), and the CG matrix in full-field form (K2),
-    in float32 and, with the same weights cast, float64.  Returns (rows,
-    worst abs error)."""
+    in float32 and, with the same weights cast, float64.  ``comps`` = 3:
+    the three-component form on the elasticity path's operators (its RHS
+    mass operator is scalar and was held in phase 3's form).  Returns
+    (rows, worst abs error)."""
     import torch
-    from tpufem_torch.fem.stencil import (prepare_stencil, stencil_apply,
-                                          stencil_apply_plain)
+    from tpufem_torch.fem import stencil as st
+    if comps == 1:
+        apply, plain, prepare = (st.stencil_apply, st.stencil_apply_plain,
+                                 st.prepare_stencil)
+        tols = ((torch.float32, TOL_F32), (torch.float64, TOL_F64))
+    else:
+        apply, plain, prepare = (st.stencil_apply_bs3,
+                                 st.stencil_apply_bs3_plain,
+                                 st.prepare_stencil_bs3)
+        tols = ((torch.float32, TOL_BS3_F32), (torch.float64, TOL_BS3_F64))
 
     solver = problem.solver_function
     ops = [("CG matrix", solver.A)]
     ops += [(f"GMG level {i}", lv.op) for i, lv in enumerate(solver.pc.levels)]
-    ops.append(("RHS mass", problem.rhs_op))
+    if comps == 1:
+        ops.append(("RHS mass", problem.rhs_op))
     check(all(op.fields.shape[1] == 7 for _, op in ops),
           "a main-path operator is not in zone form")
     cases = [(f"{name} {'x'.join(map(str, op.grid_dims))}", op.fields,
@@ -252,20 +285,21 @@ def kernel_phase(problem, gpu: str):
     device = A.fields.device
     rows = []
     worst = 0.0
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+    for dtype, tol in tols:
         gen = torch.Generator(device=device).manual_seed(1234)
         for name, fields32, offsets, dims in cases:
             fields = fields32.to(dtype)
             args = (fields, offsets, dims)
-            x = torch.randn(fields.shape[2] * fields.shape[3] * dims[0],
-                            generator=gen, device=device, dtype=dtype)
-            yk = stencil_apply(x, *args)
+            x = torch.randn(comps * fields.shape[2] * fields.shape[3]
+                            * dims[0], generator=gen, device=device,
+                            dtype=dtype)
+            yk = apply(x, *args)
             # what a DiaOperator keeps: the same launch, prepared once
-            prepared = prepare_stencil(*args)
+            prepared = prepare(*args)
             check(torch.equal(prepared(x), yk), f"{name} {dtype}: the "
-                  "prepared launch and stencil_apply differ")
-            yp = stencil_apply_plain(x, *args)
-            bound = stencil_apply_plain(x.abs(), fields.abs(), *args[1:])
+                  "prepared launch and the public wrapper differ")
+            yp = plain(x, *args)
+            bound = plain(x.abs(), fields.abs(), *args[1:])
             torch.cuda.synchronize()
             err = (yk - yp).abs()
             abs_err = float(err.max())
@@ -275,13 +309,12 @@ def kernel_phase(problem, gpu: str):
                   f"version (max abs err {abs_err:.3e})")
             worst = max(worst, abs_err)
             ms = median_ms(lambda: prepared(x))
-            public_ms = median_ms(lambda: stencil_apply(x, *args))
-            plain_ms = median_ms(lambda: stencil_apply_plain(x, *args),
-                                 reps=10, samples=5)
+            public_ms = median_ms(lambda: apply(x, *args))
+            plain_ms = median_ms(lambda: plain(x, *args), reps=10, samples=5)
             dev = device_ms(lambda: prepared(x))
-            plain_dev = device_ms(lambda: stencil_apply_plain(x, *args))
+            plain_dev = device_ms(lambda: plain(x, *args))
             host = host_ms(lambda: prepared(x))
-            b_ms, b_by = bound_ms(*stencil_work(fields, dims))
+            b_ms, b_by = bound_ms(*stencil_work(fields, dims, comps))
             rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
                              D=fields.shape[0], R=fields.shape[1],
                              max_abs_err=abs_err, max_rel_err=rel_err,
@@ -293,11 +326,12 @@ def kernel_phase(problem, gpu: str):
 
             def fmt(v):
                 return "not measured" if v is None else f"{v:.4f} ms"
-            print(f"kernel {name:<34} {rows[-1]['dtype']:<7} "
-                  f"D={rows[-1]['D']:<2} R={rows[-1]['R']:<3} "
+            print(f"kernel{'' if comps == 1 else ' bs3'} {name:<34} "
+                  f"{rows[-1]['dtype']:<7} "
+                  f"D={rows[-1]['D']:<3} R={rows[-1]['R']:<3} "
                   f"abs {abs_err:.3e} rel {rel_err:.3e} | per call: "
-                  f"kernel {ms:.4f} ms (through stencil_apply, which packs "
-                  f"the launch anew, {public_ms:.4f} ms), plain "
+                  f"kernel {ms:.4f} ms (through the public wrapper, which "
+                  f"packs the launch anew, {public_ms:.4f} ms), plain "
                   f"{plain_ms:.4f} ms | device: kernel {fmt(dev)}, plain "
                   f"{fmt(plain_dev)} | wrapper's host cost {host:.4f} ms per "
                   f"queued call | bound {b_ms:.4f} ms ({b_by})  [{gpu}]",
@@ -312,12 +346,14 @@ def bound_ms(nbytes: float, flops: float):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def stencil_work(fields, dims):
+def stencil_work(fields, dims, comps: int = 1):
     """(bytes, flops) of one stencil apply: x read and y written once,
-    the weight fields read once; one multiply-add per diagonal and point."""
+    the weight fields read once; one multiply-add per field and point of
+    its output component (``comps`` components of x and y)."""
     Z, Y, X = dims
     n, item = Z * Y * X, fields.element_size()
-    return 2 * n * item + fields.numel() * item, 2 * fields.shape[0] * n
+    return (2 * comps * n * item + fields.numel() * item,
+            2 * fields.shape[0] * n)
 
 
 def strip_work(op):
@@ -655,6 +691,84 @@ def flat_kernel_phase(ops, gpu: str):
     return rows, worst
 
 
+def elasticity_phase(cli, gpu: str):
+    """Phase 10: the 500k float32 elasticity run with the three-component
+    launches counted from zero around it, warm solves and a warm build,
+    the float64 elasticity100k golden, and the kernel against its plain
+    version on the run's operators.  Returns (launches, kernel rows,
+    worst abs error)."""
+    import torch
+    from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_bs3
+    from tpufem_torch.problems import elasticity
+    from tpufem_torch.timing import REGISTRY
+    REGISTRY.reset()
+    stencil_apply.launches = 0
+    stencil_apply_bs3.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(ELAST_ARGS)
+    first_s = time.perf_counter() - t0
+    launches, scalar = stencil_apply_bs3.launches, stencil_apply.launches
+    solver, prob = res.problem.solver_function, res.problem
+    # a CG iteration applies A once and smooths each of the 4 levels with
+    # 2 + 2 applies (degree 2, pre and post): 17 applies
+    per_it = launches / max(1, res.iterations + res.refine_iterations)
+    print(f"elasticity 500k float32: {prob.space.ndofs} dofs, "
+          f"{res.iterations} iterations, norm {res.norm!r}, true_rel "
+          f"{res.true_rel!r}, {res.refine_passes} refinement pass(es) "
+          f"(+{res.refine_iterations} its), three-component launches "
+          f"{launches} ({per_it:.1f} per CG iteration), scalar stencil "
+          f"launches {scalar} (the RHS), PC setup {solver.pc_setup_s:.3f} s,"
+          f" certify {solver.certify_s:.3f} s, first solve (ZZZ Solve) "
+          f"{REGISTRY.get('ZZZ Solve'):.3f} s, whole CLI run {first_s:.3f} s"
+          f"  [{gpu}]", flush=True)
+    check(prob.space.ndofs == ELAST_DOFS,
+          f"{prob.space.ndofs} dofs, tpufem's elasticity_p1 has {ELAST_DOFS}")
+    check(launches > 0, "the elasticity run launched no three-component "
+          "stencil kernel")
+    check(solver.A.planar and solver.A.bs == 3 and solver.pc.planar,
+          "the elasticity solve is not planar")
+    check(0 < res.iterations < 100,
+          f"elasticity CG did not converge ({res.iterations})")
+    check(res.true_rel is not None and res.true_rel <= 1e-8,
+          f"elasticity certified true residual {res.true_rel} > 1e-8")
+    check(res.x.shape == (ELAST_DOFS,) and bool(torch.isfinite(res.x).all()),
+          "the elasticity solution is not a finite vector of ndofs")
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, its, _ = solver.run(prob.u, prob.b)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    check(its == res.iterations, f"warm solve took {its} iterations, "
+          f"first took {res.iterations}")
+    solve_s = statistics.median(runs)
+    cfg, device = cli.parse_args(ELAST_ARGS)
+    t0 = time.perf_counter()
+    elasticity.problem(prob.space.mesh, 1, cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"elasticity warm CG+GMG solve (uncertified): median "
+          f"{solve_s:.4f} s of 5 (min {min(runs):.4f}, max {max(runs):.4f}), "
+          f"{solve_s / its * 1e3:.2f} ms/iteration; warm build {build_s:.4f}"
+          f" s; {prob.space.ndofs / (build_s + solve_s):.1f} dofs/s "
+          f"build+solve  [{gpu}]", flush=True)
+
+    REGISTRY.reset()
+    gold = cli.main(ELAST_GOLD_ARGS)
+    rel = abs(gold.norm - ELAST_GOLD_NORM) / ELAST_GOLD_NORM
+    print(f"elasticity100k float64: {gold.iterations} iterations, norm "
+          f"{gold.norm!r} (golden {ELAST_GOLD_NORM!r}, rel {rel:.2e}), "
+          f"true_rel {gold.true_rel!r}  [{gpu}]", flush=True)
+    check(gold.iterations == ELAST_GOLD_ITERATIONS,
+          f"elasticity100k took {gold.iterations} iterations, golden "
+          f"{ELAST_GOLD_ITERATIONS}")
+    check(rel <= 1e-9, f"elasticity100k norm off by rel {rel:.2e}")
+    del gold
+
+    rows, worst = kernel_phase(prob, gpu, comps=3)
+    return launches, rows, worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -870,6 +984,11 @@ def main() -> int:
     strip_rows += rows9k
     strip_worst = max(strip_worst, worst9k)
     del g15, p3, s3, b3, wide, small_ops
+    torch.cuda.empty_cache()
+
+    # -- 10. elasticity: the three-component stencil kernel --------------------
+    elast_launches, elast_rows, elast_worst = elasticity_phase(cli, gpu)
+    bs3 = elast_rows[0]
 
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
@@ -915,6 +1034,21 @@ def main() -> int:
          "library_ms": k5_row["library_ms"],
          "device_ms": k5_row["device_ms"], "host_ms": k5_row["host_ms"],
          "call_minus_device_ms": k5_row["call_minus_device_ms"]},
+        {"name": "stencil_p1_bs3", "route": "cuda",
+         "source": "tpufem_torch/csrc/stencil_p1.cu",
+         "replaces": "tpufem/fem/dia_op.py:462 (DiaOperator._apply_zones, "
+                     "planar bs = 3: XLA in tpufem, no Pallas kernel; the "
+                     "three-component form of "
+                     "tpufem/fem/pallas_stencil.py:72, K1)",
+         "launches": elast_launches, "max_abs_err": elast_worst,
+         "ms": bs3["ms"], "plain_ms": bs3["plain_ms"],
+         "bound_ms": bs3["bound_ms"], "bound_by": bs3["bound_by"],
+         "library_ms": None, "device_ms": bs3["device_ms"],
+         "host_ms": bs3["host_ms"],
+         "call_minus_device_ms": bs3["call_minus_device_ms"],
+         "grids": [{k: r[k] for k in ("name", "R", "ms", "device_ms",
+                                      "host_ms", "plain_ms", "bound_ms")}
+                   for r in elast_rows if r["dtype"] == "float32"]},
     ]
     check("tpufem" not in sys.modules and "jax" not in sys.modules,
           "tpufem or jax was imported")

@@ -147,6 +147,24 @@ def test_unported_cgpoisson_options_raise(argv):
         cli.main(["--dtype", "float64", "--device", "cpu"] + argv)
 
 
+@pytest.mark.parametrize("order,left", [(1, True), (2, False)],
+                         ids=["P1_stencil", "P2_strip"])
+def test_cg_kernel_is_read_only_for_a_strip_operator(one_timed_solve, caplog,
+                                                     order, left):
+    """As tpufem (tpufem/problems/cgpoisson.py:232-234): -cg_kernel is
+    read where the operator is a StripOperator, and left over (warned)
+    on the P1 stencil path."""
+    caplog.set_level("INFO", logger="tpufem_torch")
+    res = cli.main(["--problem_type", "cgpoisson", "--order", str(order),
+                    "--ndofs", "3000", "--dtype", "float64", "--device",
+                    "cpu", "-cg_kernel", "on"])
+    assert isinstance(res.problem.solver_function.op, StripOperator) == (
+        order == 2)
+    warned = ("Option left: unused solver option 'cg_kernel'"
+              in caplog.text)
+    assert warned == left
+
+
 def test_logged_no_op_options_are_consumed(one_timed_solve, caplog):
     """-use_pallas and -use_conv are accepted and logged, -cg_rtol and
     -cg_kmax read; only an unknown option is left over."""

@@ -99,9 +99,15 @@ def test_refused_prepared_launches_raise_with_the_cuda_error(device,
         sop.apply_strips(x)
     op = _op((6, 6, 6), "const", torch.float32, device)
     monkeypatch.setattr(stencil, "stencil_runs",
-                        lambda dims, R, itemsize: np.array([[0, 99]]))
+                        lambda dims, R, itemsize, comps=1:
+                        np.array([[0, 99]]))
     with pytest.raises(RuntimeError, match=r"stencil_p1.*invalid argument"):
         op.apply(torch.zeros(op.layout.ndofs, device=device))
+    # and the three-component form's
+    op3 = _elast_op((6, 6, 6), "const", torch.float32, device)
+    with pytest.raises(RuntimeError,
+                       match=r"stencil_p1_bs3.*invalid argument"):
+        op3.apply(torch.zeros(3 * op3.layout.ndofs, device=device))
     torch.cuda.synchronize()
 
 
@@ -470,3 +476,83 @@ def test_cgpoisson_use_flat_engages_the_kernel(device):
         assert err <= 1e-4, err
     finally:
         cgpoisson.TIMING_PASSES, cgpoisson.TIMING_REPS = 3, 10
+
+
+# -- the three-component form (planar bs = 3 elasticity) ----------------------
+def _elast_op(dims, mode, dtype, device, planar=True):
+    from tpufem_torch.problems.common import elasticity_bc_marker
+    mesh = BoxTetMesh(*dims)
+    bc = DirichletBC.from_space(
+        FunctionSpace(mesh, 1, bs=3),
+        mesh.locate_boundary_facets(elasticity_bc_marker))
+    return DiaOperator.build(mesh, 1, "elasticity", bc_dofs=bc.flat_dofs(),
+                             dtype=dtype, mode=mode, device=device,
+                             planar=planar)
+
+
+# |kernel - plain| <= tol * sum_t |F_t x_t|: the two sum the 45 terms of an
+# output in the same order, the kernel with fused multiply-adds
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("dims,mode", [
+    ((48, 48, 64), "const"), ((24, 24, 32), "const"), ((12, 12, 16), "const"),
+    ((6, 6, 8), "const"), ((5, 7, 6), "dense"), ((4, 4, 8), "dense")],
+    ids=["500k", "level1", "level2", "level3", "dense", "dense-thin"])
+def test_bs3_kernel_matches_plain(device, dims, mode, dtype, tol):
+    """The 500k elasticity CG matrix, its smoothed GMG levels and two
+    dense-mode (R = Z) lattices, through the operator's prepared launch
+    (one launch an apply) and the public wrapper."""
+    from tpufem_torch.fem.stencil import (stencil_apply_bs3,
+                                          stencil_apply_bs3_plain)
+    op = _elast_op(dims, mode, dtype, device)
+    args = (op.fields, op.offsets, op.grid_dims)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(3 * op.layout.ndofs)).to(
+        device, dtype)
+    before = stencil_apply_bs3.launches
+    y = op.apply(x)
+    assert stencil_apply_bs3.launches == before + 1
+    yp = stencil_apply_bs3_plain(x, *args)
+    bound = stencil_apply_bs3_plain(x.abs(), op.fields.abs(), *args[1:])
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    assert torch.equal(stencil_apply_bs3(x, *args), y)
+
+
+def test_bs3_refusals(device):
+    """Mixed devices raise in the wrapper; the entry point refuses more
+    than 15 diagonals and a run longer than the kernel's."""
+    from tpufem_torch import _build
+    from tpufem_torch.fem.stencil import stencil_apply_bs3
+    op = _elast_op((6, 6, 6), "const", torch.float32, device)
+    x = torch.zeros(3 * op.layout.ndofs, device=device)
+    with pytest.raises(TypeError):
+        stencil_apply_bs3(x, op.fields.cpu(), op.offsets, op.grid_dims)
+    with pytest.raises(TypeError):
+        stencil_apply_bs3(x.cpu(), op.fields, op.offsets, op.grid_dims)
+    lib = _build.load().lib
+    Z, Y, X = op.grid_dims
+    stream = torch.cuda.current_stream().cuda_stream
+    for D, run in ((16, 1), (15, 9)):
+        args = _build.StencilLaunch(F=op.fields.data_ptr(), device=0, Z=Z,
+                                    Y=Y, X=X, R=7, D=D, run=run)
+        rc = lib.tpufem_stencil_p1_bs3_f32(ctypes.addressof(args),
+                                           x.data_ptr(), x.data_ptr(), stream)
+        assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    torch.cuda.synchronize()
+
+
+def test_elasticity_cli_engages_the_kernel(device):
+    """The 500k float32 elasticity run: every operator apply is a
+    three-component launch (17 per CG iteration), the RHS three scalar
+    ones; 17 iterations and 2 refinement passes (tpufem's elasticity_p1)."""
+    from tpufem_torch import cli
+    from tpufem_torch.fem.stencil import stencil_apply_bs3
+    stencil_apply.launches = stencil_apply_bs3.launches = 0
+    res = cli.main(["--problem_type", "elasticity", "--ndofs", "500000",
+                    "--scaling_type", "strong", "--dtype", "float32",
+                    "-pc_type", "gmg", "--device", "cuda"])
+    its = res.iterations + res.refine_iterations
+    assert stencil_apply_bs3.launches == 17 * its
+    assert stencil_apply.launches == 3
+    assert res.true_rel <= 1e-8 and 0 < res.iterations < 100

@@ -116,16 +116,35 @@ def test_cuda_device_without_gpu_raises():
     ["--problem_type", "cgpoisson", "-use_flat", "1", "--order", "2",
      "-use_strip", "0"],
     ["--problem_type", "cgpoisson", "--mesh_type", "unstructured"],
-    ["--problem_type", "elasticity"],
+    ["--problem_type", "elasticity", "--order", "2"],
+    ["--problem_type", "elasticity", "-pc_type", "amg"],
     ["--mesh_type", "unstructured"],
     ["--order", "2"],
     ["--num_shards", "2"],
     ["-pc_type", "amg"],
-], ids=["cgpoisson_use_flat", "cgpoisson_unstructured", "elasticity",
-        "unstructured", "order2", "shards", "amg"])
+], ids=["cgpoisson_use_flat", "cgpoisson_unstructured", "elasticity_order2",
+        "elasticity_amg", "unstructured", "order2", "shards", "amg"])
 def test_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--ndofs", "3000", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("given", [True, False], ids=["path", "default"])
+def test_log_view_writes_a_trace_of_the_solve(given, tmp_path, monkeypatch,
+                                              capsys, caplog):
+    """-log_view is read (no "Option left"), traces the solve into the
+    given directory, or ./tpufem-trace without a value (tpufem's rule)."""
+    monkeypatch.chdir(tmp_path)
+    where = str(tmp_path / "trace") if given else "./tpufem-trace"
+    argv = ["--ndofs", "3000", "--dtype", "float64", "--device", "cpu",
+            "-log_view"] + ([where] if given else [])
+    res = cli.main(argv)
+    assert res.iterations > 0
+    assert f"-log_view: profiler trace written to {where}" in \
+        capsys.readouterr().out
+    traces = os.listdir(where)
+    assert traces and os.path.getsize(os.path.join(where, traces[0])) > 0
+    assert "Option left" not in caplog.text
 
 
 def test_dirichlet_set_and_zero_match_tpufem():

@@ -1,6 +1,7 @@
 """The port's own copies of tpufem's jax-free host modules (mesh,
-reference element, function space, configuration and argument parsing)
-agree with tpufem's, and the port runs with ``tpufem`` unimportable."""
+reference element, function space, configuration and argument parsing,
+the elasticity constants, element tables, data and near-nullspace) agree
+with tpufem's, and the port runs with ``tpufem`` unimportable."""
 
 import dataclasses
 import os
@@ -11,14 +12,24 @@ import numpy as np
 import pytest
 
 from tpufem.cli import parse_args as tpu_parse_args
+from tpufem.fem import assemble as tpu_assemble
+from tpufem.fem import kernels as tpu_kernels
 from tpufem.fem.reference import ReferenceTet as TpuRef
 from tpufem.fem.space import FunctionSpace as TpuSpace
+from tpufem.fem.structured_op import \
+    perm_element_matrices as tpu_perm_element_matrices
+from tpufem.la import nullspace as tpu_nullspace
 from tpufem.mesh import structured as tpu_structured
+from tpufem.problems import common as tpu_common
 
 from tpufem_torch import cli
+from tpufem_torch.fem import assemble
 from tpufem_torch.fem.reference import ReferenceTet
 from tpufem_torch.fem.space import FunctionSpace
+from tpufem_torch.fem.structured_op import perm_element_matrices
+from tpufem_torch.la import nullspace
 from tpufem_torch.mesh import structured
+from tpufem_torch.problems import common
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,6 +73,51 @@ def test_function_space_matches_tpufem(order):
     assert np.array_equal(mine.scalar_dof_coords(), ref.scalar_dof_coords())
 
 
+def test_elasticity_constants_equal_tpufem():
+    for name in ("ELASTICITY_E", "ELASTICITY_NU", "ELASTICITY_MU",
+                 "ELASTICITY_LMBDA"):
+        assert getattr(assemble, name) == getattr(tpu_kernels, name), name
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_elasticity_element_tables_bitwise(order):
+    """``_elasticity_ref_table``, ``_elasticity_stiffness_np`` on random
+    cells, and the six Kuhn shapes' blocked matrices."""
+    for a, b in zip(assemble._elasticity_ref_table(order),
+                    tpu_kernels._elasticity_ref_table(order)):
+        assert np.array_equal(a, b)
+    coords = np.random.default_rng(order).standard_normal((5, 4, 3))
+    assert np.array_equal(assemble._elasticity_stiffness_np(coords, order),
+                          tpu_assemble._elasticity_stiffness_np(coords, order))
+    mine = perm_element_matrices(structured.BoxTetMesh(3, 4, 5), order,
+                                 "elasticity")
+    ref = tpu_perm_element_matrices(tpu_structured.BoxTetMesh(3, 4, 5),
+                                    order, "elasticity")
+    assert mine.shape == (6, 3 * ReferenceTet(order).ndofs,
+                          3 * ReferenceTet(order).ndofs)
+    assert np.array_equal(mine, ref)
+
+
+def test_elasticity_data_and_marker_equal_tpufem():
+    pts = np.random.default_rng(7).random((50, 3))
+    pts[::5, 1] = 0.0  # on the clamped face
+    assert np.array_equal(common.elasticity_f(pts),
+                          tpu_common.elasticity_f(pts))
+    for a, b in zip(common.elasticity_f_components(*pts.T),
+                    tpu_common.elasticity_f_components(*pts.T)):
+        assert np.array_equal(a, b)
+    assert np.array_equal(common.elasticity_bc_marker(pts),
+                          tpu_common.elasticity_bc_marker(pts))
+
+
+def test_near_nullspace_bitwise():
+    coords = np.random.default_rng(8).random((40, 3))
+    assert np.array_equal(nullspace.rigid_body_modes(coords),
+                          tpu_nullspace.rigid_body_modes(coords))
+    assert np.array_equal(nullspace.build_near_nullspace(coords),
+                          tpu_nullspace.build_near_nullspace(coords))
+
+
 @pytest.mark.parametrize("argv", [
     [],
     ["--problem_type", "cgpoisson", "--ndofs", "500000", "--order", "3",
@@ -77,8 +133,8 @@ def test_parse_args_gives_tpufem_config(argv):
 
 def test_runs_with_tpufem_unimportable():
     """``sys.modules["tpufem"] = None`` makes any import of tpufem raise:
-    the port's poisson, cgpoisson and cgpoisson -use_flat CLI runs must
-    not need it."""
+    the port's poisson, cgpoisson, cgpoisson -use_flat and elasticity CLI
+    runs must not need it."""
     code = (
         "import sys\n"
         "sys.modules['tpufem'] = None\n"
@@ -90,8 +146,11 @@ def test_runs_with_tpufem_unimportable():
         " '--ndofs', '3000', '--dtype', 'float32', '--device', 'cpu'])\n"
         "f = main(['--problem_type', 'cgpoisson', '--order', '2',"
         " '--ndofs', '6000', '-use_flat', '1', '--device', 'cpu'])\n"
+        "e = main(['--problem_type', 'elasticity', '--ndofs', '3000',"
+        " '--device', 'cpu'])\n"
         "assert type(f.problem.solver_function.op).__name__ == 'FlatOperator'\n"
         "assert a.iterations > 0 and b.iterations > 0 and f.iterations > 0\n"
+        "assert e.iterations > 0 and e.true_rel <= 1e-8\n"
         "print('JAX_LOADED', any(m == 'jax' or m.startswith('jax.')"
         " for m in sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

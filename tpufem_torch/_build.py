@@ -43,8 +43,9 @@ class FlatLaunch(ctypes.Structure):
 
 
 class StencilLaunch(ctypes.Structure):
-    """What a P1 stencil launch needs beside x, y and the stream
-    (csrc/stencil_p1.cu:StencilLaunch), filled once per operator."""
+    """What a P1 stencil launch (scalar or three-component) needs beside
+    x, y and the stream (csrc/stencil_p1.cu:StencilLaunch), filled once
+    per operator."""
 
     _fields_ = ([("F", ctypes.c_void_p)]
                 + [(k, ctypes.c_int)
@@ -90,7 +91,8 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ("tpufem_stencil_p1_f32", "tpufem_stencil_p1_f64"):
+    for name in ("tpufem_stencil_p1_f32", "tpufem_stencil_p1_f64",
+                 "tpufem_stencil_p1_bs3_f32", "tpufem_stencil_p1_bs3_f64"):
         fn = getattr(lib, name)
         # StencilLaunch*, x, y, stream
         fn.argtypes = [vp] * 4

@@ -2,24 +2,30 @@
 
 Takes tpufem's flags (``parse_args`` is a copy of tpufem's) plus
 ``--device`` (default ``cuda``; there is no fallback to the CPU), builds
-the cube mesh, runs the Poisson or matrix-free CG Poisson problem on one
-device, prints the reproducibility summary, the ZZZ timing table, the
-Krylov iterations, the solution norm and, for ``poisson``, the certified
-true residual.
+the cube mesh, runs the Poisson, matrix-free CG Poisson or P1 elasticity
+problem on one device, prints the reproducibility summary, the ZZZ
+timing table, the Krylov iterations, the solution norm and, for
+``poisson`` and ``elasticity``, the certified true residual.
+``-log_view`` writes a ``torch.profiler`` trace of the solve, as tpufem
+writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 
 Out of this slice (each raises NotImplementedError naming its ROADMAP
-item): elasticity, the unstructured mesh, Poisson orders above 1, more
-than one shard, -pc_type amg, --output and --memory_profiling.
+item): P2/P3 elasticity, the unstructured mesh, Poisson orders above 1,
+more than one shard, -pc_type amg, --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda
       python -m tpufem_torch --problem_type cgpoisson --order 3 \\
           --ndofs 500000 --scaling_type strong --device cuda [-use_flat 1]
+      python -m tpufem_torch --problem_type elasticity --ndofs 500000 \\
+          --scaling_type strong --device cuda
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -30,7 +36,7 @@ from tpufem_torch.la.vector import norm
 from tpufem_torch.logutil import init_logging, int64_to_human
 from tpufem_torch.mesh.structured import (BoxTetMesh,
                                           compute_box_size_structured)
-from tpufem_torch.problems import cgpoisson, common, poisson
+from tpufem_torch.problems import cgpoisson, common, elasticity, poisson
 from tpufem_torch.timing import Timer, list_timings
 
 
@@ -145,8 +151,8 @@ def resolve_device(name: str) -> torch.device:
 def _check_scope(cfg: Config) -> None:
     cg = cfg.problem_type == "cgpoisson"
     unported = [
-        (cfg.problem_type == "elasticity",
-         "--problem_type elasticity: ROADMAP M12"),
+        (cfg.problem_type == "elasticity" and cfg.order != 1,
+         f"--problem_type elasticity --order {cfg.order}: ROADMAP M12 P2"),
         (cg and cfg.mesh_type != "cube",
          f"--problem_type cgpoisson --mesh_type {cfg.mesh_type} (the "
          "matrix-free gather/scatter action): ROADMAP M9"),
@@ -159,6 +165,24 @@ def _check_scope(cfg: Config) -> None:
     for hit, what in unported:
         if hit:
             raise NotImplementedError(f"not ported yet: {what}")
+
+
+def _log_view(cfg: Config, device: torch.device):
+    """(trace directory or None, context of the solve): ``-log_view``
+    traces the solve with torch.profiler into the given directory, or
+    ``<--output or .>/tpufem-trace`` when it has no value, tpufem's rule
+    (tpufem/cli.py:238-255)."""
+    log_view = cfg.solver.extra.get("log_view")
+    cfg.solver._consumed.add("log_view")
+    if not log_view:
+        return None, contextlib.nullcontext()
+    trace_dir = (log_view if isinstance(log_view, str)
+                 else (cfg.output or ".") + "/tpufem-trace")
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return trace_dir, profile(activities=activities)
 
 
 def solve(cfg: Config, device: torch.device) -> SolveResult:
@@ -186,7 +210,8 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     with Timer("ZZZ Create facets and facet->cell connectivity"):
         mesh.boundary_facet_cells(mesh.boundary_faces())
 
-    problems = {"poisson": poisson.problem, "cgpoisson": cgpoisson.problem}
+    problems = {"poisson": poisson.problem, "cgpoisson": cgpoisson.problem,
+                "elasticity": elasticity.problem}
     prob = problems[cfg.problem_type](mesh, cfg.order, cfg, device)
 
     num_dofs = prob.space.ndofs
@@ -211,8 +236,13 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     print(f"  Average degrees of freedom per shard:   {num_dofs}")
     print(line, flush=True)
 
-    with Timer("ZZZ Solve", device):
+    trace_dir, trace_cm = _log_view(cfg, device)
+    with Timer("ZZZ Solve", device), trace_cm as prof:
         x, num_iter = prob.solver_function(prob.u, prob.b)
+    if trace_dir is not None:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "solve.trace.json"))
+        print(f"-log_view: profiler trace written to {trace_dir}", flush=True)
 
     list_timings()
     solver = prob.solver_function

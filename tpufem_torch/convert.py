@@ -1,8 +1,8 @@
 """Carry tpufem's operator and multigrid state into the port.
 
 Every function takes tpufem's state as numpy arrays (never jax objects):
-a tpufem ``DiaOperator`` built with ``device=False``, a ``GMG``'s
-per-level arrays and a ``FlatOperator``'s tables read back with
+a tpufem ``DiaOperator`` built with ``device=False`` (scalar, or planar
+bs = 3), a ``GMG``'s per-level arrays and a ``FlatOperator``'s tables read back with
 ``np.asarray``.  The tests use them to
 run both packages on identical weights; on a card the port builds the
 same arrays itself (no jax there), and the tests check that its builders
@@ -27,12 +27,13 @@ def dia_from_numpy(plan: Tuple, weights: Sequence[np.ndarray],
                    device: torch.device,
                    zone_plan: Optional[Tuple] = None,
                    zones: Optional[Tuple] = None,
-                   surr_dims: Optional[Tuple[int, int, int]] = None
-                   ) -> DiaOperator:
-    """A port DiaOperator on ``device`` from a P1 scalar tpufem operator's
+                   surr_dims: Optional[Tuple[int, int, int]] = None,
+                   bs: int = 1, planar: bool = False) -> DiaOperator:
+    """A port DiaOperator on ``device`` from a P1 tpufem operator's
     ``plan``, ``weights`` (surrogate tables or dense dst-slice arrays),
-    ``bc_mask``, lattice ``dims`` (Nx, Ny, Nz) and, in const mode, its
-    ``zone_plan``, ``zones`` and ``surr_dims``."""
+    ``bc_mask`` (in the operator's layout), lattice ``dims`` (Nx, Ny, Nz),
+    in const mode its ``zone_plan``, ``zones`` and ``surr_dims``, and its
+    ``bs`` and ``planar`` (a planar bs = 3 elasticity operator)."""
     Nx, Ny, Nz = dims
     layout = GridLayout(order=1, Nx=Nx, Ny=Ny, Nz=Nz,
                         kinds=((0, (Nx + 1, Ny + 1, Nz + 1), 1),))
@@ -42,17 +43,20 @@ def dia_from_numpy(plan: Tuple, weights: Sequence[np.ndarray],
         plan=tuple(plan), layout=layout, surr_dims=surr_dims,
         zone_plan=None if zone_plan is None else tuple(zone_plan),
         zones=None if zones is None else tuple(
-            tuple(np.asarray(f) for f in z) for z in zones))
+            tuple(np.asarray(f) for f in z) for z in zones),
+        bs=bs, planar=planar)
     return op._finalize(device)
 
 
 def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                    lmax: Sequence[float], coarse_inv: np.ndarray,
                    coarse_bc_mask: np.ndarray, dims: Tuple,
-                   device: torch.device, smoother_degree: int = 2) -> GMG:
+                   device: torch.device, smoother_degree: int = 2,
+                   bs: int = 1, planar: bool = False) -> GMG:
     """A port GMG on ``device`` from the level operators (port objects,
     e.g. from ``dia_from_numpy``) and tpufem's per-level ``dinv`` and
-    ``lmax``, ``coarse_inv``, ``coarse_bc_mask`` and per-level ``dims``."""
+    ``lmax``, ``coarse_inv``, ``coarse_bc_mask``, per-level ``dims`` and
+    its ``bs`` and ``planar``."""
     levels = [GLevel(op=op, dinv=torch.from_numpy(np.array(d)).to(device),
                      lmax=float(lm))
               for op, d, lm in zip(ops, dinv, lmax)]
@@ -61,7 +65,7 @@ def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                coarse_bc_mask=torch.from_numpy(
                    np.array(coarse_bc_mask, dtype=bool)).to(device),
                dims=tuple(tuple(d) for d in dims),
-               smoother_degree=smoother_degree)
+               smoother_degree=smoother_degree, bs=bs, planar=planar)
 
 
 def flat_from_numpy(W0, AZT, slot_of, TY, TX, BYZ, BZX, BYX, CC, fmask,

@@ -59,6 +59,25 @@
 //   dims, the packed offsets, the run: the wrapper cuts it shorter where
 //   the staged planes of a very wide grid would not fit 227 KB) is a
 //   StencilLaunch packed once per operator.
+//
+// The three-component form (tpufem_stencil_p1_bs3_*): the planar bs = 3
+// elasticity operator of tpufem/fem/dia_op.py (DiaOperator with
+// planar=True, its _apply_zones :462-546), for which tpufem has no Pallas
+// kernel (XLA runs it).  x and y are three component grids one after the
+// other, [3, Z, Y, X], and for each output component r
+//
+//   y_r[z,y,x] = sum_{d<D} sum_{s<3} F[r, d, s, row(z), y, x]
+//                                    * x_s[z+dz_d, y+dy_d, x+dx_d]
+//
+// summed in that order (shift d ascending, then source component s), as
+// tpufem sums the 9 D zone terms of its zone plan; a (d, r, s) term the
+// zone plan lacks is a zero field.  A block is (256 points, z run, output
+// component r): it stages the run's planes of all three source
+// components (3 x 14 KB in float32 at the 65x49x49 grid of the 500k-dof
+// elasticity path), and a thread keeps the 3 D <= 45 weights of its
+// point for r in registers.  Bytes bound it as they bound the scalar
+// form: at that grid x and y are 1.87 MB each and the 135 zone fields
+// 9.08 MB, 3.8 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
@@ -123,19 +142,23 @@ __device__ __forceinline__ void load_weights(T (&w)[MD],
 }
 
 // MD: the static bound of D (15 keeps a P1 operator's thread within 64
-// registers or so; 27 takes any stencil of the 3x3x3 cube).
-template <typename T, int MD>
+// registers or so; 27 takes any stencil of the 3x3x3 cube).  NC: the
+// number of components (1, or 3 for the planar elasticity form, whose
+// output component is blockIdx.z).
+template <typename T, int MD, int NC>
 __global__ void __launch_bounds__(kTile)
 stencil_p1_kernel(const T* __restrict__ x, const T* __restrict__ F,
                   T* __restrict__ y, int Z, int Y, int X, int R, int D,
                   int run, Offsets off) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);  // [run + 2][SW]
+  T* s = reinterpret_cast<T*>(smem_raw);  // [NC][run + 2][SW]
   const int PS = Y * X;
+  const size_t N = static_cast<size_t>(Z) * PS;  // one component's grid
   const int H = X + 1;
   const int SW = kTile + 2 * H;
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kTile;
+  const int r = NC == 1 ? 0 : static_cast<int>(blockIdx.z);
   // the block's run [z0, z0 + nz): one field row
   int z0 = blockIdx.y, nz = 1;
   if (R != Z && z0 >= kZoneHalo) {
@@ -148,14 +171,18 @@ stencil_p1_kernel(const T* __restrict__ x, const T* __restrict__ F,
     }
   }
 
-  // planes z0 - 1 .. z0 + nz, points [p0 - H, p0 + kTile + H); zeros
-  // beyond the grid
-  for (int i = tid; i < (nz + 2) * SW; i += kTile) {
-    const int pl = i / SW;
+  // planes z0 - 1 .. z0 + nz of each component, points
+  // [p0 - H, p0 + kTile + H); zeros beyond the grid
+  const int CS = (nz + 2) * SW;  // one component's staged planes
+  for (int i = tid; i < NC * CS; i += kTile) {
+    const int c = NC == 1 ? 0 : i / CS;
+    const int j = i - c * CS;
+    const int pl = j / SW;
     const int zz = z0 - 1 + pl;
-    const int q = p0 - H + (i - pl * SW);
+    const int q = p0 - H + (j - pl * SW);
     if (zz >= 0 && zz < Z && q >= 0 && q < PS) {
-      tpufem::cp_async_value(s + i, x + static_cast<size_t>(zz) * PS + q);
+      tpufem::cp_async_value(s + i,
+                             x + c * N + static_cast<size_t>(zz) * PS + q);
     } else {
       s[i] = T(0);
     }
@@ -178,10 +205,11 @@ stencil_p1_kernel(const T* __restrict__ x, const T* __restrict__ F,
     o3[d] = off.dz[d] * SW + off.dy[d] * X + off.dx[d];
   }
   const size_t fstride = static_cast<size_t>(R) * PS;
-  T w[MD];
+  // the fields of output r: [D, NC] of them, (d, s) in order
+  T w[MD * NC];
   if (active)
-    load_weights(w, F, D, fstride,
-                 static_cast<size_t>(field_row(z0, Z, R)) * PS + p);
+    load_weights(w, F + static_cast<size_t>(r) * D * NC * fstride, D * NC,
+                 fstride, static_cast<size_t>(field_row(z0, Z, R)) * PS + p);
   tpufem::cp_async_wait_all();
   __syncthreads();
   if (!active) return;
@@ -192,64 +220,73 @@ stencil_p1_kernel(const T* __restrict__ x, const T* __restrict__ F,
 #pragma unroll
     for (int d = 0; d < MD; ++d) {
       if (d >= D) break;
-      const T v = sp[o3[d]];
-      acc += w[d] * ((inside >> d) & 1u ? v : T(0));
+      const bool in = (inside >> d) & 1u;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const T v = sp[c * CS + o3[d]];
+        acc += w[d * NC + c] * (in ? v : T(0));
+      }
     }
-    y[static_cast<size_t>(z0 + zl) * PS + p] = acc;
+    y[r * N + static_cast<size_t>(z0 + zl) * PS + p] = acc;
   }
 }
 
 // Raises the kernel's dynamic shared-memory limit on the current device
 // once to at least `smem` bytes.
-template <typename T, int MD>
+template <typename T, int MD, int NC>
 cudaError_t allow_smem(int device, size_t smem) {
   static size_t allowed[kMaxDevices] = {};
   if (smem <= 48 * 1024) return cudaSuccess;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem <= allowed[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      stencil_p1_kernel<T, MD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      stencil_p1_kernel<T, MD, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess) allowed[device] = smem;
   return err;
 }
 
-template <typename T, int MD>
+template <typename T, int MD, int NC>
 int launch_bound(const StencilLaunch& L, const void* x, void* y, int run,
                  size_t smem, void* stream) {
-  const cudaError_t err = allow_smem<T, MD>(L.device, smem);
+  const cudaError_t err = allow_smem<T, MD, NC>(L.device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (L.Y * L.X + kTile - 1) / kTile;
   const int runs = L.R == L.Z ? L.Z
                               : 2 * kZoneHalo +
                                     (L.Z - 2 * kZoneHalo + run - 1) / run;
-  stencil_p1_kernel<T, MD><<<dim3(tiles, runs), kTile, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  stencil_p1_kernel<T, MD, NC><<<dim3(tiles, runs, NC), kTile, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(L.F), static_cast<T*>(y),
       L.Z, L.Y, L.X, L.R, L.D, run, L.off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// NC components: F is [NC, D, NC, R, Y, X] (scalar: [D, R, Y, X]); the
+// three-component form takes at most the 15 diagonals of P1.
+template <typename T, int NC>
 int launch(const void* prepared, const void* x, void* y, void* stream) {
   if (prepared == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const StencilLaunch& L = *static_cast<const StencilLaunch*>(prepared);
-  if (L.D < 1 || L.D > kMaxDiagonals || L.Z < 1 || L.Y < 1 || L.X < 1 ||
+  const int max_d = NC == 1 ? kMaxDiagonals : kP1Diagonals;
+  if (L.D < 1 || L.D > max_d || L.Z < 1 || L.Y < 1 || L.X < 1 ||
       static_cast<long long>(L.Y) * L.X > 0x3fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!(L.R == L.Z || (L.R == kZoneRows && L.Z >= kZoneRows)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (L.run < 1 || L.run > kRun) return static_cast<int>(cudaErrorInvalidValue);
   const int run = L.run;
-  const size_t smem = (run + 2) * (kTile + 2 * (static_cast<size_t>(L.X) + 1)) *
-                      sizeof(T);
+  const size_t smem = (run + 2) * NC *
+                      (kTile + 2 * (static_cast<size_t>(L.X) + 1)) * sizeof(T);
   if (smem > kMaxSmem || L.Z > 65535 || (L.R == L.Z && run != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   tpufem::DeviceScope scope(L.device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   if (L.D <= kP1Diagonals)
-    return launch_bound<T, kP1Diagonals>(L, x, y, run, smem, stream);
-  return launch_bound<T, kMaxDiagonals>(L, x, y, run, smem, stream);
+    return launch_bound<T, kP1Diagonals, NC>(L, x, y, run, smem, stream);
+  if constexpr (NC == 1)
+    return launch_bound<T, kMaxDiagonals, 1>(L, x, y, run, smem, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -258,12 +295,22 @@ extern "C" {
 
 int tpufem_stencil_p1_f32(const void* prepared, const void* x, void* y,
                           void* stream) {
-  return launch<float>(prepared, x, y, stream);
+  return launch<float, 1>(prepared, x, y, stream);
 }
 
 int tpufem_stencil_p1_f64(const void* prepared, const void* x, void* y,
                           void* stream) {
-  return launch<double>(prepared, x, y, stream);
+  return launch<double, 1>(prepared, x, y, stream);
+}
+
+int tpufem_stencil_p1_bs3_f32(const void* prepared, const void* x, void* y,
+                              void* stream) {
+  return launch<float, 3>(prepared, x, y, stream);
+}
+
+int tpufem_stencil_p1_bs3_f64(const void* prepared, const void* x, void* y,
+                              void* stream) {
+  return launch<double, 3>(prepared, x, y, stream);
 }
 
 const char* tpufem_cuda_error_string(int code) {

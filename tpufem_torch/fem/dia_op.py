@@ -1,5 +1,5 @@
 """DIA (shift-diagonal stencil) operator of the Kuhn lattice
-(counterpart of tpufem/fem/dia_op.py, scalar operators).
+(counterpart of tpufem/fem/dia_op.py).
 
 The matrix is stored as shift diagonals between typed dof grids
 (fem.structured_op.grid_layout):
@@ -7,9 +7,9 @@ The matrix is stored as shift diagonals between typed dof grids
   y[dst](z, y, x) += W[(dst, src, d)](z, y, x) * x[src](z+dz, y+dy, x+dx)
 
 with 15 diagonals for P1 (the Kuhn cube couples each vertex to 14
-neighbours) and 230 / 1311 terms for P2 / P3.  The host build is
-tpufem's numpy code for scalar operators, so its tables are bitwise
-equal to tpufem's:
+neighbours) and 230 / 1311 terms for P2 / P3; the P1 elasticity operator
+(bs = 3) has a [3, 3] block per diagonal.  The host build is tpufem's
+numpy code, so its tables are bitwise equal to tpufem's:
 
 - const mode: each term's weight field is translation-invariant away
   from the lattice boundary, so it is built on an 8^3 surrogate lattice
@@ -27,7 +27,14 @@ device a P1 operator stacks its fields into one [D, R, Y, X] tensor and
 kernel on a card).  A P2/P3 operator stays on the host: the device runs
 it as a fem.strip_op.StripOperator built from its tables.
 
-The bs = 3 elasticity operator raises NotImplementedError (ROADMAP M12).
+Elasticity (bs = 3, P1 only; P2/P3 is ROADMAP M12 P2): each [3, 3] block
+expands into 9 scalar zone terms (tpufem's zone plan, entries
+``(ko, so, ki, si, d, r, s)``), and the device stacks them as [3, D, 3,
+R, Y, X] for the three-component form of the kernel
+(fem.stencil.stencil_apply_bs3, ONE launch an apply).  ``planar``
+selects tpufem's component-planar vector layout, ``c * n + i``, in
+which the solve runs; the default is the reference's interleaved
+``3 * i + c``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpufem_torch.fem.stencil import prepare_stencil, stencil_apply
+from tpufem_torch.fem.stencil import (prepare_stencil, prepare_stencil_bs3,
+                                      stencil_apply, stencil_apply_bs3)
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             dof_slice_plan, grid_layout,
                                             np_dtype, perm_element_matrices)
@@ -74,26 +82,44 @@ def _clamp_index(Lr: int, Ls: int, m: int) -> np.ndarray:
     return q
 
 
-def _scalar_only(problem: str) -> None:
-    if problem == "elasticity":
+def _block_size(problem: str, order: int) -> int:
+    """bs of ``problem``; refuses what is not ported (the blocked P2/P3
+    elasticity operator)."""
+    if problem != "elasticity":
+        return 1
+    if order != 1:
         raise NotImplementedError(
-            "bs = 3 (elasticity) DIA operators: ROADMAP M12")
+            f"P{order} elasticity (the blocked StructuredOperator and the "
+            "p-transfers): ROADMAP M12 P2")
+    return 3
+
+
+def _to_planar(v: np.ndarray, bs: int) -> np.ndarray:
+    """Node-interleaved [n * bs] -> component-planar [bs * n]."""
+    return np.ascontiguousarray(v.reshape(-1, bs).T).reshape(-1)
+
+
+def _to_interleaved(v: np.ndarray, bs: int) -> np.ndarray:
+    return np.ascontiguousarray(v.reshape(bs, -1).T).reshape(-1)
 
 
 @dataclasses.dataclass
 class DiaOperator:
-    """Scalar DIA stencil matrix between typed dof grids.
+    """DIA stencil matrix between typed dof grids (scalar, or bs = 3).
 
     Host state (numpy, equal to tpufem's): ``plan`` holds one entry per
     (dst, src, shift) term, ``(dst kind, dst slot, src kind, src slot,
     (dx, dy, dz), dst-slice bounds, mode)`` with mode "table" (const
     mode: ``weights`` holds the absolute surrogate table) or None (dense
-    mode: ``weights`` holds the dst-slice array); ``zone_plan``/``zones``
-    the precomputed z-zone fields of a const-mode operator;
-    ``bc_mask_np`` the Dirichlet mask.
+    mode: ``weights`` holds the dst-slice array), each weight with a
+    trailing [bs, bs] block when bs > 1; ``zone_plan``/``zones`` the
+    precomputed z-zone fields of a const-mode operator, one per scalar
+    (r, s) component of a block; ``bc_mask_np`` the Dirichlet mask, in
+    the operator's vector layout (planar when ``planar``).
 
     Device state (after ``_finalize(device)``): ``bc_mask``, and for a
-    P1 (single-kind) operator ``fields`` [D, R, Y, X] and ``offsets`` (D
+    P1 (single-kind) operator ``fields`` [D, R, Y, X] (bs = 3: [9 D, R,
+    Y, X], the [3, D, 3] (r, d, s) fields flattened) and ``offsets`` (D
     triples (dx, dy, dz)).
     """
 
@@ -107,6 +133,8 @@ class DiaOperator:
     fields: Optional[torch.Tensor] = None
     offsets: Optional[Tuple] = None
     bc_mask: Optional[torch.Tensor] = None
+    bs: int = 1
+    planar: bool = False   # bs > 1: component-planar vectors, c * n + i
 
     def terms(self):
         """Yield (meta, weight) walking the weight list in plan order."""
@@ -133,13 +161,13 @@ class DiaOperator:
               bc_dofs: Optional[np.ndarray] = None,
               dtype: torch.dtype = torch.float32, mode: str = "auto",
               device: Optional[torch.device] = None,
-              bake_bc: bool = True) -> "DiaOperator":
+              bake_bc: bool = True, planar: bool = False) -> "DiaOperator":
         """``mode``: "const" | "dense" | "auto" (const for P1 on lattices
         with >= 6 cubes per axis, dense otherwise).  ``bake_bc=False``
         records the BC mask without eliminating rows/cols in the weights.
         ``device=None`` keeps the operator on the host (numpy twins
-        only)."""
-        _scalar_only(problem)
+        only).  ``planar``: the component-planar layout (bs = 3)."""
+        _block_size(problem, order)
         npdtype = np_dtype(dtype)
         if mode == "auto":
             mode = ("const" if order == 1
@@ -151,7 +179,15 @@ class DiaOperator:
         if op is None:
             op = cls._build_dense(mesh, order, problem, bc_dofs, npdtype,
                                   bake_bc=bake_bc)
-        return op._finalize(device)
+        return op._make_planar(planar)._finalize(device)
+
+    def _make_planar(self, planar: bool) -> "DiaOperator":
+        """Set the planar layout (bs > 1 only) and permute the mask to it
+        (tpufem/fem/dia_op.py:205, 216-218)."""
+        self.planar = planar and self.bs > 1
+        if self.planar:
+            self.bc_mask_np = _to_planar(self.bc_mask_np, self.bs)
+        return self
 
     @classmethod
     def try_const(cls, mesh: BoxTetMesh, order: int, problem: str,
@@ -161,7 +197,7 @@ class DiaOperator:
                   ) -> Optional["DiaOperator"]:
         """Const-mode build (no dense fallback) or None: the scalar P2/P3
         path; callers fall back to StructuredOperator."""
-        _scalar_only(problem)
+        _block_size(problem, order)
         op = cls._build_const(mesh, order, problem, bc_dofs,
                               np_dtype(dtype), bake_bc)
         return None if op is None else op._finalize(device)
@@ -174,16 +210,15 @@ class DiaOperator:
             self._build_zones_np()
         if device is None:
             return self
+        if self.bs > 1 and not self.planar:
+            raise NotImplementedError(
+                "an interleaved bs = 3 operator on a device: the port runs "
+                "elasticity planar (tpufem's interleaved form serves its "
+                "SA-AMG, ROADMAP M14)")
         self.bc_mask = torch.from_numpy(self.bc_mask_np).to(device)
         if self.multi_kind:
             return self
-        if self.zones is not None:
-            fields = np.stack([np.concatenate(z, axis=0) for z in self.zones])
-            offsets = tuple(zp[4] for zp in self.zone_plan)
-        else:
-            fields = np.stack([self._full_field_np(meta, W)
-                               for meta, W in self.terms()])
-            offsets = tuple(meta[4] for meta in self.plan)
+        fields, offsets = self._stencil_fields_np()
         self.fields = torch.from_numpy(np.ascontiguousarray(fields)).to(device)
         self.offsets = tuple(tuple(int(v) for v in d) for d in offsets)
         return self
@@ -194,7 +229,7 @@ class DiaOperator:
         lay = grid_layout(mesh, order)
         splan = dof_slice_plan(order)
         Ap = perm_element_matrices(mesh, order, problem, h_override=h_override)
-        bs = 1
+        bs = _block_size(problem, order)
         Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
         n = len(splan[0])
         kinds = lay.kinds
@@ -204,7 +239,7 @@ class DiaOperator:
         # dst-grid-sized weight arrays
         acc: Dict[Tuple, np.ndarray] = {}
         for p in range(6):
-            A = Ap[p].reshape(n, 1, n, 1)
+            A = Ap[p].reshape(n, bs, n, bs)
             for lo, (ko, (ox, oy, oz), so) in enumerate(splan[p]):
                 for li, (ki, (ix, iy, iz), si) in enumerate(splan[p]):
                     c = A[lo, :, li, :]  # [bs, bs]
@@ -242,7 +277,8 @@ class DiaOperator:
                 Wc = np.where(src_bc[..., None, :], 0.0, Wc)
                 if (ko, so, d) == (ki, si, (0, 0, 0)):
                     Wc = np.where(dst_bc[..., :, None], np.eye(bs), Wc)
-            Wc = Wc[..., 0, 0]
+            if bs == 1:
+                Wc = Wc[..., 0, 0]
             if not np.any(Wc):
                 continue
             plan.append((ko, so, ki, si, d, (z0, z1, y0, y1, x0, x1), None))
@@ -252,7 +288,7 @@ class DiaOperator:
         if bc_dofs is not None and len(bc_dofs):
             flat_mask[bc_dofs] = True
         return cls(weights=weights, bc_mask_np=flat_mask, plan=tuple(plan),
-                   layout=lay)
+                   layout=lay, bs=bs)
 
     @classmethod
     def _build_const(cls, mesh, order, problem, bc_dofs, npdtype,
@@ -262,7 +298,9 @@ class DiaOperator:
         not shell-representable (the caller falls back)."""
         M = _SHELL
         lay = grid_layout(mesh, order)
-        bs = 1
+        bs = _block_size(problem, order)
+        if bs > 1 and len(lay.kinds) != 1:
+            return None  # the blocked const form is P1 only
         Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
         if min(Nx, Ny, Nz) < 2 * (M + 1):
             return None
@@ -328,7 +366,7 @@ class DiaOperator:
             weights.append(T.astype(npdtype))
 
         return cls(weights=weights, bc_mask_np=flat_mask, plan=tuple(plan),
-                   layout=lay, surr_dims=sdims)
+                   layout=lay, surr_dims=sdims, bs=bs)
 
     def _kind_dims(self, kind: int):
         """((Zr, Yr, Xr), (Zs, Ys, Xs)) real/surrogate dims of one kind."""
@@ -343,30 +381,61 @@ class DiaOperator:
     def _build_zones_np(self) -> None:
         """Expand every const-table term into z-zone weight fields over
         the full dst grid: (lo[3, Y, X], mid[1, Y, X], hi[3, Y, X]), or
-        the full field for grids shorter than 7 planes."""
+        the full field for grids shorter than 7 planes; a [bs, bs] block
+        into its bs^2 scalar (r, s) components, all-zero ones left out."""
         m = _SHELL + 1
         zone_plan = []
         zones = []
         for (ko, so, ki, si, d, _b, _c), T in self.terms():
             (Zr, Yr, Xr), _sd = self._kind_dims(ko)
             qz, qy, qx = self._clamp_maps_np(ko)
-            Trs = np.asarray(T)
-            if not Trs.any():
-                continue
-            if Zr >= 2 * m + 1:
-                fields = (Trs[np.ix_(qz[:m], qy, qx)],
-                          Trs[np.ix_(qz[m: m + 1], qy, qx)],
-                          Trs[np.ix_(qz[Zr - m:], qy, qx)])
-            else:
-                fields = (Trs[np.ix_(qz, qy, qx)],)
-            zone_plan.append((ko, so, ki, si, d, 0, 0))
-            zones.append(tuple(f.copy() for f in fields))
+            Tn = np.asarray(T)
+            for r in range(self.bs):
+                for s in range(self.bs):
+                    Trs = Tn[..., r, s] if self.bs > 1 else Tn
+                    if not Trs.any():
+                        continue
+                    if Zr >= 2 * m + 1:
+                        fields = (Trs[np.ix_(qz[:m], qy, qx)],
+                                  Trs[np.ix_(qz[m: m + 1], qy, qx)],
+                                  Trs[np.ix_(qz[Zr - m:], qy, qx)])
+                    else:
+                        fields = (Trs[np.ix_(qz, qy, qx)],)
+                    zone_plan.append((ko, so, ki, si, d, r, s))
+                    zones.append(tuple(f.copy() for f in fields))
         self.zone_plan = tuple(zone_plan)
         self.zones = tuple(zones)
 
+    def _stencil_fields_np(self):
+        """The device stack of a single-kind operator: the zone fields
+        (R = 7 rows) or full fields (R = Z) as [bs, D, bs, R, Y, X] (r, d,
+        s; zero where the operator has no (d, r, s) term) flattened to
+        [bs^2 D, R, Y, X], and the D shifts in ascending order, the
+        plan's."""
+        bs = self.bs
+        if self.zones is not None:
+            terms = [(zp[4], zp[5], zp[6], np.concatenate(z, axis=0))
+                     for zp, z in zip(self.zone_plan, self.zones)]
+        else:
+            terms = []
+            for meta, W in self.terms():
+                full = self._full_field_np(meta, W).reshape(
+                    self.grid_dims + (bs, bs))
+                terms += [(meta[4], r, s, full[..., r, s])
+                          for r in range(bs) for s in range(bs)
+                          if full[..., r, s].any()]
+        offsets = sorted({d for d, _, _, _ in terms})
+        at = {d: i for i, d in enumerate(offsets)}
+        R, Y, X = terms[0][3].shape
+        F = np.zeros((bs, len(offsets), bs, R, Y, X), dtype=terms[0][3].dtype)
+        for d, r, s, f in terms:
+            F[r, at[d], s] = f
+        return F.reshape(-1, R, Y, X), offsets
+
     # -- apply ------------------------------------------------------------------
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x on the operator's device (one stencil launch)."""
+        """y = A x on the operator's device (one stencil launch; bs = 3:
+        one launch of the three-component form, on planar vectors)."""
         if self.multi_kind:
             raise NotImplementedError(
                 "the device apply of a P2/P3 DIA operator (-use_strip 0) is "
@@ -376,12 +445,16 @@ class DiaOperator:
             raise RuntimeError("host-only operator: build it with a device")
         if self.fields.device.type == "cuda":
             return self._stencil(x)
+        if self.bs > 1:
+            return stencil_apply_bs3(x, self.fields, self.offsets,
+                                     self.grid_dims)
         return stencil_apply(x, self.fields, self.offsets, self.grid_dims)
 
     @functools.cached_property
     def _stencil(self):
         """The operator's prepared stencil launch (fields on a card)."""
-        return prepare_stencil(self.fields, self.offsets, self.grid_dims)
+        prepare = prepare_stencil_bs3 if self.bs > 1 else prepare_stencil
+        return prepare(self.fields, self.offsets, self.grid_dims)
 
     def apply_bc_rows_zero(self, x: torch.Tensor) -> torch.Tensor:
         """cgpoisson convention for an unbaked operator: zero BC rows only
@@ -406,34 +479,42 @@ class DiaOperator:
 
     def _full_field_np(self, meta, W) -> np.ndarray:
         """One term's weight field over the whole grid (zero outside the
-        dst slice), in the weights' dtype — the K2 weight form."""
+        dst slice; [.., bs, bs] blocks for bs > 1), in the weights' dtype
+        — the K2 weight form."""
         (z0, z1, y0, y1, x0, x1) = meta[5]
-        full = np.zeros(self.grid_dims, dtype=np.asarray(W).dtype)
+        full = np.zeros(self.grid_dims + np.shape(W)[3:],
+                        dtype=np.asarray(W).dtype)
         full[z0:z1, y0:y1, x0:x1] = self._dense_weight_np(meta, W)
         return full
 
     def diagonal_np(self) -> np.ndarray:
+        """The matrix diagonal, float64, in the operator's layout."""
         lay = self.layout
-        bs = 1  # scalar operators (tpufem's [.., bs] grid layout)
+        bs = self.bs
         outs = [np.zeros((k[1][2], k[1][1], k[1][0], k[2], bs))
                 for k in lay.kinds]
         for meta, W in self.terms():
             (ko, so, ki, si, d, (z0, z1, y0, y1, x0, x1), corrs) = meta
             if (ko, so, d) != (ki, si, (0, 0, 0)):
                 continue
-            outs[ko][z0:z1, y0:y1, x0:x1, so, 0] += self._dense_weight_np(
-                meta, W)
-        return np.concatenate([o.reshape(-1, bs) for o in outs]).reshape(-1)
+            Wn = self._dense_weight_np(meta, W)
+            if bs > 1:
+                Wn = np.diagonal(Wn, axis1=-2, axis2=-1)
+            else:
+                Wn = Wn[..., None]
+            outs[ko][z0:z1, y0:y1, x0:x1, so, :] += Wn
+        d = np.concatenate([o.reshape(-1, bs) for o in outs]).reshape(-1)
+        return _to_planar(d, bs) if self.planar else d
 
     def to_scipy(self):
-        """The operator as a scipy CSR matrix (float64).  P1: one dof
-        kind and one term per shift diagonal, so col = row + constant
-        shift and the CSR comes out sorted without a dedup pass; P2/P3:
-        triplets per term (no (row, col) pair repeats across terms, so
-        the values are the weights themselves)."""
+        """The operator as a scipy CSR matrix (float64, the interleaved
+        dof order whatever the layout).  Scalar P1: one dof kind and one
+        term per shift diagonal, so col = row + constant shift and the CSR
+        comes out sorted without a dedup pass; P2/P3 and bs = 3: triplets
+        per term (and (r, s) component) through scipy's COO."""
         import scipy.sparse as sp
         lay = self.layout
-        if self.multi_kind:
+        if self.multi_kind or self.bs > 1:
             return self._to_scipy_kinds(sp)
         plan = list(self.terms())
         shifts_seen = [meta[4] for meta, _ in plan]
@@ -470,11 +551,12 @@ class DiaOperator:
         return sp.csr_matrix((V[keep], cols, indptr), shape=(n, n))
 
     def _to_scipy_kinds(self, sp):
-        """Triplet export of a multi-kind operator (tpufem's general
-        ``to_scipy`` path, with scipy's COO -> CSR in place of its native
-        helper)."""
+        """Triplet export of a multi-kind or blocked operator (tpufem's
+        general ``to_scipy`` path, with scipy's COO -> CSR in place of
+        its native helper)."""
         lay = self.layout
         kinds = lay.kinds
+        bs = self.bs
 
         def flat_nodes(kind, slot, z0, z1, y0, y1, x0, x1):
             b, (X, Y, Z), s = kinds[kind]
@@ -485,11 +567,23 @@ class DiaOperator:
         rows_l, cols_l, vals_l = [], [], []
         for meta, W in self.terms():
             (ko, so, ki, si, d, (z0, z1, y0, y1, x0, x1), _) = meta
-            rows_l.append(flat_nodes(ko, so, z0, z1, y0, y1, x0, x1).ravel())
-            cols_l.append(flat_nodes(ki, si, z0 + d[2], z1 + d[2], y0 + d[1],
-                                     y1 + d[1], x0 + d[0], x1 + d[0]).ravel())
-            vals_l.append(self._dense_weight_np(meta, W).ravel())
-        n = lay.ndofs
+            rr = flat_nodes(ko, so, z0, z1, y0, y1, x0, x1).ravel()
+            cc = flat_nodes(ki, si, z0 + d[2], z1 + d[2], y0 + d[1],
+                            y1 + d[1], x0 + d[0], x1 + d[0]).ravel()
+            Wn = self._dense_weight_np(meta, W)
+            if bs == 1:
+                rows_l.append(rr)
+                cols_l.append(cc)
+                vals_l.append(Wn.ravel())
+                continue
+            for r in range(bs):
+                for s in range(bs):
+                    w = Wn[..., r, s]
+                    if w.any():
+                        rows_l.append(rr * bs + r)
+                        cols_l.append(cc * bs + s)
+                        vals_l.append(w.ravel())
+        n = lay.ndofs * bs
         A = sp.coo_matrix((np.concatenate(vals_l),
                            (np.concatenate(rows_l), np.concatenate(cols_l))),
                           shape=(n, n)).tocsr()
@@ -499,9 +593,17 @@ class DiaOperator:
 
     def apply_np(self, x: np.ndarray) -> np.ndarray:
         """Host float64 twin of ``apply`` (setup-phase spectral estimates,
-        certification)."""
+        certification), in the operator's layout (planar through the
+        interleaved twin, tpufem/fem/dia_op.py:709-717)."""
+        bs = self.bs
+        if self.planar:
+            return _to_planar(self._apply_interleaved_np(
+                _to_interleaved(x, bs)), bs)
+        return self._apply_interleaved_np(x)
+
+    def _apply_interleaved_np(self, x: np.ndarray) -> np.ndarray:
         lay = self.layout
-        bs = 1  # scalar operators (tpufem's [.., bs] grid layout)
+        bs = self.bs
         xr = x.reshape(-1, bs)
         grids = [xr[b: b + X * Y * Z * s].reshape(Z, Y, X, s, bs)
                  for b, (X, Y, Z), s in lay.kinds]
@@ -511,7 +613,11 @@ class DiaOperator:
             Wn = self._dense_weight_np(meta, W)
             src = grids[ki][z0 + d[2]: z1 + d[2], y0 + d[1]: y1 + d[1],
                             x0 + d[0]: x1 + d[0], si]
-            outs[ko][z0:z1, y0:y1, x0:x1, so, 0] += Wn * src[..., 0]
+            if bs == 1:
+                outs[ko][z0:z1, y0:y1, x0:x1, so, 0] += Wn * src[..., 0]
+            else:
+                outs[ko][z0:z1, y0:y1, x0:x1, so, :] += np.einsum(
+                    "...rs,...s->...r", Wn, src)
         return np.concatenate([o.reshape(-1, bs) for o in outs]).reshape(-1)
 
 
@@ -519,18 +625,24 @@ def build_operator(mesh: BoxTetMesh, order: int, problem: str,
                    bc_dofs: Optional[np.ndarray] = None,
                    dtype: torch.dtype = torch.float32,
                    device: Optional[torch.device] = None,
-                   bake_bc: bool = True):
-    """The structured operator (tpufem/fem/dia_op.py:741-775, scalar):
+                   bake_bc: bool = True, planar: bool = False):
+    """The structured operator (tpufem/fem/dia_op.py:741-775):
 
     - P1: the DIA stencil (const zone form on lattices with >= 6 cubes
-      per axis, dense below);
-    - P2/P3: the const-table DIA across all typed dof grids, or the
-      per-perm StructuredOperator when the lattice is too small for the
-      shell reconstruction.
+      per axis, dense below), scalar or bs = 3 (``planar`` selects the
+      component-planar layout);
+    - P2/P3 scalar: the const-table DIA across all typed dof grids, or
+      the per-perm StructuredOperator when the lattice is too small for
+      the shell reconstruction.  P2/P3 elasticity raises (ROADMAP M12 P2).
     """
     if order == 1:
         return DiaOperator.build(mesh, order, problem, bc_dofs=bc_dofs,
-                                 dtype=dtype, device=device, bake_bc=bake_bc)
+                                 dtype=dtype, device=device, bake_bc=bake_bc,
+                                 planar=planar)
+    if planar:
+        raise ValueError("planar layout is implemented for the P1 "
+                         "DiaOperator forms only")
+    _block_size(problem, order)
     if order in (2, 3):
         op = DiaOperator.try_const(mesh, order, problem, bc_dofs=bc_dofs,
                                    dtype=dtype, bake_bc=bake_bc,

@@ -22,6 +22,18 @@ the CPU; for a CUDA tensor it launches the kernel or raises.
 ``prepare_stencil`` packs what does not change between the applies of
 one operator (fields, dims, offsets, the entry point) once and returns
 the launcher ``x -> y`` that fem.dia_op.DiaOperator keeps.
+
+The three-component form (``stencil_apply_bs3``, ``prepare_stencil_bs3``;
+the same source's ``tpufem_stencil_p1_bs3_*`` entry points) applies the
+planar bs = 3 elasticity operator in ONE launch: x and y are [3, Z, Y,
+X] component grids and F a [3 (output r), D, 3 (source s), R, Y, X]
+stack,
+
+    y_r[z,y,x] = sum_d sum_s F[r, d, s, row(z), y, x] * x_s[z+dz_d, ...]
+
+in that order, which is the term order of tpufem's planar
+``_apply_zones`` (tpufem/fem/dia_op.py:462-546, XLA there: tpufem has no
+Pallas kernel for it).
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 MAX_DIAGONALS = 27
+MAX_DIAGONALS_BS3 = 15  # the three-component form: P1's 15 diagonals
 ZONE_ROWS = 7
 _HALO = 3  # z-lo / z-hi zone planes
 # a block of the kernel: 256 points of the flat (y, x) plane over a z run
@@ -44,7 +57,9 @@ _TILE, _RUN, _MAX_SMEM = 256, 8, 232448
 
 def _check(x: torch.Tensor, fields: torch.Tensor,
            offsets: Sequence[Tuple[int, int, int]],
-           dims: Tuple[int, int, int]) -> None:
+           dims: Tuple[int, int, int], comps: int = 1) -> None:
+    """``comps`` = 1 (scalar) or 3 (the three-component form: x holds
+    three grids, fields 9 per diagonal, at most 15 diagonals)."""
     Z, Y, X = dims
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"stencil apply takes float32/float64, got {x.dtype}")
@@ -53,16 +68,19 @@ def _check(x: torch.Tensor, fields: torch.Tensor,
                         f"x {x.dtype}@{x.device}")
     if not (x.is_contiguous() and fields.is_contiguous()):
         raise ValueError("stencil apply needs contiguous x and fields")
-    if min(Z, Y, X) < 1 or x.shape != (Z * Y * X,):
-        raise ValueError(f"x of shape {tuple(x.shape)} is not a flat "
-                         f"{Z}x{Y}x{X} grid")
+    if min(Z, Y, X) < 1 or x.shape != (comps * Z * Y * X,):
+        raise ValueError(f"x of shape {tuple(x.shape)} is not {comps} flat "
+                         f"{Z}x{Y}x{X} grid(s)")
     if fields.dim() != 4 or tuple(fields.shape[2:]) != (Y, X):
         raise ValueError(f"fields of shape {tuple(fields.shape)} do not "
                          f"match the grid {Z}x{Y}x{X}")
-    D, R = fields.shape[:2]
-    if not 1 <= D <= MAX_DIAGONALS or len(offsets) != D:
-        raise ValueError(f"{len(offsets)} offsets for {D} fields "
-                         f"(1..{MAX_DIAGONALS} diagonals)")
+    T, R = fields.shape[:2]
+    D = T // (comps * comps)
+    most = MAX_DIAGONALS if comps == 1 else MAX_DIAGONALS_BS3
+    if (not 1 <= D <= most or len(offsets) != D
+            or T != comps * comps * D):
+        raise ValueError(f"{len(offsets)} offsets for {T} fields of "
+                         f"{comps} component(s) (1..{most} diagonals)")
     if not (R == Z or (R == ZONE_ROWS and Z >= ZONE_ROWS)):
         raise ValueError(f"{R} field rows for a grid of {Z} planes "
                          f"(need {Z}, or {ZONE_ROWS} zones when Z >= 7)")
@@ -95,6 +113,35 @@ def stencil_apply_plain(x: torch.Tensor, fields: torch.Tensor,
     return torch.cat(acc).reshape(-1)
 
 
+def stencil_apply_bs3_plain(x: torch.Tensor, fields: torch.Tensor,
+                            offsets: Sequence[Tuple[int, int, int]],
+                            dims: Tuple[int, int, int]) -> torch.Tensor:
+    """Plain PyTorch version of the three-component form: per output
+    component r, the 3 D products summed in (d, s) order into one
+    accumulator, zone by zone, as tpufem's planar ``_apply_zones`` sums
+    its zone terms (the three r are one batched product)."""
+    Z, Y, X = dims
+    D = len(offsets)
+    xp = F.pad(x.reshape(3, Z, Y, X), (1, 1, 1, 1, 1, 1))
+    w3 = fields.reshape(3, D, 3, fields.shape[1], Y, X)
+    zones = fields.shape[1] != Z
+    m = _HALO
+    acc = None
+    for d, (dx, dy, dz) in enumerate(offsets):
+        for s in range(3):
+            src = xp[s, 1 + dz: 1 + dz + Z, 1 + dy: 1 + dy + Y,
+                     1 + dx: 1 + dx + X]
+            w = w3[:, d, s]  # [3 (r), R, Y, X]
+            if zones:
+                parts = (w[:, 0:m] * src[0:m], w[:, m: m + 1] * src[m: Z - m],
+                         w[:, m + 1:] * src[Z - m:])
+            else:
+                parts = (w * src,)
+            acc = list(parts) if acc is None else [u + v for u, v in
+                                                    zip(acc, parts)]
+    return torch.cat(acc, dim=1).reshape(-1)
+
+
 def pack_offsets(offsets: Sequence[Tuple[int, int, int]]
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The D (dx, dy, dz) triples as the kernel takes them: three int8
@@ -104,14 +151,16 @@ def pack_offsets(offsets: Sequence[Tuple[int, int, int]]
     return packed[0], packed[1], packed[2]
 
 
-def stencil_smem_bytes(run: int, X: int, itemsize: int) -> int:
+def stencil_smem_bytes(run: int, X: int, itemsize: int,
+                       comps: int = 1) -> int:
     """Shared memory of a block whose z run has ``run`` planes: the run
-    and one plane either side, the block's points and X + 1 either side."""
-    return (run + 2) * (_TILE + 2 * (X + 1)) * itemsize
+    and one plane either side, the block's points and X + 1 either side,
+    of each of ``comps`` source components."""
+    return (run + 2) * comps * (_TILE + 2 * (X + 1)) * itemsize
 
 
-def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int
-                 ) -> np.ndarray:
+def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int,
+                 comps: int = 1) -> np.ndarray:
     """The z runs of the kernel's blocks, int32 [n, 2]: (first plane,
     planes); every plane of a run has the same field row.  Full fields
     (R == Z): a run per plane.  Zone form: each of the three z-lo and
@@ -120,16 +169,17 @@ def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int
     staged planes of that run do not fit a block's shared memory, into
     shorter ones."""
     Z, _, X = dims
-    if stencil_smem_bytes(1, X, itemsize) > _MAX_SMEM:
+    if stencil_smem_bytes(1, X, itemsize, comps) > _MAX_SMEM:
         raise RuntimeError(f"stencil_p1: three planes of {_TILE} points with "
                            f"a halo of {X + 1} do not fit a block's shared "
-                           f"memory ({stencil_smem_bytes(1, X, itemsize)} "
+                           "memory ("
+                           f"{stencil_smem_bytes(1, X, itemsize, comps)} "
                            "bytes)")
     if R == Z:
         return np.array([(z, 1) for z in range(Z)], dtype=np.int32)
     m, mid = _HALO, Z - 2 * _HALO
     run = -(-mid // -(-mid // _RUN))
-    while stencil_smem_bytes(run, X, itemsize) > _MAX_SMEM:
+    while stencil_smem_bytes(run, X, itemsize, comps) > _MAX_SMEM:
         run -= 1
     return np.array([(z, 1) for z in range(m)]
                     + [(z0, min(run, Z - m - z0))
@@ -145,22 +195,37 @@ def prepare_stencil(fields: torch.Tensor,
     fields' pointer, the dims, the packed offsets and the entry point
     fixed once; a call checks x against them and passes x, y and the
     stream.  Counts its launches in ``stencil_apply.launches``."""
+    return _prepare(fields, offsets, dims, 1, stencil_apply)
+
+
+def prepare_stencil_bs3(fields: torch.Tensor,
+                        offsets: Sequence[Tuple[int, int, int]],
+                        dims: Tuple[int, int, int]
+                        ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``prepare_stencil`` for the three-component form; counts its
+    launches in ``stencil_apply_bs3.launches``."""
+    return _prepare(fields, offsets, dims, 3, stencil_apply_bs3)
+
+
+def _prepare(fields, offsets, dims, comps: int, counted):
     from tpufem_torch import _build
     lib = _build.load().lib
     Z, Y, X = dims
-    D, R = fields.shape[:2]
-    n = Z * Y * X
-    fn = (lib.tpufem_stencil_p1_f32 if fields.dtype == torch.float32
-          else lib.tpufem_stencil_p1_f64)
+    T, R = fields.shape[:2]
+    D = T // (comps * comps)
+    n = comps * Z * Y * X
+    name = "stencil_p1" if comps == 1 else "stencil_p1_bs3"
+    fn = getattr(lib, f"tpufem_{name}_"
+                 + ("f32" if fields.dtype == torch.float32 else "f64"))
     args = _build.StencilLaunch(F=fields.data_ptr(),
                                 device=fields.device.index, Z=Z, Y=Y, X=X,
                                 R=R, D=D, run=int(stencil_runs(
-                                    dims, R, fields.element_size())[:, 1]
-                                    .max()))
-    for name, col in zip(("dx", "dy", "dz"), pack_offsets(offsets)):
-        getattr(args, name)[:] = col.tolist()
+                                    dims, R, fields.element_size(), comps)
+                                    [:, 1].max()))
+    for key, col in zip(("dx", "dy", "dz"), pack_offsets(offsets)):
+        getattr(args, key)[:] = col.tolist()
     addr = ctypes.addressof(args)
-    what = f"stencil_p1 on grid {Z}x{Y}x{X}, D={D}, R={R}"
+    what = f"{name} on grid {Z}x{Y}x{X}, D={D}, R={R}"
     raw_stream = _build.raw_stream_getter()
     dtype, device, index = fields.dtype, fields.device, fields.device.index
 
@@ -174,7 +239,7 @@ def prepare_stencil(fields: torch.Tensor,
         rc = fn(addr, x.data_ptr(), y.data_ptr(), raw_stream(index))
         if rc != 0:
             _build.raise_on(lib, rc, what)
-        stencil_apply.launches += 1
+        counted.launches += 1
         return y
 
     launch.keep = (args, fields)  # what ``addr`` points into
@@ -198,3 +263,22 @@ def stencil_apply(x: torch.Tensor, fields: torch.Tensor,
 
 
 stencil_apply.launches = 0
+
+
+def stencil_apply_bs3(x: torch.Tensor, fields: torch.Tensor,
+                      offsets: Sequence[Tuple[int, int, int]],
+                      dims: Tuple[int, int, int]) -> torch.Tensor:
+    """y = the three-component stencil of x, planar [3 * Z*Y*X].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (and count the launch in ``stencil_apply_bs3.launches``).  Anything
+    else raises."""
+    _check(x, fields, offsets, dims, comps=3)
+    if x.device.type == "cpu":
+        return stencil_apply_bs3_plain(x, fields, offsets, dims)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no stencil kernel for device {x.device}")
+    return prepare_stencil_bs3(fields, offsets, dims)(x)
+
+
+stencil_apply_bs3.launches = 0

@@ -22,7 +22,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpufem_torch.fem.assemble import _poisson_stiffness_np
+from tpufem_torch.fem.assemble import (_elasticity_stiffness_np,
+                                       _poisson_stiffness_np)
 from tpufem_torch.fem.reference import ReferenceTet
 from tpufem_torch.mesh.structured import (CELL_VERTEX_OFFSETS, LOCAL_EDGES,
                                           LOCAL_FACES, _EDGE_TYPE_OF,
@@ -135,8 +136,9 @@ def dof_slice_plan(order: int):
 def perm_element_matrices(mesh: BoxTetMesh, order: int,
                           problem: str = "poisson",
                           h_override=None) -> np.ndarray:
-    """[6, n, n] constant element matrices of the six tet shapes
-    ("poisson" stiffness or "mass").  ``h_override`` supplies the
+    """[6, n, n] (scalar) or [6, 3n, 3n] (elasticity, dofs interleaved)
+    constant element matrices of the six tet shapes ("poisson" or
+    "elasticity" stiffness, or "mass").  ``h_override`` supplies the
     physical cube size for a surrogate lattice."""
     if h_override is not None:
         h = np.asarray(h_override, dtype=np.float64)
@@ -145,13 +147,13 @@ def perm_element_matrices(mesh: BoxTetMesh, order: int,
     coords = CELL_VERTEX_OFFSETS.astype(np.float64) * h[None, None, :]
     if problem == "poisson":
         return _poisson_stiffness_np(coords, order)
+    if problem == "elasticity":
+        return _elasticity_stiffness_np(coords, order)
     if problem == "mass":
         el = ReferenceTet(order)
         adet = float(np.prod(h))  # |detJ| identical for all 6 perms
         return np.repeat((adet * el.mass_tensor)[None], 6, axis=0)
-    raise NotImplementedError(
-        f"problem {problem!r}: the port's operators are poisson and mass "
-        "(elasticity: ROADMAP M12)")
+    raise ValueError(problem)
 
 
 def dof_gids_for_cells(mesh: BoxTetMesh, order: int, cubes: np.ndarray,
@@ -177,8 +179,8 @@ def dof_gids_for_cells(mesh: BoxTetMesh, order: int, cubes: np.ndarray,
 @dataclasses.dataclass
 class StructuredOperator:
     """Constant-stencil matrix-free scalar operator on a BoxTetMesh
-    (tpufem/fem/structured_op.py:214-400; bs = 1 only, elasticity is
-    ROADMAP M12).
+    (tpufem/fem/structured_op.py:214-400; bs = 1 only, the blocked
+    elasticity form is ROADMAP M12 P2).
 
     ``Ap`` [6, n, n] holds the per-perm element matrices in the working
     dtype (numpy); ``A_dev`` the same on the operator's device;
@@ -200,6 +202,10 @@ class StructuredOperator:
               device: Optional[torch.device] = None,
               h_override=None) -> "StructuredOperator":
         """``device=None`` keeps the operator on the host (numpy twins)."""
+        if problem == "elasticity":
+            raise NotImplementedError(
+                "the blocked (bs = 3) StructuredOperator of P2/P3 elasticity: "
+                "ROADMAP M12 P2")
         layout = grid_layout(mesh, order)
         Ap = perm_element_matrices(mesh, order, problem,
                                    h_override=h_override)

@@ -1,6 +1,6 @@
-"""Structured geometric multigrid for P1 scalar problems (counterpart of
+"""Structured geometric multigrid for P1 problems (counterpart of
 tpufem/la/gmg.py: ``prolong_h``/``restrict_h`` :74-116, ``GMG.setup``
-:236-339 for the P1 scalar non-planar case, ``vcycle`` :369-404,
+:236-339 for P1, scalar and planar bs = 3, ``vcycle`` :341-404,
 ``gmg_viable``, ``surrogate_lmax``, ``_host_lmax``).
 
 Nested Kuhn lattices give an exact geometric hierarchy: P1 prolongation
@@ -10,10 +10,17 @@ DIA stencils with their own Dirichlet masks, the smoother is
 Chebyshev/Jacobi with one lmax estimated on a small surrogate lattice,
 and the coarsest level is solved by a dense inverse.
 
+Elasticity runs in the component-planar layout (``planar``): the level
+operators are planar bs = 3 DiaOperators, the transfers act on the
+three component grids as a leading batch dimension, the level walk
+counts bs * nodes dofs, and the dense coarse inverse is permuted to
+planar order.
+
 Differences from tpufem: the coarsest operator is the coarse
 DiaOperator's ``to_scipy()`` matrix (tpufem assembles it from element
 tensors; the two are equal, tests/test_dia_op.py pins it); vectors are
-[Z, Y, X] grids without tpufem's trailing component axis.
+[Z, Y, X] grids ([3, Z, Y, X] planar) without tpufem's trailing
+component axis.
 """
 
 from __future__ import annotations
@@ -36,12 +43,14 @@ from tpufem_torch.mesh.structured import BoxTetMesh
 
 
 # ---------------------------------------------------------------------------
-# Transfers (shifted slices; an exact adjoint pair)
+# Transfers (shifted slices; an exact adjoint pair) on the last three axes
+# [..., Z, Y, X]: leading axes are a batch (the planar components)
 # ---------------------------------------------------------------------------
 
 
 def _interleave(A: torch.Tensor, B: torch.Tensor, axis: int) -> torch.Tensor:
     """[a0, b0, a1, b1, ..., an]: weave A (n+1 slices) with B (n slices)."""
+    axis %= A.dim()
     n = B.shape[axis]
     pairs = torch.stack([A.narrow(axis, 0, n), B], dim=axis + 1)
     shape = list(A.shape)
@@ -52,6 +61,7 @@ def _interleave(A: torch.Tensor, B: torch.Tensor, axis: int) -> torch.Tensor:
 def _deinterleave(Fg: torch.Tensor, axis: int) -> Tuple[torch.Tensor,
                                                          torch.Tensor]:
     """Inverse of _interleave: F (2n+1 slices) -> (A (n+1), B (n))."""
+    axis %= Fg.dim()
     n = (Fg.shape[axis] - 1) // 2
     shape = list(Fg.shape)
     shape[axis: axis + 1] = [n, 2]
@@ -62,30 +72,32 @@ def _deinterleave(Fg: torch.Tensor, axis: int) -> Tuple[torch.Tensor,
 
 
 def prolong_h(c: torch.Tensor) -> torch.Tensor:
-    """P1 vertex-grid prolongation [Zc+1, Yc+1, Xc+1] -> [2Zc+1, ...]:
-    every fine vertex is the average of coarse vertices floor(f/2) and
-    ceil(f/2) (exact linear interpolation on the coarse Kuhn mesh)."""
+    """P1 vertex-grid prolongation [..., Zc+1, Yc+1, Xc+1] -> [...,
+    2Zc+1, ...]: every fine vertex is the average of coarse vertices
+    floor(f/2) and ceil(f/2) (exact linear interpolation on the coarse
+    Kuhn mesh)."""
+    Z, Y, X = c.shape[-3:]
     pat = {}
     for oz, oy, ox in itertools.product((0, 1), repeat=3):
-        lo = c[: c.shape[0] - oz, : c.shape[1] - oy, : c.shape[2] - ox]
-        hi = c[oz:, oy:, ox:]
+        lo = c[..., : Z - oz, : Y - oy, : X - ox]
+        hi = c[..., oz:, oy:, ox:]
         pat[(oz, oy, ox)] = lo if (oz | oy | ox) == 0 else 0.5 * (lo + hi)
-    q = {(oz, oy): _interleave(pat[(oz, oy, 0)], pat[(oz, oy, 1)], axis=2)
+    q = {(oz, oy): _interleave(pat[(oz, oy, 0)], pat[(oz, oy, 1)], axis=-1)
          for oz, oy in itertools.product((0, 1), repeat=2)}
-    r0 = _interleave(q[(0, 0)], q[(0, 1)], axis=1)
-    r1 = _interleave(q[(1, 0)], q[(1, 1)], axis=1)
-    return _interleave(r0, r1, axis=0)
+    r0 = _interleave(q[(0, 0)], q[(0, 1)], axis=-2)
+    r1 = _interleave(q[(1, 0)], q[(1, 1)], axis=-2)
+    return _interleave(r0, r1, axis=-3)
 
 
 def restrict_h(f: torch.Tensor) -> torch.Tensor:
     """Adjoint of prolong_h (fine vertex grid -> coarse vertex grid)."""
-    r0, r1 = _deinterleave(f, axis=0)
-    q00, q01 = _deinterleave(r0, axis=1)
-    q10, q11 = _deinterleave(r1, axis=1)
+    r0, r1 = _deinterleave(f, axis=-3)
+    q00, q01 = _deinterleave(r0, axis=-2)
+    q10, q11 = _deinterleave(r1, axis=-2)
     c = None
     for (oz, oy), qq in (((0, 0), q00), ((0, 1), q01),
                          ((1, 0), q10), ((1, 1), q11)):
-        e, o = _deinterleave(qq, axis=2)
+        e, o = _deinterleave(qq, axis=-1)
         for ox, part in ((0, e), (1, o)):
             if (oz | oy | ox) == 0:
                 c = part if c is None else c + part
@@ -111,14 +123,16 @@ class GLevel:
 
 @dataclasses.dataclass
 class GMG:
-    """Geometric multigrid preconditioner for P1 scalar BoxTetMesh
-    problems; level 0 is the finest."""
+    """Geometric multigrid preconditioner for P1 BoxTetMesh problems
+    (scalar, or planar bs = 3); level 0 is the finest."""
 
     levels: List[GLevel]
     coarse_inv: torch.Tensor
     coarse_bc_mask: torch.Tensor
     dims: Tuple                  # per-level (Nx, Ny, Nz), coarsest last
     smoother_degree: int = 2
+    bs: int = 1
+    planar: bool = False         # bs > 1: component-planar vectors
 
     def __post_init__(self) -> None:
         d = self.smoother_degree
@@ -133,20 +147,29 @@ class GMG:
               bc_marker: Callable, device: torch.device,
               dtype: torch.dtype = torch.float32,
               coarse_limit: int = 1000, smoother_degree: int = 2,
-              max_levels: int = 12) -> "GMG":
-        if order != 1 or problem != "poisson":
+              max_levels: int = 12, planar: bool = False) -> "GMG":
+        """``problem`` "poisson" or "elasticity" (bs = 3; ``planar``
+        runs it in the component-planar layout)."""
+        if order != 1 or problem not in ("poisson", "elasticity"):
             raise NotImplementedError(
                 f"GMG for order {order} {problem}: the port's multigrid is "
-                "P1 Poisson (P2/P3: ROADMAP M10, elasticity: M12)")
+                "P1 (P2/P3 Poisson: ROADMAP M10, P2 elasticity: M12 P2)")
+        bs = 3 if problem == "elasticity" else 1
+        if bs > 1 and not planar:
+            raise NotImplementedError(
+                "the interleaved bs = 3 GMG (the port runs elasticity in "
+                "the planar layout; tpufem's interleaved form serves its "
+                "AMG fallback, ROADMAP M13)")
+        planar = planar and bs > 1
 
         def level_bc(m: BoxTetMesh) -> DirichletBC:
-            space = FunctionSpace(m, 1)
+            space = FunctionSpace(m, 1, bs=bs)
             return DirichletBC.from_space(space,
                                           m.locate_boundary_facets(bc_marker))
 
-        meshes = hierarchy(mesh, coarse_limit, max_levels)
+        meshes = hierarchy(mesh, coarse_limit, max_levels, bs)
         mC = meshes[-1]
-        coarse_ndofs = (mC.Nx + 1) * (mC.Ny + 1) * (mC.Nz + 1)
+        coarse_ndofs = (mC.Nx + 1) * (mC.Ny + 1) * (mC.Nz + 1) * bs
         if coarse_ndofs > 8 * coarse_limit:
             raise ValueError(
                 f"GMG coarsest level has {coarse_ndofs} dofs "
@@ -158,24 +181,30 @@ class GMG:
         for m in meshes[:-1]:
             op = build_operator(m, 1, problem,
                                 bc_dofs=level_bc(m).flat_dofs(),
-                                dtype=dtype, device=device)
+                                dtype=dtype, device=device, planar=planar)
             dinv_np = 1.0 / op.diagonal_np()
             levels.append(GLevel(
                 op=op, lmax=lmax,
                 dinv=torch.from_numpy(dinv_np.astype(np_dtype(dtype))).to(device)))
 
         # coarsest: dense inverse of the BC-eliminated operator
+        # (interleaved), permuted to planar component order
         bc_c = level_bc(mC)
         Ac = build_operator(mC, 1, problem, bc_dofs=bc_c.flat_dofs(),
                             dtype=torch.float64).to_scipy().toarray()
+        coarse_inv = np.linalg.inv(Ac)
         cmask = np.zeros(coarse_ndofs, dtype=bool)
         cmask[bc_c.flat_dofs()] = True
+        if planar:
+            perm = np.arange(coarse_ndofs).reshape(-1, bs).T.reshape(-1)
+            coarse_inv = coarse_inv[np.ix_(perm, perm)]
+            cmask = cmask[perm]
         return cls(levels=levels,
-                   coarse_inv=torch.from_numpy(np.linalg.inv(Ac)).to(
+                   coarse_inv=torch.from_numpy(coarse_inv).to(
                        device=device, dtype=dtype),
                    coarse_bc_mask=torch.from_numpy(cmask).to(device),
                    dims=tuple((m.Nx, m.Ny, m.Nz) for m in meshes),
-                   smoother_degree=smoother_degree)
+                   smoother_degree=smoother_degree, bs=bs, planar=planar)
 
     def _bc_mask_of(self, i: int) -> torch.Tensor:
         if i == len(self.levels):
@@ -183,8 +212,11 @@ class GMG:
         return self.levels[i].op.bc_mask
 
     def _grid(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Level i's vector as its vertex grid(s): [Z, Y, X], or [3, Z,
+        Y, X] planar (the transfers batch over the components)."""
         Nx, Ny, Nz = self.dims[i]
-        return x.reshape(Nz + 1, Ny + 1, Nx + 1)
+        grid = (Nz + 1, Ny + 1, Nx + 1)
+        return x.reshape(grid if self.bs == 1 else (self.bs,) + grid)
 
     def vcycle(self, r: torch.Tensor, i: int = 0) -> torch.Tensor:
         if i == len(self.levels):
@@ -202,14 +234,15 @@ class GMG:
 
 
 def hierarchy(mesh: BoxTetMesh, coarse_limit: int = 1000,
-              max_levels: int = 12) -> List[BoxTetMesh]:
+              max_levels: int = 12, bs: int = 1) -> List[BoxTetMesh]:
     """The lattices of the GMG levels, finest first: halve every axis
-    while the level has more than ``coarse_limit`` dofs, all dims are
-    even and at least 4, and fewer than ``max_levels`` levels exist."""
+    while the level has more than ``coarse_limit`` dofs (bs per vertex),
+    all dims are even and at least 4, and fewer than ``max_levels``
+    levels exist."""
     meshes = [mesh]
     while True:
         m = meshes[-1]
-        if ((m.Nx + 1) * (m.Ny + 1) * (m.Nz + 1) <= coarse_limit
+        if ((m.Nx + 1) * (m.Ny + 1) * (m.Nz + 1) * bs <= coarse_limit
                 or len(meshes) >= max_levels
                 or m.Nx % 2 or m.Ny % 2 or m.Nz % 2
                 or min(m.Nx, m.Ny, m.Nz) < 4):
@@ -217,23 +250,26 @@ def hierarchy(mesh: BoxTetMesh, coarse_limit: int = 1000,
         meshes.append(BoxTetMesh(m.Nx // 2, m.Ny // 2, m.Nz // 2))
 
 
-def gmg_viable(mesh: BoxTetMesh, coarse_limit: int = 1000,
+def gmg_viable(mesh: BoxTetMesh, bs: int = 1, coarse_limit: int = 1000,
                max_levels: int = 12) -> bool:
-    """Would GMG.setup succeed on this lattice?"""
-    mC = hierarchy(mesh, coarse_limit, max_levels)[-1]
-    return (mC.Nx + 1) * (mC.Ny + 1) * (mC.Nz + 1) <= 8 * coarse_limit
+    """Would GMG.setup succeed on this lattice (bs dofs per vertex)?"""
+    mC = hierarchy(mesh, coarse_limit, max_levels, bs)[-1]
+    return (mC.Nx + 1) * (mC.Ny + 1) * (mC.Nz + 1) * bs <= 8 * coarse_limit
 
 
 def surrogate_lmax(mesh: BoxTetMesh, order: int, problem: str,
                    bc_marker: Callable,
                    dtype: torch.dtype = torch.float32) -> float:
     """lmax(D^-1 A) estimated on a small surrogate lattice with the same
-    (hx : hy : hz) anisotropy; one host estimate serves every level."""
+    (hx : hy : hz) anisotropy; one host estimate serves every level.  The
+    surrogate is interleaved for bs = 3, as tpufem's: the seeded start
+    vector of the power iteration depends on the layout."""
     g = math.gcd(math.gcd(mesh.Nx, mesh.Ny), mesh.Nz)
     sdims = (mesh.Nx // g, mesh.Ny // g, mesh.Nz // g)
     scale = max(1, 8 // max(sdims))
     surrogate = BoxTetMesh(*(d * scale for d in sdims))
-    space = FunctionSpace(surrogate, order)
+    space = FunctionSpace(surrogate, order,
+                          bs=3 if problem == "elasticity" else 1)
     bc = DirichletBC.from_space(
         space, surrogate.locate_boundary_facets(bc_marker))
     sop = build_operator(surrogate, order, problem, bc_dofs=bc.flat_dofs(),

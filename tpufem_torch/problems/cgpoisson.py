@@ -221,9 +221,14 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
     solver_opts = cfg.solver
     rtol = float(solver_opts.extra.get("cg_rtol", 1e-6))
     kmax = int(solver_opts.extra.get("cg_kmax", 100))
-    solver_opts._consumed.update(("cg_rtol", "cg_kmax", "cg_kernel"))
-    use_ck = (str(solver_opts.extra.get("cg_kernel", "off")) == "on"
-              and isinstance(op, StripOperator) and op.cg_kernel_ok)
+    solver_opts._consumed.update(("cg_rtol", "cg_kmax"))
+    use_ck = False
+    if isinstance(op, StripOperator):
+        # read only where the whole-CG kernel could run, as tpufem does
+        # (tpufem/problems/cgpoisson.py:232-234): elsewhere it is left over
+        solver_opts._consumed.add("cg_kernel")
+        use_ck = (str(solver_opts.extra.get("cg_kernel", "off")) == "on"
+                  and op.cg_kernel_ok)
     u = torch.zeros(space.ndofs, dtype=dtype, device=device)
     solver = Solver(op, apply, space.ndofs, rtol, kmax, acc_dtype, device,
                     cg_kernel=use_ck)

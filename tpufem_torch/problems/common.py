@@ -1,6 +1,7 @@
 """Shared problem-construction helpers (counterpart of
 tpufem/problems/common.py): the Poisson data f, g and Dirichlet marker,
-the problem record, and dtype resolution to torch dtypes."""
+the elasticity body force and clamped face, the problem record, and
+dtype resolution to torch dtypes."""
 
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ class Problem:
     space: object
     bc: object
     rhs_op: Optional[object] = None  # the device operator of the RHS, if any
+    near_nullspace: Optional[np.ndarray] = None  # elasticity: [6, ndofs]
 
 
 def poisson_f_xy(x, y, xp=np):
@@ -47,6 +49,28 @@ def poisson_bc_marker(x: np.ndarray) -> np.ndarray:
     (reference: src/poisson_problem.cpp:58-71)."""
     eps = 1.0e-8
     return (np.abs(x[:, 0]) < eps) | (np.abs(x[:, 0] - 1.0) < eps)
+
+
+def elasticity_f_components(x, y, z, xp=np):
+    """Rotational body force (-dz*r*y, 1, dx*r*y) on broadcastable
+    coordinate arrays, ``xp`` = numpy or torch: the single closed form of
+    the host and device RHS paths (reference:
+    src/elasticity_problem.cpp:154-176)."""
+    dx = x - 0.5
+    dz = z - 0.5
+    r = xp.sqrt(dx * dx + dz * dz)
+    return (-dz * r * y, xp.ones_like(r * y), dx * r * y)
+
+
+def elasticity_f(x: np.ndarray) -> np.ndarray:
+    """Rotational body force at point rows [n, 3]."""
+    return np.stack(
+        elasticity_f_components(x[:, 0], x[:, 1], x[:, 2]), axis=-1)
+
+
+def elasticity_bc_marker(x: np.ndarray) -> np.ndarray:
+    """Clamped y = 0 plane (reference: src/elasticity_problem.cpp:125-138)."""
+    return np.abs(x[:, 1]) < 1.0e-8
 
 
 def resolve_dtype(cfg) -> Tuple[torch.dtype, torch.dtype]:

@@ -1,0 +1,139 @@
+"""Vector-valued (bs = 3) linear elasticity on the structured cube mesh
+(counterpart of tpufem/problems/elasticity.py, P1 structured path).
+
+P1 vector Lagrange space; the clamped y = 0 face; the rotational body
+force; the BC-eliminated blocked stiffness as a bs = 3 DIA stencil; the
+rigid-body near-nullspace; CG preconditioned by geometric multigrid (or
+Jacobi, or none), certified against a float64 host twin as Poisson's
+solve is.
+
+The solve runs in tpufem's component-planar layout (vector index
+``c * n + i``), in which the operator is ONE launch of the
+three-component stencil kernel; b, u and x keep the reference's
+node-interleaved layout (``3 * i + c``) and the solver converts once per
+solve.  The float32 RHS is three scalar P1 mass-stencil applies of the
+body force, evaluated on the device from coordinates; float64 runs
+assemble it on the host.
+
+Where GMG is not viable on the lattice, or under ``-pc_type amg``,
+tpufem goes to algebraic multigrid, which is not ported (ROADMAP M13,
+M14); P2/P3 elasticity is ROADMAP M12 P2.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpufem_torch.config import Config
+from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
+from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.space import FunctionSpace
+from tpufem_torch.fem.structured_op import StructuredOperator
+from tpufem_torch.la.gmg import gmg_viable
+from tpufem_torch.la.nullspace import build_near_nullspace
+from tpufem_torch.mesh.structured import BoxTetMesh
+from tpufem_torch.problems import common
+from tpufem_torch.problems.poisson import Solver
+from tpufem_torch.timing import Timer
+
+
+def assemble_elasticity_rhs_structured_dev(space: FunctionSpace,
+                                           bc: DirichletBC,
+                                           mass: DiaOperator) -> torch.Tensor:
+    """Device RHS (interleaved): three applies of the scalar P1 device
+    mass operator ``mass``, one per component of the body force evaluated
+    on the device from coordinates, and the BC values set
+    (tpufem/problems/elasticity.py:43-88)."""
+    mesh = space.mesh
+    dtype, device = mass.fields.dtype, mass.fields.device
+    Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
+    x = (torch.arange(Nx + 1, dtype=dtype, device=device) / Nx)[None, None, :]
+    y = (torch.arange(Ny + 1, dtype=dtype, device=device) / Ny)[None, :, None]
+    z = (torch.arange(Nz + 1, dtype=dtype, device=device) / Nz)[:, None, None]
+    shape = (Nz + 1, Ny + 1, Nx + 1)
+    cols = [mass.apply(c.expand(shape).reshape(-1))
+            for c in common.elasticity_f_components(x, y, z, torch)]
+    b = torch.stack(cols, dim=-1).reshape(-1)
+    return b.index_fill(0, torch.from_numpy(bc.flat_dofs()).to(device),
+                        bc.value)
+
+
+def assemble_elasticity_rhs_np(space: FunctionSpace) -> np.ndarray:
+    """Host float64 RHS (interleaved, no BC values): the per-perm mass
+    apply of each interpolated component (tpufem/problems/elasticity.py:
+    110-121)."""
+    f = space.interpolate(common.elasticity_f).reshape(-1, 3)
+    mass = StructuredOperator.build(space.mesh, space.order, "mass",
+                                    dtype=torch.float64)
+    return np.stack([mass.apply_raw_np(f[:, r]) for r in range(3)],
+                    axis=-1).reshape(-1)
+
+
+def problem(mesh: BoxTetMesh, order: int, cfg: Config,
+            device: torch.device) -> common.Problem:
+    if order != 1:
+        raise NotImplementedError(
+            f"--order {order} elasticity (the blocked StructuredOperator and "
+            "the p-transfers): ROADMAP M12 P2")
+    dtype, acc_dtype = common.resolve_dtype(cfg)
+
+    with Timer("ZZZ FunctionSpace"):
+        space = FunctionSpace(mesh, order, bs=3)
+
+    with Timer("ZZZ Create boundary conditions"):
+        facets = mesh.locate_boundary_facets(common.elasticity_bc_marker)
+        bc = DirichletBC.from_space(space, facets)
+
+    # the planar layout serves CG with GMG, Jacobi or no preconditioner
+    # (tpufem/problems/elasticity.py:155-169); tpufem's other choices run
+    # algebraic multigrid on the interleaved layout
+    solver = cfg.solver
+    pc_type = solver.get("pc_type")
+    if pc_type == "amg":
+        raise NotImplementedError(
+            "-pc_type amg: brick-AMG and SA-AMG are not ported yet "
+            "(ROADMAP M13, M14)")
+    if pc_type not in ("jacobi", "none") and not gmg_viable(
+            mesh, 3, int(solver.get("amg_coarse_eq_limit")),
+            int(solver.get("amg_max_levels"))):
+        raise NotImplementedError(
+            f"GMG is not viable on the {mesh.Nx}x{mesh.Ny}x{mesh.Nz} "
+            "lattice; tpufem falls back to algebraic multigrid here, which "
+            "is not ported yet (ROADMAP M13, M14)")
+
+    with Timer("ZZZ Assemble matrix", device):
+        A = build_operator(mesh, order, "elasticity", bc_dofs=bc.flat_dofs(),
+                           dtype=dtype, device=device, planar=True)
+
+    mass = None
+    with Timer("ZZZ Assemble vector", device):
+        if dtype == torch.float32:
+            mass = DiaOperator.build(mesh, 1, "mass", dtype=dtype,
+                                     device=device)
+            b = assemble_elasticity_rhs_structured_dev(space, bc, mass)
+        else:
+            b_np = assemble_elasticity_rhs_np(space)
+            b_np[bc.flat_dofs()] = bc.value
+            b = torch.from_numpy(b_np.astype(np_dtype(dtype))).to(device)
+
+    with Timer("ZZZ Create near-nullspace"):
+        nns = build_near_nullspace(space.scalar_dof_coords())
+
+    def fidelity():
+        """float64 host twin of the assembled system (la.refine), in the
+        interleaved layout of the solver's contract."""
+        A64 = build_operator(mesh, order, "elasticity",
+                             bc_dofs=bc.flat_dofs(), dtype=torch.float64)
+        b64 = assemble_elasticity_rhs_np(space)
+        b64[bc.flat_dofs()] = bc.value
+        return A64.apply_np, b64
+
+    u = torch.zeros(space.ndofs, dtype=dtype, device=device)
+    solver_function = Solver(A, mesh, order, cfg, dtype, acc_dtype, device,
+                             fidelity=fidelity, problem="elasticity",
+                             bc_marker=common.elasticity_bc_marker,
+                             planar=True)
+    return common.Problem(b=b, u=u, solver_function=solver_function,
+                          space=space, bc=bc, rhs_op=mass,
+                          near_nullspace=nns)

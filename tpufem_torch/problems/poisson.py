@@ -105,9 +105,14 @@ def assemble_poisson_rhs_np(space: FunctionSpace) -> np.ndarray:
 
 
 class Solver:
-    """The CG solve of one assembled system, ``(u0, rhs) -> (x, its)``.
+    """The CG solve of one assembled system, ``(u0, rhs) -> (x, its)``,
+    of Poisson or elasticity (``problem``, with its Dirichlet marker
+    ``bc_marker`` for the multigrid levels).
 
-    The preconditioner is built inside the first call (PETSc's
+    ``planar``: A runs in the component-planar bs = 3 layout while u0,
+    rhs and x keep the reference's interleaved one; a solve converts in
+    and out once (tpufem/problems/poisson.py:408-413, 433-434).  The
+    preconditioner is built inside the first call (PETSc's
     PCSetUp-in-KSPSolve, timed as "ZZZ PC setup").  With ``fidelity``,
     a lazy ``() -> (apply64, b64)`` float64 host twin of the system,
     every solve of the canonical RHS is certified: the true relative
@@ -119,8 +124,12 @@ class Solver:
     def __init__(self, A: DiaOperator, mesh: BoxTetMesh, order: int,
                  cfg: Config, dtype: torch.dtype, acc_dtype: torch.dtype,
                  device: torch.device,
-                 fidelity: Optional[Callable[[], Tuple]] = None) -> None:
+                 fidelity: Optional[Callable[[], Tuple]] = None,
+                 problem: str = "poisson",
+                 bc_marker: Callable = common.poisson_bc_marker,
+                 planar: bool = False) -> None:
         self.A, self.mesh, self.order = A, mesh, order
+        self.problem, self.bc_marker, self.planar = problem, bc_marker, planar
         self.solver = cfg.solver
         self.dtype, self.acc_dtype, self.device = dtype, acc_dtype, device
         self.fidelity = fidelity
@@ -156,11 +165,11 @@ class Solver:
                 from tpufem_torch.la.gmg import GMG
                 try:
                     self.pc = GMG.setup(
-                        self.mesh, self.order, "poisson",
-                        common.poisson_bc_marker, self.device,
-                        dtype=self.dtype,
+                        self.mesh, self.order, self.problem, self.bc_marker,
+                        self.device, dtype=self.dtype,
                         coarse_limit=int(self.solver.get("amg_coarse_eq_limit")),
-                        smoother_degree=int(self.solver.get("amg_smoother_degree")))
+                        smoother_degree=int(self.solver.get("amg_smoother_degree")),
+                        planar=self.planar)
                 except ValueError as e:
                     raise NotImplementedError(
                         f"{e}; tpufem falls back to algebraic multigrid "
@@ -177,10 +186,16 @@ class Solver:
         """The uncertified solve: (x, iterations, recurrence rel)."""
         if not self._ready:
             self._setup()
-        return cg_solve(self.A.apply, rhs,
-                        x0=x0 if self.nonzero_guess else None,
-                        precond=self.precond, rtol=self.rtol,
-                        maxit=self.maxit, acc_dtype=self.acc_dtype)
+        if self.planar:
+            x0, rhs = (v.reshape(-1, 3).T.contiguous().reshape(-1)
+                       for v in (x0, rhs))
+        x, it, rel = cg_solve(self.A.apply, rhs,
+                              x0=x0 if self.nonzero_guess else None,
+                              precond=self.precond, rtol=self.rtol,
+                              maxit=self.maxit, acc_dtype=self.acc_dtype)
+        if self.planar:
+            x = x.reshape(3, -1).T.contiguous().reshape(-1)
+        return x, it, rel
 
     def __call__(self, u0: torch.Tensor,
                  rhs: torch.Tensor) -> Tuple[torch.Tensor, int]:
