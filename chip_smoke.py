@@ -62,7 +62,19 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    6.784162962970475e-05 at rel 1e-9); the three-component kernel against
    its plain version on the CG matrix (zone and full-field forms) and the
    four smoothed GMG levels, in float32 and float64, with times, the
-   wrapper's host cost and the bound.
+   wrapper's host cost and the bound;
+11. brick-AMG (``-pc_type amg``): tpufem's bench rows ``poisson_amg``
+   (60^3 lattice), ``poisson_amg_500k`` and ``elasticity_amg_500k``
+   through the port's problem API, f32, rtol 1e-8, each with the stencil
+   and brick_flat launches counted from zero around its build and first
+   solve (iterations within 1 of tpufem's 13 / 17 / 19, certified
+   true_rel <= 1e-8 in at most 3 refinement passes), warm solves, a timed
+   second build and the V-cycle split; the brick_flat kernel against its
+   plain version on the level-1 operators of the 500k rows (m = 1 and m =
+   6) and two edge grids, in float32 and float64, with times, the host
+   cost, the bound and ``torch.sparse.mm`` of the same operator as the
+   library yardstick; and the float64 goldens of tpufem's brick-AMG runs
+   (elasticity 100k: 20 iterations; poisson 50k: 13; norms to rel 1e-9).
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -160,6 +172,25 @@ CONVERGED_RTOL, CONVERGED_KMAX = 1e-6, 3000
 TOL_FLAT_F32 = 3e-5   # 480 * 2^-24
 TOL_FLAT_F64 = 1e-13  # 480 * 2^-53 = 5.3e-14
 TOL_APPLY = 2e-5      # two forms of one matrix: tpufem's 2e-5 * max|ref|
+# brick-AMG's flat stencil kernel against its plain version: at most 207
+# terms summed in plan order by both, each rounded as the plain version
+# rounds it, so the bound (207 * 2^-24 = 1.2e-5 of sum |F x|) is loose
+TOL_BRICK_F32, TOL_BRICK_F64 = 1e-5, 1e-13
+# tpufem's -pc_type amg bench rows (bench.py:474-599, f32, rtol 1e-8;
+# BENCH.json round 5, on a TPU: only iterations and residuals are
+# targets): (key, problem, lattice (None: --ndofs 500000 strong), ndofs,
+# tpufem's iterations, ksp_max_it)
+AMG_ROWS = (("poisson_amg", "poisson", (60, 60, 60), 226981, 13, 100),
+            ("poisson_amg_500k", "poisson", None, 510705, 17, 100),
+            ("elasticity_amg_500k", "elasticity", None, 468195, 19, 200))
+# tpufem's own float64 CPU runs through BrickAMG: (argv, iterations, norm)
+AMG_GOLDS = (
+    (["--problem_type", "elasticity", "--ndofs", "100000", "--scaling_type",
+      "strong", "--dtype", "float64", "-pc_type", "amg", "--device", "cuda"],
+     20, 6.784162962852132e-05),
+    (["--problem_type", "poisson", "--ndofs", "50000", "--scaling_type",
+      "weak", "--dtype", "float64", "-ksp_rtol", "1e-8", "-pc_type", "amg",
+      "--device", "cuda"], 13, 48.942855769743645))
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -769,6 +800,250 @@ def elasticity_phase(cli, gpu: str):
     return launches, rows, worst
 
 
+def amg_row(key, problem, dims, ndofs, ref_it, maxit, device, gpu: str):
+    """One of tpufem's -pc_type amg bench rows through the port's problem
+    API, f32: the build and the first (certified) solve with the stencil
+    and brick_flat counts set to zero just before and read just after;
+    five warm uncertified solves (their launches per CG iteration); a
+    timed second build; the V-cycle split.  Returns (the run's
+    brick_flat launches, the level-1 operator (fields, plan, gdims, c))."""
+    import torch
+    from tpufem_torch.config import Config, SolverOptions
+    from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_bs3
+    from tpufem_torch.la.brick_flat import brick_flat_apply
+    from tpufem_torch.la.bramg import BrickAMG
+    from tpufem_torch.mesh.structured import (BoxTetMesh,
+                                              compute_box_size_structured)
+    from tpufem_torch.problems import elasticity, poisson
+    from tpufem_torch.timing import REGISTRY
+    bs = 3 if problem == "elasticity" else 1
+    if dims is None:
+        dims = compute_box_size_structured(500000, True, bs, 1, 1)[:3]
+    mesh = BoxTetMesh(*dims)
+    cfg = Config(problem_type=problem, ndofs=ndofs, scaling_type="strong",
+                 dtype="float32",
+                 solver=SolverOptions(pc_type="amg", ksp_rtol=1e-8,
+                                      ksp_max_it=maxit))
+    build = (elasticity if bs == 3 else poisson).problem
+    fine = stencil_apply_bs3 if bs == 3 else stencil_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    REGISTRY.reset()
+    stencil_apply.launches = stencil_apply_bs3.launches = 0
+    brick_flat_apply.launches = 0
+    t0 = time.perf_counter()
+    prob = build(mesh, 1, cfg, device)
+    x, its = prob.solver_function(prob.u, prob.b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    n_fine, n_scalar = fine.launches, stencil_apply.launches
+    n_flat = brick_flat_apply.launches
+    solver = prob.solver_function
+    pc = solver.pc
+    check(isinstance(pc, BrickAMG), f"{key}: the solve is not brick-AMG")
+    check(prob.space.ndofs == ndofs, f"{key}: {prob.space.ndofs} dofs, "
+          f"tpufem's row has {ndofs}")
+    check(n_fine > 0 and n_flat > 0, f"{key}: launches fine {n_fine}, "
+          f"brick_flat {n_flat}")
+    check(x.shape == (ndofs,) and bool(torch.isfinite(x).all()),
+          f"{key}: the solution is not a finite vector of ndofs")
+    check(abs(its - ref_it) <= 1, f"{key}: {its} iterations, tpufem {ref_it}")
+    check(solver.true_rel is not None and solver.true_rel <= 1e-8
+          and solver.refine_passes <= 3,
+          f"{key}: true_rel {solver.true_rel}, {solver.refine_passes} passes")
+    its_total = its + solver.refine_iterations
+    print(f"{key}: {ndofs} dofs ({'x'.join(map(str, dims))} lattice), "
+          f"levels {pc.level_sizes}, {its} iterations (tpufem {ref_it}), "
+          f"{solver.refine_passes} refinement pass(es) (+"
+          f"{solver.refine_iterations} its), true_rel {solver.true_rel!r}; "
+          f"PC setup {solver.pc_setup_s:.3f} s, phases "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pc.last_phase_s.items())
+          + f" s; certify {solver.certify_s:.3f} s; build + first solve "
+          f"{first_s:.3f} s; launches in the run: "
+          f"{'three-component' if bs == 3 else 'K1'} {n_fine}"
+          + (f" (+{n_scalar} scalar, the RHS)" if bs == 3 else "")
+          + f", brick_flat {n_flat}, over {its_total} CG iterations  [{gpu}]",
+          flush=True)
+
+    runs = []
+    stencil_apply.launches = stencil_apply_bs3.launches = 0
+    brick_flat_apply.launches = 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, its_w, _ = solver.run(prob.u, prob.b)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    check(its_w == its, f"{key}: warm solve took {its_w} iterations")
+    per_it = (fine.launches / (5 * its), brick_flat_apply.launches / (5 * its))
+    solve_s = statistics.median(runs)
+    t0 = time.perf_counter()
+    build(mesh, 1, cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    split = pc.profile_vcycle(solver.A, ndofs)
+    print(f"{key} warm CG+brick-AMG solve (uncertified): median "
+          f"{solve_s:.4f} s of 5 (min {min(runs):.4f}, max {max(runs):.4f}), "
+          f"{solve_s / its * 1e3:.3f} ms/iteration; timed second build "
+          f"{build_s:.4f} s; {ndofs / (build_s + solve_s):.1f} dofs/s "
+          f"build+solve; launches per CG iteration: fine {per_it[0]:.1f}, "
+          f"brick_flat {per_it[1]:.1f}; V-cycle split (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()
+                      if k != "smoother_degree")
+          + f"  [{gpu}]", flush=True)
+    lv1 = pc.levels[1]
+    return n_flat, (lv1.fields, lv1.plan, lv1.gdims, lv1.c)
+
+
+def brick_flat_csr(fields, plan, gdims, c):
+    """The level's operator as a torch CSR matrix on its device (the
+    library yardstick): one entry per nonzero weight with its neighbour
+    inside the grid."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    az, ay, ax = gdims
+    W = ax * c
+    n = az * ay * W
+    F = fields.cpu().numpy().reshape(len(plan), n)
+    z, y, xw = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(az), np.arange(ay), np.arange(W), indexing="ij"))
+    rows, cols, vals = [], [], []
+    for f, (dz, dy, s) in zip(F, plan):
+        zz, yy, xx = z + dz, y + dy, xw + s
+        ok = ((zz >= 0) & (zz < az) & (yy >= 0) & (yy < ay) & (xx >= 0)
+              & (xx < W) & (f != 0))
+        rows.append(np.flatnonzero(ok))
+        cols.append(((zz * ay + yy) * W + xx)[ok])
+        vals.append(f[ok])
+    A = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                              np.concatenate(cols))),
+                      shape=(n, n))
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data), size=(n, n)).to(fields.device)
+
+
+def brick_flat_phase(levels, device, gpu: str):
+    """The brick_flat kernel against its plain version on the level-1
+    operators of the AMG runs and two edge grids (az = 1; a minor axis
+    that is no multiple of 32), in float32 and float64, with times, the
+    wrapper's host cost, the bound and one torch.sparse.mm of the same
+    operator as a CSR matrix.  Returns (rows, worst abs error)."""
+    import numpy as np
+    import torch
+    from tpufem_torch.la import bramg
+    from tpufem_torch.la.brick_flat import (brick_flat_apply,
+                                            brick_flat_apply_plain,
+                                            prepare_brick_flat)
+    cases = list(levels)
+    rng = np.random.default_rng(7)
+    for name, gdims, c in (("edge az=1", (1, 4, 5), 6),
+                           ("edge W=7", (3, 2, 7), 1)):
+        plan, fields = bramg.stencil_to_flat_fields(
+            rng.standard_normal((3, 3, 3) + gdims + (c, c)), c)
+        cases.append((f"{name} {'x'.join(map(str, gdims))} m={c}",
+                      torch.from_numpy(np.stack(fields)).to(device), plan,
+                      gdims, c))
+    rows, worst = [], 0.0
+    for dtype, tol in ((torch.float32, TOL_BRICK_F32),
+                       (torch.float64, TOL_BRICK_F64)):
+        gen = torch.Generator(device=device).manual_seed(2024)
+        for name, fields_any, plan, gdims, c in cases:
+            fields = fields_any.to(dtype).contiguous()
+            args = (fields, plan, gdims, c)
+            x = torch.randn(fields[0].numel(), generator=gen, device=device,
+                            dtype=dtype)
+            before = brick_flat_apply.launches
+            yk = brick_flat_apply(x, *args)
+            check(brick_flat_apply.launches == before + 1,
+                  f"brick_flat {name}: the wrapper did not launch once")
+            launch = prepare_brick_flat(*args)
+            check(torch.equal(launch(x), yk), f"brick_flat {name} {dtype}: "
+                  "the prepared launch and the public wrapper differ")
+            yp = brick_flat_apply_plain(x, *args)
+            bnd = brick_flat_apply_plain(x.abs(), fields.abs(), *args[1:])
+            torch.cuda.synchronize()
+            err = (yk - yp).abs()
+            abs_err = float(err.max())
+            check(bool(torch.isfinite(yk).all())
+                  and bool((err <= tol * bnd).all()),
+                  f"brick_flat {name} {dtype}: kernel disagrees with the "
+                  f"plain version (max abs err {abs_err:.3e})")
+            worst = max(worst, abs_err)
+            A = brick_flat_csr(fields, plan, gdims, c)
+            ylib = torch.sparse.mm(A, x[:, None])[:, 0]
+            lib_err = float((ylib - yp).abs().max())
+            ms = median_ms(lambda: launch(x))
+            public_ms = median_ms(lambda: brick_flat_apply(x, *args))
+            plain_ms = median_ms(lambda: brick_flat_apply_plain(x, *args),
+                                 reps=5, samples=5)
+            dev = device_ms(lambda: launch(x))
+            plain_dev = device_ms(lambda: brick_flat_apply_plain(x, *args),
+                                  reps=5)
+            host = host_ms(lambda: launch(x))
+            lib_ms = median_ms(lambda: torch.sparse.mm(A, x[:, None]))
+            item = fields.element_size()
+            nbytes = (fields.numel() + 2 * x.numel()) * item + 12 * len(plan)
+            flops = 2 * int((fields != 0).sum())
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
+                             fields=len(plan), max_abs_err=abs_err,
+                             same_bits=bool(torch.equal(yk, yp)), ms=ms,
+                             public_ms=public_ms, plain_ms=plain_ms,
+                             device_ms=dev, plain_device_ms=plain_dev,
+                             host_ms=host, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             call_minus_device_ms=(None if dev is None
+                                                   else ms - dev)))
+            print(f"brick_flat {name:<40} {rows[-1]['dtype']:<7} "
+                  f"{len(plan)} fields | max |kernel - plain| {abs_err:.3e} "
+                  f"(max sum |F x| {float(bnd.max()):.3e}; the same bits: "
+                  f"{rows[-1]['same_bits']}) | per call: kernel {ms:.4f} ms "
+                  f"(public wrapper {public_ms:.4f}), plain {plain_ms:.4f} ms, "
+                  f"torch.sparse.mm (CSR, {A.values().numel()} entries, off "
+                  f"the plain version by {lib_err:.3e}) {lib_ms:.4f} ms | "
+                  f"device: kernel {fmt_ms(dev)}, plain {fmt_ms(plain_dev)} | "
+                  f"wrapper's host cost {host:.4f} ms per queued call | bound "
+                  f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.2f} MFLOP)  [{gpu}]", flush=True)
+            del A
+    return rows, worst
+
+
+def amg_phase(cli, device, gpu: str):
+    """Phase 11: tpufem's three -pc_type amg bench rows, the brick_flat
+    kernel against its plain version on their level-1 operators and on
+    edge grids, and the float64 goldens of tpufem's brick-AMG runs.
+    Returns (brick_flat launches, kernel rows, worst abs error)."""
+    import torch
+    from tpufem_torch.timing import REGISTRY
+    launches, levels = 0, []
+    for key, problem, dims, ndofs, ref_it, maxit in AMG_ROWS:
+        n, (fields, plan, gdims, c) = amg_row(key, problem, dims, ndofs,
+                                              ref_it, maxit, device, gpu)
+        launches += n
+        if key.endswith("500k"):
+            levels.append((f"{key} level 1 {'x'.join(map(str, gdims))} m={c}",
+                           fields, plan, gdims, c))
+        torch.cuda.empty_cache()
+    rows, worst = brick_flat_phase(levels, device, gpu)
+    del levels
+    for argv, gold_it, gold_norm in AMG_GOLDS:
+        REGISTRY.reset()
+        res = cli.main(argv)
+        rel = abs(res.norm - gold_norm) / gold_norm
+        print(f"{argv[1]} {argv[3]} float64 -pc_type amg: {res.iterations} "
+              f"iterations, norm {res.norm!r} (tpufem {gold_norm!r}, rel "
+              f"{rel:.2e}), levels {res.problem.solver_function.pc.level_sizes}"
+              f"  [{gpu}]", flush=True)
+        check(res.iterations == gold_it, f"{argv[1]} {argv[3]} amg took "
+              f"{res.iterations} iterations, tpufem {gold_it}")
+        check(rel <= 1e-9, f"{argv[1]} {argv[3]} amg norm off by {rel:.2e}")
+        del res
+    torch.cuda.empty_cache()
+    return launches, rows, worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -989,6 +1264,13 @@ def main() -> int:
     # -- 10. elasticity: the three-component stencil kernel --------------------
     elast_launches, elast_rows, elast_worst = elasticity_phase(cli, gpu)
     bs3 = elast_rows[0]
+    torch.cuda.empty_cache()
+
+    # -- 11. brick-AMG (-pc_type amg): the brick_flat kernel -------------------
+    bf_launches, bf_rows, bf_worst = amg_phase(cli, torch.device("cuda", 0),
+                                               gpu)
+    bf = [r for r in bf_rows if r["name"].startswith("elasticity")
+          and r["dtype"] == "float32"][0]
 
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
@@ -1049,6 +1331,20 @@ def main() -> int:
          "grids": [{k: r[k] for k in ("name", "R", "ms", "device_ms",
                                       "host_ms", "plain_ms", "bound_ms")}
                    for r in elast_rows if r["dtype"] == "float32"]},
+        {"name": "brick_flat", "route": "cuda",
+         "source": "tpufem_torch/csrc/brick_flat.cu",
+         "replaces": "tpufem/la/bramg.py:163 (flat_apply, brick-AMG's coarse "
+                     "level operator: XLA in tpufem, no Pallas kernel)",
+         "launches": bf_launches, "max_abs_err": bf_worst,
+         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+         "library_ms": bf["library_ms"], "device_ms": bf["device_ms"],
+         "host_ms": bf["host_ms"],
+         "call_minus_device_ms": bf["call_minus_device_ms"],
+         "grids": [{k: r[k] for k in ("name", "dtype", "fields", "ms",
+                                      "device_ms", "host_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "same_bits")}
+                   for r in bf_rows]},
     ]
     check("tpufem" not in sys.modules and "jax" not in sys.modules,
           "tpufem or jax was imported")

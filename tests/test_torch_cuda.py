@@ -556,3 +556,93 @@ def test_elasticity_cli_engages_the_kernel(device):
     assert stencil_apply_bs3.launches == 17 * its
     assert stencil_apply.launches == 3
     assert res.true_rel <= 1e-8 and 0 < res.iterations < 100
+
+
+# -- brick-AMG's flat stencil (csrc/brick_flat.cu) ----------------------------
+def _brick_level(gdims, m, dtype, device, seed=0):
+    """Random dense block-stencil fields of a brick-AMG level, flattened
+    as the setup flattens them (27 fields at m = 1, 207 at m = 6)."""
+    from tpufem_torch.la.bramg import stencil_to_flat_fields
+    rng = np.random.default_rng(seed)
+    plan, fields = stencil_to_flat_fields(
+        rng.standard_normal((3, 3, 3) + gdims + (m, m)), m)
+    return (torch.from_numpy(np.stack(fields)).to(device, dtype), plan,
+            gdims, m)
+
+
+# |kernel - plain| <= tol * sum_k |F_k x_k|: the two sum the terms in plan
+# order, each rounded alike (no fused multiply-add in the kernel)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("gdims,m", [
+    ((21, 21, 21), 1), ((22, 27, 33), 1), ((22, 17, 17), 6),
+    ((1, 4, 5), 6), ((3, 2, 7), 1), ((2, 3, 5), 6)],
+    ids=["poisson_amg_l1", "poisson_500k_l1", "elasticity_500k_l1",
+         "az1", "W7", "W30"])
+def test_brick_flat_kernel_matches_plain(device, gdims, m, dtype, tol):
+    """The level-1 grids of the AMG bench rows, one plane (az = 1) and
+    minor axes that are no multiple of 32, through the public wrapper
+    (one launch) and a prepared launch."""
+    from tpufem_torch.la.brick_flat import (brick_flat_apply,
+                                            brick_flat_apply_plain,
+                                            prepare_brick_flat)
+    args = _brick_level(gdims, m, dtype, device)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(args[0][0].numel())).to(
+        device, dtype)
+    before = brick_flat_apply.launches
+    y = brick_flat_apply(x, *args)
+    assert brick_flat_apply.launches == before + 1
+    yp = brick_flat_apply_plain(x, *args)
+    bound = brick_flat_apply_plain(x.abs(), args[0].abs(), *args[1:])
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    assert torch.equal(prepare_brick_flat(*args)(x), y)
+
+
+def test_brick_flat_refusals(device):
+    """A wrong-dtype or non-contiguous x raises in the wrapper and in a
+    prepared launch; the entry point refuses an empty plan."""
+    from tpufem_torch import _build
+    from tpufem_torch.la.brick_flat import brick_flat_apply, prepare_brick_flat
+    fields, plan, gdims, m = _brick_level((3, 4, 5), 6, torch.float32, device)
+    n = fields[0].numel()
+    with pytest.raises(TypeError):
+        brick_flat_apply(torch.zeros(n, device=device, dtype=torch.float64),
+                         fields, plan, gdims, m)
+    with pytest.raises(ValueError):
+        brick_flat_apply(torch.zeros(2 * n, device=device)[::2], fields, plan,
+                         gdims, m)
+    launch = prepare_brick_flat(fields, plan, gdims, m)
+    with pytest.raises(ValueError):
+        launch(torch.zeros(2 * n, device=device)[::2])
+    with pytest.raises(ValueError):
+        launch(torch.zeros(n, device=device, dtype=torch.float64))
+    lib = _build.load().lib
+    x = torch.zeros(n, device=device)
+    args = _build.BrickFlatLaunch(F=fields.data_ptr(), plan=x.data_ptr(),
+                                  device=0, az=3, ay=4, W=30, nf=0)
+    rc = lib.tpufem_brick_flat_f32(ctypes.addressof(args), x.data_ptr(),
+                                   x.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+    assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("extra,iterations,norm,flat", [
+    ([], 11, 26.53502029905387, False),
+    (["-amg_coarse_eq_limit", "50"], 12, 26.535020303199435, True)],
+    ids=["default", "coarse_limit_50"])
+def test_poisson_amg_cli_on_the_card(device, extra, iterations, norm, flat):
+    """-pc_type amg at 15k dofs, float64, on the card: tpufem's CPU
+    iterations and norm; with a flat m = 1 level the brick_flat kernel
+    launches (6 a CG iteration and 81 in the setup's probes)."""
+    from tpufem_torch import cli
+    from tpufem_torch.la.brick_flat import brick_flat_apply
+    brick_flat_apply.launches = 0
+    res = cli.main(["--ndofs", "15000", "--dtype", "float64", "-ksp_rtol",
+                    "1e-8", "-pc_type", "amg", "--device", "cuda"] + extra)
+    assert type(res.problem.solver_function.pc).__name__ == "BrickAMG"
+    assert res.iterations == iterations
+    assert abs(res.norm - norm) <= 1e-9 * norm
+    assert (brick_flat_apply.launches > 0) == flat

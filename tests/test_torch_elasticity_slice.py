@@ -2,8 +2,9 @@
 problem and solve against tpufem's ``elasticity.problem`` (RHS to rel
 1e-13, the same iteration count, the solution norm to rel 1e-10), the
 goldens of tests/test_golden.py and tpufem's 10k run through the CLI,
-the float32 certified contract, and the refusals (P2, algebraic
-multigrid, no CUDA fallback)."""
+the float32 certified contract, the brick-AMG fallback where GMG cannot
+coarsen the lattice, and the refusals (P2, tpufem's generic SA-AMG, no
+CUDA fallback)."""
 
 import numpy as np
 import pytest
@@ -99,7 +100,7 @@ def test_float32_certified_contract():
 
 @pytest.mark.parametrize("argv", [
     ["--order", "2"],
-    ["-pc_type", "amg"],
+    ["-pc_type", "amg", "-amg_brick", "off"],
     ["--mesh_type", "unstructured"],
 ], ids=["order2", "amg", "unstructured"])
 def test_unported_options_raise(argv):
@@ -110,10 +111,19 @@ def test_unported_options_raise(argv):
 
 def test_gmg_not_viable_raises_naming_amg():
     """A lattice GMG cannot coarsen enough (15^3: 12,288 dofs on the
-    coarsest level): tpufem goes to algebraic multigrid there."""
-    with pytest.raises(NotImplementedError, match="M13, M14"):
-        elasticity.problem(BoxTetMesh(15, 15, 15), 1,
-                           Config(problem_type="elasticity"), CPU)
+    coarsest level): tpufem goes to algebraic multigrid there, and so
+    does the port now, to brick-AMG in the planar layout (levels 12,288
+    and 1,296), float32 and certified."""
+    from tpufem_torch.la.bramg import BrickAMG
+    prob = elasticity.problem(BoxTetMesh(15, 15, 15), 1,
+                              Config(problem_type="elasticity"), CPU)
+    x, it = prob.solver_function(prob.u, prob.b)
+    solver = prob.solver_function
+    assert isinstance(solver.pc, BrickAMG) and solver.pc_type == "brick-amg"
+    assert solver.pc.level_sizes == [12288, 1296]
+    assert solver.pc.levels[0].planar and solver.A.planar
+    assert 0 < it < 40 and solver.true_rel <= 1e-8
+    assert bool(torch.isfinite(x).all())
 
 
 def test_cuda_device_without_gpu_raises():

@@ -117,11 +117,11 @@ def test_cuda_device_without_gpu_raises():
      "-use_strip", "0"],
     ["--problem_type", "cgpoisson", "--mesh_type", "unstructured"],
     ["--problem_type", "elasticity", "--order", "2"],
-    ["--problem_type", "elasticity", "-pc_type", "amg"],
+    ["--problem_type", "elasticity", "-pc_type", "amg", "-amg_brick", "off"],
     ["--mesh_type", "unstructured"],
     ["--order", "2"],
     ["--num_shards", "2"],
-    ["-pc_type", "amg"],
+    ["-pc_type", "amg", "-amg_brick", "off"],
 ], ids=["cgpoisson_use_flat", "cgpoisson_unstructured", "elasticity_order2",
         "elasticity_amg", "unstructured", "order2", "shards", "amg"])
 def test_unported_options_raise(argv):

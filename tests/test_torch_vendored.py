@@ -133,8 +133,8 @@ def test_parse_args_gives_tpufem_config(argv):
 
 def test_runs_with_tpufem_unimportable():
     """``sys.modules["tpufem"] = None`` makes any import of tpufem raise:
-    the port's poisson, cgpoisson, cgpoisson -use_flat and elasticity CLI
-    runs must not need it."""
+    the port's poisson, cgpoisson, cgpoisson -use_flat, elasticity and
+    -pc_type amg (la.bramg) CLI runs must not need it."""
     code = (
         "import sys\n"
         "sys.modules['tpufem'] = None\n"
@@ -148,6 +148,10 @@ def test_runs_with_tpufem_unimportable():
         " '--ndofs', '6000', '-use_flat', '1', '--device', 'cpu'])\n"
         "e = main(['--problem_type', 'elasticity', '--ndofs', '3000',"
         " '--device', 'cpu'])\n"
+        "g = main(['--ndofs', '3000', '-pc_type', 'amg', '--dtype',"
+        " 'float64', '--device', 'cpu'])\n"
+        "assert type(g.problem.solver_function.pc).__name__ == 'BrickAMG'\n"
+        "assert g.iterations > 0 and g.true_rel <= 1e-8\n"
         "assert type(f.problem.solver_function.op).__name__ == 'FlatOperator'\n"
         "assert a.iterations > 0 and b.iterations > 0 and f.iterations > 0\n"
         "assert e.iterations > 0 and e.true_rel <= 1e-8\n"

@@ -31,6 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class BrickFlatLaunch(ctypes.Structure):
+    """What a brick-AMG level's flat stencil launch needs beside x, y and
+    the stream (csrc/brick_flat.cu:BrickFlatLaunch), filled once per
+    level."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("F", "plan")]
+                + [(k, ctypes.c_int) for k in ("device", "az", "ay", "W", "nf")])
+
+
 class FlatLaunch(ctypes.Structure):
     """What a flat interior launch needs beside x, y and the stream
     (csrc/flat_interior.cu:FlatLaunch), filled once per operator."""
@@ -115,6 +124,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ci
         fn = getattr(lib, f"tpufem_flat_interior_{suffix}")
         # FlatLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
+        fn.restype = ci
+        fn = getattr(lib, f"tpufem_brick_flat_{suffix}")
+        # BrickFlatLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
     # device, blocks, grid barriers, stream: the whole-CG kernel's grid

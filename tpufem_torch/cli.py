@@ -9,16 +9,19 @@ timing table, the Krylov iterations, the solution norm and, for
 ``-log_view`` writes a ``torch.profiler`` trace of the solve, as tpufem
 writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 
-Out of this slice (each raises NotImplementedError naming its ROADMAP
-item): P2/P3 elasticity, the unstructured mesh, Poisson orders above 1,
-more than one shard, -pc_type amg, --output and --memory_profiling.
+``-pc_type amg`` runs lattice-brick AMG (la.bramg) for Poisson and
+elasticity, as does tpufem's fallback where GMG cannot coarsen the
+lattice.  Not ported yet (each raises NotImplementedError naming its
+ROADMAP item): P2/P3 elasticity, the unstructured mesh, Poisson orders
+above 1, tpufem's generic SA-AMG (``-amg_brick off``), more than one
+shard, --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda
       python -m tpufem_torch --problem_type cgpoisson --order 3 \\
           --ndofs 500000 --scaling_type strong --device cuda [-use_flat 1]
       python -m tpufem_torch --problem_type elasticity --ndofs 500000 \\
-          --scaling_type strong --device cuda
+          --scaling_type strong --device cuda [-pc_type amg]
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Every function takes tpufem's state as numpy arrays (never jax objects):
 a tpufem ``DiaOperator`` built with ``device=False`` (scalar, or planar
-bs = 3), a ``GMG``'s per-level arrays and a ``FlatOperator``'s tables read back with
-``np.asarray``.  The tests use them to
+bs = 3), a ``GMG``'s or a ``BrickAMG``'s per-level arrays and a
+``FlatOperator``'s tables read back with ``np.asarray``.  The tests use them to
 run both packages on identical weights; on a card the port builds the
 same arrays itself (no jax there), and the tests check that its builders
 agree with tpufem's.
@@ -11,7 +11,7 @@ agree with tpufem's.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ import torch
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.fem.flat_op import FlatGeom, FlatOperator
 from tpufem_torch.fem.structured_op import GridLayout
+from tpufem_torch.la.bramg import BrickAMG, _BLevel
 from tpufem_torch.la.gmg import GLevel, GMG
 
 
@@ -66,6 +67,35 @@ def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                    np.array(coarse_bc_mask, dtype=bool)).to(device),
                dims=tuple(tuple(d) for d in dims),
                smoother_degree=smoother_degree, bs=bs, planar=planar)
+
+
+def bramg_from_numpy(levels: Sequence[Dict], coarse_inv: np.ndarray,
+                     smoother_degree: int, level_sizes: Sequence[int],
+                     device: torch.device) -> BrickAMG:
+    """A port BrickAMG on ``device`` from a tpufem hierarchy: per level a
+    dict of its ``_BLevel``'s ``fields`` (a sequence of [az, ay, ax * m]
+    arrays, None at level 0), ``plan``, ``dinv``, ``fw``, ``omega_dinv``,
+    ``lmax``, ``gdims``, ``adims``, ``c``, ``m`` and ``planar``; the
+    ``coarse_inv``, ``smoother_degree`` and ``level_sizes``.  The fine
+    matvec is the caller's, as in tpufem's ``vcycle``."""
+    def dev(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    out = []
+    for lv in levels:
+        fields = lv["fields"]
+        out.append(_BLevel(
+            fields=None if fields is None else dev(np.stack(
+                [np.asarray(f) for f in fields])),
+            dinv=dev(lv["dinv"]), fw=dev(lv["fw"]),
+            omega_dinv=dev(lv["omega_dinv"]), lmax=float(lv["lmax"]),
+            plan=tuple(tuple(int(v) for v in e) for e in lv["plan"]),
+            gdims=tuple(int(v) for v in lv["gdims"]),
+            adims=tuple(int(v) for v in lv["adims"]), c=int(lv["c"]),
+            m=int(lv["m"]), planar=bool(lv["planar"])))
+    return BrickAMG(levels=out, coarse_inv=dev(coarse_inv),
+                    smoother_degree=int(smoother_degree),
+                    level_sizes=[int(v) for v in level_sizes])
 
 
 def flat_from_numpy(W0, AZT, slot_of, TY, TX, BYZ, BZX, BYX, CC, fmask,

@@ -158,8 +158,8 @@ class GMG:
         if bs > 1 and not planar:
             raise NotImplementedError(
                 "the interleaved bs = 3 GMG (the port runs elasticity in "
-                "the planar layout; tpufem's interleaved form serves its "
-                "AMG fallback, ROADMAP M13)")
+                "the planar layout; tpufem's interleaved layout serves its "
+                "SA-AMG, ROADMAP M14)")
         planar = planar and bs > 1
 
         def level_bc(m: BoxTetMesh) -> DirichletBC:

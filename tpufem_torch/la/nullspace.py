@@ -6,8 +6,9 @@ src/elasticity_problem.cpp:36-94): six modes, three translations and
 three rotations built from dof coordinates, orthonormalized with a hard
 ``is_orthonormal`` check (the PETSc ``MatSetNearNullSpace`` analogue,
 elasticity_problem.cpp:239-241).  Only algebraic multigrid consumes them
-(ROADMAP M13, M14); the elasticity problem builds them all the same, as
-the reference times the stage ("ZZZ Create near-nullspace").
+(brick-AMG, la.bramg; SA-AMG is ROADMAP M14); the elasticity problem
+builds them whatever the preconditioner, as the reference times the
+stage ("ZZZ Create near-nullspace").
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 
 P1 vector Lagrange space; the clamped y = 0 face; the rotational body
 force; the BC-eliminated blocked stiffness as a bs = 3 DIA stencil; the
-rigid-body near-nullspace; CG preconditioned by geometric multigrid (or
-Jacobi, or none), certified against a float64 host twin as Poisson's
-solve is.
+rigid-body near-nullspace; CG preconditioned by geometric multigrid,
+lattice-brick AMG with the near-nullspace (``-pc_type amg``, and where
+GMG cannot coarsen the lattice), Jacobi or nothing, certified against a
+float64 host twin as Poisson's solve is.
 
 The solve runs in tpufem's component-planar layout (vector index
 ``c * n + i``), in which the operator is ONE launch of the
@@ -15,9 +16,12 @@ solve.  The float32 RHS is three scalar P1 mass-stencil applies of the
 body force, evaluated on the device from coordinates; float64 runs
 assemble it on the host.
 
-Where GMG is not viable on the lattice, or under ``-pc_type amg``,
-tpufem goes to algebraic multigrid, which is not ported (ROADMAP M13,
-M14); P2/P3 elasticity is ROADMAP M12 P2.
+Every preconditioner the port runs takes the planar layout.  tpufem
+keeps it planar too but for its GMG fallback, where it runs brick-AMG on
+the interleaved layout; the V-cycle computes the same values in either
+layout, so the port runs that fallback planar.  ``-amg_brick off``
+(tpufem's generic SA-AMG on the interleaved CSR) is ROADMAP M14; P2/P3
+elasticity is ROADMAP M12 P2.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.structured_op import StructuredOperator
-from tpufem_torch.la.gmg import gmg_viable
 from tpufem_torch.la.nullspace import build_near_nullspace
 from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.problems import common
@@ -85,23 +88,6 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
         facets = mesh.locate_boundary_facets(common.elasticity_bc_marker)
         bc = DirichletBC.from_space(space, facets)
 
-    # the planar layout serves CG with GMG, Jacobi or no preconditioner
-    # (tpufem/problems/elasticity.py:155-169); tpufem's other choices run
-    # algebraic multigrid on the interleaved layout
-    solver = cfg.solver
-    pc_type = solver.get("pc_type")
-    if pc_type == "amg":
-        raise NotImplementedError(
-            "-pc_type amg: brick-AMG and SA-AMG are not ported yet "
-            "(ROADMAP M13, M14)")
-    if pc_type not in ("jacobi", "none") and not gmg_viable(
-            mesh, 3, int(solver.get("amg_coarse_eq_limit")),
-            int(solver.get("amg_max_levels"))):
-        raise NotImplementedError(
-            f"GMG is not viable on the {mesh.Nx}x{mesh.Ny}x{mesh.Nz} "
-            "lattice; tpufem falls back to algebraic multigrid here, which "
-            "is not ported yet (ROADMAP M13, M14)")
-
     with Timer("ZZZ Assemble matrix", device):
         A = build_operator(mesh, order, "elasticity", bc_dofs=bc.flat_dofs(),
                            dtype=dtype, device=device, planar=True)
@@ -133,7 +119,8 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
     solver_function = Solver(A, mesh, order, cfg, dtype, acc_dtype, device,
                              fidelity=fidelity, problem="elasticity",
                              bc_marker=common.elasticity_bc_marker,
-                             planar=True)
+                             planar=True, near_nullspace=nns,
+                             bc_mask=bc.mask())
     return common.Problem(b=b, u=u, solver_function=solver_function,
                           space=space, bc=bc, rhs_op=mass,
                           near_nullspace=nns)

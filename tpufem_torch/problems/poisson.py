@@ -4,8 +4,10 @@
 P1 Lagrange space; Dirichlet u = 0 on x0 in {0, 1}; RHS f = Gaussian
 bump (volume) + g = sin(5 x0) (surface); the operator is the
 BC-eliminated DIA stencil; the solver is CG preconditioned by geometric
-multigrid (or Jacobi, or none), and a float32 solve is certified against
-a float64 host twin of the system with iterative refinement.
+multigrid, lattice-brick AMG (``-pc_type amg``, and where GMG cannot
+coarsen the lattice), Jacobi or nothing, and a float32 solve is
+certified against a float64 host twin of the system with iterative
+refinement.
 
 The float32 RHS is assembled on the device: the volume term is ONE
 mass-stencil apply of the closed-form f, plus the O(surface) host facet
@@ -107,7 +109,8 @@ def assemble_poisson_rhs_np(space: FunctionSpace) -> np.ndarray:
 class Solver:
     """The CG solve of one assembled system, ``(u0, rhs) -> (x, its)``,
     of Poisson or elasticity (``problem``, with its Dirichlet marker
-    ``bc_marker`` for the multigrid levels).
+    ``bc_marker`` for the multigrid levels; the brick-AMG setup takes the
+    ``near_nullspace`` and the interleaved Dirichlet ``bc_mask``).
 
     ``planar``: A runs in the component-planar bs = 3 layout while u0,
     rhs and x keep the reference's interleaved one; a solve converts in
@@ -127,9 +130,12 @@ class Solver:
                  fidelity: Optional[Callable[[], Tuple]] = None,
                  problem: str = "poisson",
                  bc_marker: Callable = common.poisson_bc_marker,
-                 planar: bool = False) -> None:
+                 planar: bool = False,
+                 near_nullspace: Optional[np.ndarray] = None,
+                 bc_mask: Optional[np.ndarray] = None) -> None:
         self.A, self.mesh, self.order = A, mesh, order
         self.problem, self.bc_marker, self.planar = problem, bc_marker, planar
+        self.near_nullspace, self.bc_mask = near_nullspace, bc_mask
         self.solver = cfg.solver
         self.dtype, self.acc_dtype, self.device = dtype, acc_dtype, device
         self.fidelity = fidelity
@@ -138,16 +144,10 @@ class Solver:
         self.nonzero_guess = bool(self.solver.get("ksp_initial_guess_nonzero",
                                                   False))
         pc_type = self.solver.get("pc_type")
-        if pc_type == "auto":
-            pc_type = "gmg"
-        if pc_type == "amg":
-            raise NotImplementedError(
-                "-pc_type amg: brick-AMG and SA-AMG are not ported yet "
-                "(ROADMAP M13, M14)")
-        if pc_type not in ("gmg", "jacobi", "none"):
-            raise ValueError(f"unknown -pc_type {pc_type!r} "
-                             "(auto, gmg, jacobi or none)")
-        self.pc_type = pc_type
+        # what serves after the first solve: "gmg", "brick-amg", "jacobi",
+        # or any other name, which runs CG unpreconditioned (tpufem's
+        # make_solver, tpufem/problems/poisson.py:282-395)
+        self.pc_type = "gmg" if pc_type == "auto" else pc_type
         self.precond = None
         self.pc = None
         self._ready = False
@@ -170,11 +170,23 @@ class Solver:
                         coarse_limit=int(self.solver.get("amg_coarse_eq_limit")),
                         smoother_degree=int(self.solver.get("amg_smoother_degree")),
                         planar=self.planar)
-                except ValueError as e:
+                    self.precond = self.pc.vcycle
+                except ValueError:
+                    # lattice dims not 2^L-divisible: geometric coarsening
+                    # is impossible, and tpufem goes to algebraic multigrid
+                    self.pc_type = "amg"
+            if self.pc_type == "amg":
+                from tpufem_torch.la.bramg import BrickAMG, brick_viable
+                if not brick_viable(self.mesh, self.order, self.solver):
                     raise NotImplementedError(
-                        f"{e}; tpufem falls back to algebraic multigrid "
-                        "here, which is not ported yet (ROADMAP M13, M14)") from e
-                self.precond = self.pc.vcycle
+                        "-amg_brick off: tpufem's generic SA-AMG is not "
+                        "ported yet (ROADMAP M14)")
+                self.pc = BrickAMG.setup(
+                    self.A, self.mesh, self.A.bs, self.solver,
+                    dtype=self.dtype, near_nullspace=self.near_nullspace,
+                    bc_mask=self.bc_mask)
+                self.precond = self.pc.as_preconditioner(self.A.apply)
+                self.pc_type = "brick-amg"
             elif self.pc_type == "jacobi":
                 dinv = (1.0 / self.A.diagonal_np()).astype(np_dtype(self.dtype))
                 self.pc = torch.from_numpy(dinv).to(self.device)
@@ -294,6 +306,6 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
 
     u = torch.zeros(space.ndofs, dtype=dtype, device=device)
     solver = Solver(A, mesh, order, cfg, dtype, acc_dtype, device,
-                    fidelity=fidelity)
+                    fidelity=fidelity, bc_mask=bc.mask())
     return common.Problem(b=b, u=u, solver_function=solver, space=space, bc=bc,
                           rhs_op=mass)
