@@ -19,7 +19,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    GMG levels and the RHS mass operator, zone form = TPU kernel K1; the
    CG matrix in full-field form = K2), in float32 and float64, through
    the public ``stencil_apply`` and the prepared launch an operator
-   keeps, with median times, the wrapper's host cost and the bound;
+   keeps, with median times, the wrapper's host cost, the bound and, on
+   the CG matrix, ``torch.sparse.mm`` of its CSR (the library yardstick,
+   also in phases 6 and 10);
 4. float64 on the card: the poisson50k golden of tests/test_golden.py
    (10 iterations, norm 48.94285576880367 at rel 1e-9);
 5. the matrix-free cgpoisson path at the bench's sizes: ``python -m
@@ -74,7 +76,24 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    6) and two edge grids, in float32 and float64, with times, the host
    cost, the bound and ``torch.sparse.mm`` of the same operator as the
    library yardstick; and the float64 goldens of tpufem's brick-AMG runs
-   (elasticity 100k: 20 iterations; poisson 50k: 13; norms to rel 1e-9).
+   (elasticity 100k: 20 iterations; poisson 50k: 13; norms to rel 1e-9);
+12. P2/P3 Poisson: ``python -m tpufem_torch --problem_type poisson --order
+   2|3 --ndofs 500000 --scaling_type strong --dtype float32 -pc_type
+   gmg`` (CG + GMG with the p-transfer to P1), each of which must launch
+   the multi-kind zone kernel (dia_zones, the fine level) and K1 (the
+   P1 levels), counted from zero around the run, converge within one
+   iteration of tpufem's own float32 CPU run (POISSON_PK_REF) and
+   certify a true residual <= 1e-8; warm solves and a warm build; the
+   zone kernel against its plain version on the two fine operators, a
+   P3 operator with edge grids of 6 planes and a dense-mode P2 operator,
+   in float32 and float64 (the same bits), with times, the host cost,
+   the bound, ``torch.sparse.mm`` of the CSR and K3 on the same matrix in
+   strip form; the float64 order3 golden of tests/test_golden.py (19
+   iterations, norm 25.64720150160304 at rel 1e-9); and ``cgpoisson
+   --order 3 --ndofs 500000 --scaling_type strong --dtype float32
+   -use_strip 0``, which must launch the zone kernel and no K3, run 100
+   iterations and agree with tpufem's float32 DIA run (CGPOISSON_REF),
+   and whose solve to rtol 1e-6 must agree with the strip form's.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -84,6 +103,7 @@ printing them.  At its end it checks that ``tpufem`` was never imported.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -137,6 +157,11 @@ CGPOISSON_REF = {
                                        77.29297299152508),
     (3, 10000, "weak", "float64"): (9025, 100, 0.00014496547881479667,
                                     20.20326073714228),
+    # -use_strip 0, the baked DIA operator: scripts/poisson_pk_reference.py
+    # --problem_type cgpoisson --order 3 --ndofs 500000 --dtype float32
+    (3, 500000, "strong", "float32", "dia"): (516913, 100,
+                                              0.6854984164237976,
+                                              106.23026483542395),
 }
 # float32 after 100 CG steps depends on the summation order: tpufem's own
 # float32 CPU run sits 5.5e-4 (norm) and 1.9e-3 (rel) off its float64 run
@@ -191,6 +216,21 @@ AMG_GOLDS = (
     (["--problem_type", "poisson", "--ndofs", "50000", "--scaling_type",
       "weak", "--dtype", "float64", "-ksp_rtol", "1e-8", "-pc_type", "amg",
       "--device", "cuda"], 13, 48.942855769743645))
+# P2/P3 Poisson (phase 12): tpufem's own float32 CPU runs through its CLI
+# (jax 0.9.0, CG + GMG to rtol 1e-8, certified), from
+#   python scripts/poisson_pk_reference.py --order O --ndofs 500000 \
+#       --scaling_type strong --dtype float32
+# order -> (ndofs, iterations, norm, true_rel, refinement passes)
+PK_ARGS = ["--problem_type", "poisson", "--ndofs", "500000",
+           "--scaling_type", "strong", "--dtype", "float32",
+           "-pc_type", "gmg", "-ksp_rtol", "1e-8", "-ksp_max_it", "100",
+           "--device", "cuda"]
+POISSON_PK_REF = {2: (510705, 10, 151.78231811523438, 2.893e-09, 1),
+                  3: (516913, 16, 152.88658142089844, 5.807e-09, 1)}
+ORDER3_ARGS = ["--problem_type", "poisson", "--order", "3", "--ndofs",
+               "15000", "--dtype", "float64", "-ksp_rtol", "1e-8",
+               "--device", "cuda"]
+ORDER3_ITERATIONS, ORDER3_NORM = 19, 25.64720150160304
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -279,14 +319,58 @@ def full_fields(fields: "torch.Tensor", Z: int) -> "torch.Tensor":
     return fields[:, rows].contiguous()
 
 
+def torch_csr(A, device, dtype):
+    """A scipy CSR matrix as a torch CSR tensor of ``dtype`` on
+    ``device`` (the library yardstick: torch.sparse.mm, cuSPARSE)."""
+    import numpy as np
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data), size=A.shape).to(device=device,
+                                                   dtype=dtype)
+
+
+def pk_csr(layout):
+    """The BC-eliminated P2/P3 Poisson matrix of ``layout``'s lattice as
+    a float64 scipy CSR (host): the matrix of the cgpoisson strip runs
+    and of the P2/P3 Poisson runs' fine level."""
+    return _pk_csr(layout.order, layout.Nx, layout.Ny, layout.Nz)
+
+
+@functools.lru_cache(maxsize=None)
+def _pk_csr(order: int, Nx: int, Ny: int, Nz: int):
+    import torch
+    from tpufem_torch.fem.dia_op import build_operator
+    from tpufem_torch.fem.dirichlet import DirichletBC
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    from tpufem_torch.problems.common import poisson_bc_marker
+    mesh = BoxTetMesh(Nx, Ny, Nz)
+    bc = DirichletBC.from_space(FunctionSpace(mesh, order),
+                                mesh.locate_boundary_facets(poisson_bc_marker))
+    return build_operator(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
+                          dtype=torch.float32).to_scipy()
+
+
+def library_ms(A, x, y_ref):
+    """(ms per call, max |A x - y_ref|) of torch.sparse.mm(A, x)."""
+    import torch
+    y = torch.sparse.mm(A, x[:, None])[:, 0]
+    err = float((y - y_ref).abs().max())
+    return median_ms(lambda: torch.sparse.mm(A, x[:, None])), err
+
+
 def kernel_phase(problem, gpu: str, comps: int = 1):
     """The kernel against its plain version on the operators the main
     path ran: the CG matrix, every smoothed GMG level and the RHS mass
     operator (zone form, K1), and the CG matrix in full-field form (K2),
     in float32 and, with the same weights cast, float64.  ``comps`` = 3:
     the three-component form on the elasticity path's operators (its RHS
-    mass operator is scalar and was held in phase 3's form).  Returns
-    (rows, worst abs error)."""
+    mass operator is scalar and was held in phase 3's form).  On the CG
+    matrix also torch.sparse.mm of its CSR (``library_ms``; planar order
+    for comps = 3).  Returns (rows, worst abs error)."""
+    import numpy as np
     import torch
     from tpufem_torch.fem import stencil as st
     if comps == 1:
@@ -314,10 +398,15 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
                   full_fields(A.fields, A.grid_dims[0]), A.offsets,
                   A.grid_dims))
     device = A.fields.device
+    csr = A.to_scipy()
+    if comps == 3:
+        perm = np.arange(csr.shape[0]).reshape(-1, 3).T.reshape(-1)
+        csr = csr[perm][:, perm]
     rows = []
     worst = 0.0
     for dtype, tol in tols:
         gen = torch.Generator(device=device).manual_seed(1234)
+        lib = torch_csr(csr, device, dtype)
         for name, fields32, offsets, dims in cases:
             fields = fields32.to(dtype)
             args = (fields, offsets, dims)
@@ -346,27 +435,33 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
             plain_dev = device_ms(lambda: plain(x, *args))
             host = host_ms(lambda: prepared(x))
             b_ms, b_by = bound_ms(*stencil_work(fields, dims, comps))
+            lib_ms, lib_err = (library_ms(lib, x, yp)
+                               if name.startswith("CG matrix") else
+                               (None, None))
             rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
                              D=fields.shape[0], R=fields.shape[1],
                              max_abs_err=abs_err, max_rel_err=rel_err,
                              ms=ms, public_ms=public_ms, plain_ms=plain_ms,
                              device_ms=dev, plain_device_ms=plain_dev,
                              host_ms=host, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms,
                              call_minus_device_ms=(None if dev is None
                                                    else ms - dev)))
-
-            def fmt(v):
-                return "not measured" if v is None else f"{v:.4f} ms"
+            lib_txt = ("" if lib_ms is None else
+                       f" | torch.sparse.mm (CSR, {lib.values().numel()} "
+                       f"entries, off the plain version by {lib_err:.3e}) "
+                       f"{lib_ms:.4f} ms")
             print(f"kernel{'' if comps == 1 else ' bs3'} {name:<34} "
                   f"{rows[-1]['dtype']:<7} "
                   f"D={rows[-1]['D']:<3} R={rows[-1]['R']:<3} "
                   f"abs {abs_err:.3e} rel {rel_err:.3e} | per call: "
                   f"kernel {ms:.4f} ms (through the public wrapper, which "
                   f"packs the launch anew, {public_ms:.4f} ms), plain "
-                  f"{plain_ms:.4f} ms | device: kernel {fmt(dev)}, plain "
-                  f"{fmt(plain_dev)} | wrapper's host cost {host:.4f} ms per "
-                  f"queued call | bound {b_ms:.4f} ms ({b_by})  [{gpu}]",
-                  flush=True)
+                  f"{plain_ms:.4f} ms{lib_txt} | device: kernel "
+                  f"{fmt_ms(dev)}, plain {fmt_ms(plain_dev)} | wrapper's "
+                  f"host cost {host:.4f} ms per queued call | bound "
+                  f"{b_ms:.4f} ms ({b_by})  [{gpu}]", flush=True)
+        del lib
     return rows, worst
 
 
@@ -419,6 +514,7 @@ def cgpoisson_run(cli, argv, ref_key, gpu: str):
     just before it and read just after; checked against tpufem's run.
     Returns (result, {kernel id: launches})."""
     import torch
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
     from tpufem_torch.fem.flat_op import FlatOperator
     from tpufem_torch.fem.strip_op import StripOperator
     from tpufem_torch.timing import REGISTRY
@@ -426,10 +522,12 @@ def cgpoisson_run(cli, argv, ref_key, gpu: str):
     StripOperator.apply_strips.launches = 0
     StripOperator.cg_resident.launches = 0
     FlatOperator.interior.launches = 0
+    dia_zones_apply.launches = 0
     res = cli.main(argv)
     n = {"K3": StripOperator.apply_strips.launches,
          "K4": StripOperator.cg_resident.launches,
-         "K5": FlatOperator.interior.launches}
+         "K5": FlatOperator.interior.launches,
+         "dia_zones": dia_zones_apply.launches}
     solver = res.problem.solver_function
     ndofs, ref_it, ref_rel, ref_norm = CGPOISSON_REF[ref_key]
     if "flat" in ref_key:
@@ -445,7 +543,8 @@ def cgpoisson_run(cli, argv, ref_key, gpu: str):
           f"iterations, rel {solver.rel!r} (tpufem {ref_rel!r}, off by "
           f"{rel_err:.2e}), norm {res.norm!r} (tpufem {ref_norm!r}, off by "
           f"{norm_err:.2e}); launches K3 {n['K3']}, K4 {n['K4']}, K5 "
-          f"{n['K5']}, whole-CG kernel engaged {solver.cg_kernel_engaged}; "
+          f"{n['K5']}, dia_zones {n['dia_zones']}, whole-CG kernel engaged "
+          f"{solver.cg_kernel_engaged}; "
           f"{solver.gdofs:.4f} Gdof/s, {solver.solve_s:.6f} s per solve  "
           f"[{gpu}]", flush=True)
     check(res.problem.space.ndofs == ndofs,
@@ -462,13 +561,16 @@ def cgpoisson_run(cli, argv, ref_key, gpu: str):
 
 def strip_kernel_phase(ops, gpu: str):
     """K3 against its plain version on the operators the cgpoisson runs
-    built, in float32 and (same tables cast) float64."""
+    built, in float32 and (same tables cast) float64, with torch.sparse.mm
+    of the same matrix as a CSR on dof-ordered vectors (the library
+    yardstick)."""
     import dataclasses
     import torch
     rows, worst = [], 0.0
     for dtype, tol in ((torch.float32, TOL_STRIP_F32),
                        (torch.float64, TOL_STRIP_F64)):
         for name, op32 in ops:
+            lib = torch_csr(pk_csr(op32.layout), op32.device, dtype)
             op = dataclasses.replace(op32, mid_pack=op32.mid_pack.to(dtype),
                                      dlt_pack=op32.dlt_pack.to(dtype))
             absop = dataclasses.replace(op, mid_pack=op.mid_pack.abs(),
@@ -496,6 +598,8 @@ def strip_kernel_phase(ops, gpu: str):
             dev = device_ms(lambda: op.apply_strips(x))
             plain_dev = device_ms(lambda: op.apply_strips_plain(x), reps=5)
             host = host_ms(lambda: op.apply_strips(x))
+            lib_ms, lib_err = library_ms(lib, u, op.from_strips(yp))
+            del lib
             nbytes, flops = strip_work(op)
             b_ms, b_by = bound_ms(nbytes, flops)
             run, staged = op.apply_shape(op.mid_pack.element_size())
@@ -503,11 +607,14 @@ def strip_kernel_phase(ops, gpu: str):
                              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              device_ms=dev, plain_device_ms=plain_dev,
                              bound_ms=b_ms, bound_by=b_by, host_ms=host,
+                             library_ms=lib_ms,
                              call_minus_device_ms=(None if dev is None
                                                    else ms - dev)))
             print(f"strip kernel {name:<28} {rows[-1]['dtype']:<7} abs "
                   f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms | device: kernel {fmt_ms(dev)}, plain "
+                  f"{plain_ms:.4f} ms, torch.sparse.mm (CSR, off the plain "
+                  f"version by {lib_err:.3e}) {lib_ms:.4f} ms | device: "
+                  f"kernel {fmt_ms(dev)}, plain "
                   f"{fmt_ms(plain_dev)} | wrapper's host cost {host:.4f} ms "
                   f"per queued call | z runs of {run} planes, delta weights "
                   f"{'in shared memory' if staged else 'from global memory'}"
@@ -609,39 +716,41 @@ def flat_dense_flops(op) -> int:
     return 2 * g.CP * g.K * g.TILE * planes
 
 
-def flat_same_matrix(fop, sop, b, name: str, gpu: str):
-    """The flat apply (K5 + corrections) against the strip apply (K3) on
-    one random vector, and a solve of each form to CONVERGED_RTOL against
-    the other's: the same matrix on the card."""
+def same_matrix(form: str, other, sop, b, name: str, gpu: str):
+    """Another form of the strip operator's matrix (``form``: "flat", K5
+    + corrections, or "dia", the zone kernel; ``other`` = (apply on a
+    dof vector, the CG loop's apply, to its buffer, back)) against the
+    strip apply (K3) on one random vector, and a solve of each form to
+    CONVERGED_RTOL against the other's: the same matrix on the card."""
     import torch
     from tpufem_torch.la.cg import cg_solve_fused
     gen = torch.Generator(device=b.device).manual_seed(99)
     u = torch.randn(b.shape, generator=gen, device=b.device, dtype=b.dtype)
-    yf, ys = fop.apply(u), sop.apply(u)
+    yf, ys = other[0](u), sop.apply(u)
     app_err = float((yf - ys).abs().max() / ys.abs().max())
     runs = {}
-    for form, apply, to, back in (
+    for f, apply, to, back in (
             ("strip", sop.apply_strips, sop.to_strips, sop.from_strips),
-            ("flat", fop.apply_flat, fop.to_flat, fop.from_flat)):
+            (form,) + tuple(other[1:])):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, it, rel = cg_solve_fused(apply, to(b), rtol=CONVERGED_RTOL,
                                     maxit=CONVERGED_KMAX)
         torch.cuda.synchronize()
-        runs[form] = (back(x), it, rel, time.perf_counter() - t0)
-    xs, xf = runs["strip"][0], runs["flat"][0]
+        runs[f] = (back(x), it, rel, time.perf_counter() - t0)
+    xs, xf = runs["strip"][0], runs[form][0]
     x_err = float((xf - xs).norm() / xs.norm())
-    print(f"{name} same matrix: flat vs strip apply {app_err:.3e} of max "
+    print(f"{name} same matrix: {form} vs strip apply {app_err:.3e} of max "
           f"(tolerance {TOL_APPLY:g}); solved to rtol {CONVERGED_RTOL:g}: "
           + ", ".join(f"{f} {it} iterations rel {rel:.3e} {sec:.3f} s"
                       for f, (_, it, rel, sec) in runs.items())
           + f", solutions {x_err:.3e} apart norm-wise (tolerance "
           f"{CG_F32_X_TOL:g})  [{gpu}]", flush=True)
-    check(app_err <= TOL_APPLY, f"{name}: flat apply off the strip apply "
-          f"by {app_err:.3e}")
+    check(app_err <= TOL_APPLY, f"{name}: {form} apply off the strip "
+          f"apply by {app_err:.3e}")
     check(all(rel <= CONVERGED_RTOL for _, _, rel, _ in runs.values()),
           f"{name}: a form did not converge in {CONVERGED_KMAX} steps")
-    check(x_err <= CG_F32_X_TOL, f"{name}: converged flat and strip "
+    check(x_err <= CG_F32_X_TOL, f"{name}: converged {form} and strip "
           f"solutions off by {x_err:.3e}")
 
 
@@ -1044,6 +1153,247 @@ def amg_phase(cli, device, gpu: str):
     return launches, rows, worst
 
 
+def pk_poisson_run(cli, order: int, gpu: str):
+    """P2/P3 Poisson 500k f32 through the CLI with the zone kernel's and
+    K1's counts set to zero just before it and read just after; warm
+    solves and a warm build.  Returns (result, {kernel: launches})."""
+    import torch
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    from tpufem_torch.fem.stencil import stencil_apply
+    from tpufem_torch.problems import poisson
+    from tpufem_torch.timing import REGISTRY
+    argv = PK_ARGS + ["--order", str(order)]
+    REGISTRY.reset()
+    dia_zones_apply.launches = stencil_apply.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    first_s = time.perf_counter() - t0
+    n = {"dia_zones": dia_zones_apply.launches, "K1": stencil_apply.launches}
+    solver, prob = res.problem.solver_function, res.problem
+    ndofs, ref_it, ref_norm, ref_rel, ref_passes = POISSON_PK_REF[order]
+    its = res.iterations + res.refine_iterations
+    pc = solver.pc
+    print(f"poisson P{order} 500k float32: {prob.space.ndofs} dofs, levels "
+          f"{[lv.op.layout.ndofs for lv in pc.levels]} + coarse "
+          f"{pc.coarse_inv.shape[0]}, {res.iterations} iterations (tpufem "
+          f"{ref_it}), norm {res.norm!r} (tpufem {ref_norm!r}, off by "
+          f"{abs(res.norm - ref_norm) / ref_norm:.2e}), true_rel "
+          f"{res.true_rel!r} (tpufem {ref_rel:g}), {res.refine_passes} "
+          f"refinement pass(es) (tpufem {ref_passes}, +"
+          f"{res.refine_iterations} its); launches dia_zones {n['dia_zones']}"
+          f" ({n['dia_zones'] / its:.1f} per CG iteration), K1 {n['K1']} "
+          f"({n['K1'] / its:.1f} per CG iteration) over {its} CG "
+          f"iterations; PC setup {solver.pc_setup_s:.3f} s, certify "
+          f"{solver.certify_s:.3f} s, first solve (ZZZ Solve) "
+          f"{REGISTRY.get('ZZZ Solve'):.3f} s, whole CLI run {first_s:.3f} s"
+          f"  [{gpu}]", flush=True)
+    check(prob.space.ndofs == ndofs,
+          f"P{order}: {prob.space.ndofs} dofs, tpufem's run had {ndofs}")
+    check(n["dia_zones"] > 0 and n["K1"] > 0, f"P{order}: launches {n}")
+    check(abs(res.iterations - ref_it) <= 1,
+          f"P{order}: {res.iterations} iterations, tpufem {ref_it}")
+    check(res.true_rel is not None and res.true_rel <= 1e-8,
+          f"P{order}: certified true residual {res.true_rel}")
+    check(res.x.shape == (ndofs,) and bool(torch.isfinite(res.x).all()),
+          f"P{order}: the solution is not a finite vector of ndofs")
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, its_w, _ = solver.run(prob.u, prob.b)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    check(its_w == res.iterations, f"P{order}: warm solve took {its_w} its")
+    solve_s = statistics.median(runs)
+    cfg, device = cli.parse_args(argv)
+    t0 = time.perf_counter()
+    poisson.problem(prob.space.mesh, order, cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"poisson P{order} 500k warm CG+GMG solve (uncertified): median "
+          f"{solve_s:.4f} s of 5 (min {min(runs):.4f}, max {max(runs):.4f}),"
+          f" {solve_s / its_w * 1e3:.3f} ms/iteration; warm build "
+          f"{build_s:.4f} s; {ndofs / (build_s + solve_s):.1f} dofs/s "
+          f"build+solve  [{gpu}]", flush=True)
+    return res, n
+
+
+def dia_zones_work(pack):
+    """(bytes, flops) of one zone apply: the fields and the three tables
+    read once, x read and y written once; a multiply-add per term and
+    point of its output grid."""
+    item = pack.fields.element_size()
+    points = {ko: int(X * Y * Z) for ko, (_, X, Y, Z, _) in
+              enumerate(pack.kinds)}
+    nbytes = ((pack.fields.numel() + 2 * pack.ndofs) * item
+              + 4 * (pack.terms.size + pack.outputs.size + pack.kinds.size))
+    return nbytes, 2 * sum(int(c) * points[int(ko)]
+                           for ko, _, _, c in pack.outputs)
+
+
+def dia_zones_phase(ops, gpu: str):
+    """The zone kernel against its plain version on ``ops`` ((name, the
+    DiaOperator, compare with K3?)), in float32 and, with the fields cast,
+    float64: the same bits, one launch per wrapper call, the prepared
+    launch; times, the wrapper's host cost, the bound, torch.sparse.mm of
+    the operator's CSR and, where asked, K3 on StripOperator.from_dia of
+    the same matrix.  Returns (rows, worst abs error)."""
+    import dataclasses
+    import torch
+    from tpufem_torch.fem.dia_zones import (dia_zones_apply,
+                                            dia_zones_apply_plain,
+                                            prepare_dia_zones)
+    from tpufem_torch.fem.strip_op import StripOperator
+    rows, worst = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device="cuda").manual_seed(808)
+        for name, op, with_k3 in ops:
+            pack = dataclasses.replace(op.zone_pack,
+                                       fields=op.zone_pack.fields.to(dtype))
+            device = pack.fields.device
+            x = torch.randn(pack.ndofs, generator=gen, device=device,
+                            dtype=dtype)
+            before = dia_zones_apply.launches
+            yk = dia_zones_apply(x, pack)
+            check(dia_zones_apply.launches == before + 1,
+                  f"dia_zones {name}: the wrapper did not launch once")
+            launch = prepare_dia_zones(pack)
+            check(torch.equal(launch(x), yk), f"dia_zones {name} {dtype}: "
+                  "the prepared launch and the public wrapper differ")
+            yp = dia_zones_apply_plain(x, pack)
+            torch.cuda.synchronize()
+            abs_err = float((yk - yp).abs().max())
+            same = bool(torch.equal(yk, yp))
+            check(same and bool(torch.isfinite(yk).all()),
+                  f"dia_zones {name} {dtype}: not the plain version's bits "
+                  f"(max abs err {abs_err:.3e})")
+            worst = max(worst, abs_err)
+            csr = (pk_csr(op.layout) if op.layout.ndofs > 100000
+                   else op.to_scipy())
+            lib = torch_csr(csr, device, dtype)
+            lib_ms, lib_err = library_ms(lib, x, yp)
+            del lib
+            ms = median_ms(lambda: launch(x))
+            public_ms = median_ms(lambda: dia_zones_apply(x, pack))
+            plain_ms = median_ms(lambda: dia_zones_apply_plain(x, pack),
+                                 reps=3, samples=3)
+            dev = device_ms(lambda: launch(x))
+            plain_dev = device_ms(lambda: dia_zones_apply_plain(x, pack),
+                                  reps=3)
+            host = host_ms(lambda: launch(x))
+            nbytes, flops = dia_zones_work(pack)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            k3 = ""
+            k3_ms = k3_dev = None
+            if with_k3 and dtype == torch.float32:
+                sop = StripOperator.from_dia(op, dtype=dtype, device=device)
+                xs = sop.to_strips(x)
+                ys = sop.from_strips(sop.apply_strips(xs))
+                app_err = float((ys - yk).abs().max() / yk.abs().max())
+                check(app_err <= TOL_APPLY, f"dia_zones {name}: the strip "
+                      f"apply of the same matrix is off by {app_err:.3e}")
+                k3_ms = median_ms(lambda: sop.apply_strips(xs))
+                k3_dev = device_ms(lambda: sop.apply_strips(xs))
+                k3 = (f" | K3 on the same matrix in strip form "
+                      f"{k3_ms:.4f} ms per call, {fmt_ms(k3_dev)} device "
+                      f"(apply off by {app_err:.3e} of max)")
+                del sop, xs, ys
+            counts = pack.outputs[:, 3]
+            rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
+                             terms=len(pack.terms), outputs=len(counts),
+                             max_abs_err=abs_err, same_bits=same, ms=ms,
+                             public_ms=public_ms, plain_ms=plain_ms,
+                             device_ms=dev, plain_device_ms=plain_dev,
+                             host_ms=host, library_ms=lib_ms, bound_ms=b_ms,
+                             bound_by=b_by, strip_apply_ms=k3_ms,
+                             strip_apply_device_ms=k3_dev,
+                             call_minus_device_ms=(None if dev is None
+                                                   else ms - dev)))
+            print(f"dia_zones {name:<34} {rows[-1]['dtype']:<7} "
+                  f"{len(pack.terms)} terms over {len(counts)} outputs "
+                  f"({counts.min()}-{counts.max()} each) | the same bits as "
+                  f"the plain version: {same} (max abs diff {abs_err:.3e}) |"
+                  f" per call: kernel {ms:.4f} ms (public wrapper "
+                  f"{public_ms:.4f}), plain {plain_ms:.4f} ms, "
+                  f"torch.sparse.mm (CSR, {csr.nnz} entries, off the plain "
+                  f"version by {lib_err:.3e}) {lib_ms:.4f} ms | device: "
+                  f"kernel {fmt_ms(dev)}, plain {fmt_ms(plain_dev)} | "
+                  f"wrapper's host cost {host:.4f} ms per queued call | bound"
+                  f" {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.1f} MFLOP){k3}  [{gpu}]", flush=True)
+    return rows, worst
+
+
+def pk_phase(cli, gpu: str):
+    """Phase 12: P2/P3 Poisson 500k f32 (CG + p-then-h GMG, certified),
+    the zone kernel against its plain version, the f64 order3 golden, and
+    cgpoisson P3 500k with -use_strip 0.  Returns (the Poisson runs'
+    zone-kernel launches, the -use_strip 0 run's, kernel rows, worst abs
+    error)."""
+    import torch
+    from tpufem_torch.fem.dia_op import DiaOperator
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    from tpufem_torch.fem.dirichlet import DirichletBC
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.fem.strip_op import StripOperator
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    from tpufem_torch.problems.common import poisson_bc_marker
+    from tpufem_torch.timing import REGISTRY
+    launches, ops = 0, []
+    for order in (2, 3):
+        res, n = pk_poisson_run(cli, order, gpu)
+        launches += n["dia_zones"]
+        A = res.problem.solver_function.A
+        check(isinstance(A, DiaOperator) and A.multi_kind,
+              f"P{order} 500k: the fine operator is not the multi-kind DIA")
+        lay = A.layout
+        ops.append((f"P{order} 500k {lay.Nx}x{lay.Ny}x{lay.Nz}", A, True))
+        del res
+        torch.cuda.empty_cache()
+    # edge grids of 6 planes (full fields beside zone fields), and a
+    # dense-mode operator (full fields only, every grid under 7 planes)
+    device = torch.device("cuda", 0)
+    for order, dims, mode in ((3, (8, 7, 6), "const"), (2, (5, 4, 3),
+                                                        "dense")):
+        mesh = BoxTetMesh(*dims)
+        bc = DirichletBC.from_space(FunctionSpace(mesh, order),
+                                    mesh.locate_boundary_facets(
+                                        poisson_bc_marker)).flat_dofs()
+        op = DiaOperator.build(mesh, order, "poisson", bc_dofs=bc,
+                               dtype=torch.float32, mode=mode,
+                               device=device)
+        ops.append((f"P{order} {mode} {'x'.join(map(str, dims))}", op,
+                    False))
+    rows, worst = dia_zones_phase(ops, gpu)
+    del ops
+    torch.cuda.empty_cache()
+
+    REGISTRY.reset()
+    dia_zones_apply.launches = 0
+    gold = cli.main(ORDER3_ARGS)
+    rel = abs(gold.norm - ORDER3_NORM) / ORDER3_NORM
+    print(f"order3 float64: {gold.iterations} iterations, norm "
+          f"{gold.norm!r} (golden {ORDER3_NORM!r}, rel {rel:.2e}), dia_zones "
+          f"launches {dia_zones_apply.launches}  [{gpu}]", flush=True)
+    check(gold.iterations == ORDER3_ITERATIONS and rel <= 1e-9
+          and dia_zones_apply.launches > 0, "order3 golden not held")
+    del gold
+
+    key = (3, 500000, "strong", "float32", "dia")
+    r, n = cgpoisson_run(cli, CG_ARGS + ["--order", "3", "--ndofs", "500000",
+                                         "-use_strip", "0"], key, gpu)
+    dia = r.problem.solver_function.op
+    check(isinstance(dia, DiaOperator) and n["dia_zones"] > 0
+          and n["K3"] == 0 and n["K4"] == 0 and n["K5"] == 0,
+          f"P3 -use_strip 0: launches {n}")
+    sop = StripOperator.from_dia(dia, dtype=torch.float32,
+                                 device=dia.bc_mask.device)
+    same_matrix("dia", (dia.apply, dia.apply, lambda v: v, lambda v: v), sop,
+                r.problem.b, "P3 500k", gpu)
+    del r, dia, sop
+    torch.cuda.empty_cache()
+    return launches, n["dia_zones"], rows, worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1220,7 +1570,9 @@ def main() -> int:
               f" Gdof/s vs strip form {keep['gdofs']:.4f} Gdof/s; 100-step "
               f"solutions {diff100:.3e} apart norm-wise (not held: see "
               f"CG_FLAT_NORM_TOL)  [{gpu}]", flush=True)
-        flat_same_matrix(fop, keep["op"], keep["b"], f"P{order} 500k", gpu)
+        same_matrix("flat", (fop.apply, fop.apply_flat, fop.to_flat,
+                             fop.from_flat), keep["op"], keep["b"],
+                    f"P{order} 500k", gpu)
         g = fop.geom
         flat_ops.append((f"P{order} 500k [{g.Zp},{g.CP},{g.LW}]", fop))
         del r, keep
@@ -1272,6 +1624,11 @@ def main() -> int:
     bf = [r for r in bf_rows if r["name"].startswith("elasticity")
           and r["dtype"] == "float32"][0]
 
+    # -- 12. P2/P3 Poisson and -use_strip 0: the multi-kind zone kernel ------
+    dz_launches, dz_cg_launches, dz_rows, dz_worst = pk_phase(cli, gpu)
+    dz = [r for r in dz_rows if r["name"].startswith("P3 500k")
+          and r["dtype"] == "float32"][0]
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -1280,11 +1637,12 @@ def main() -> int:
          "launches": launches, "max_abs_err": worst,
          "ms": cg_f32["ms"], "plain_ms": cg_f32["plain_ms"],
          "bound_ms": cg_f32["bound_ms"], "bound_by": cg_f32["bound_by"],
-         "library_ms": None, "device_ms": cg_f32["device_ms"],
+         "library_ms": cg_f32["library_ms"], "device_ms": cg_f32["device_ms"],
          "host_ms": cg_f32["host_ms"],
          "call_minus_device_ms": cg_f32["call_minus_device_ms"],
          "grids": [{k: r[k] for k in ("name", "R", "ms", "device_ms",
-                                      "host_ms", "plain_ms", "bound_ms")}
+                                      "host_ms", "plain_ms", "library_ms",
+                                      "bound_ms")}
                    for r in rows if r["dtype"] == "float32"]},
         {"name": "strip_apply", "route": "cuda",
          "source": "tpufem_torch/csrc/strip_apply.cu",
@@ -1292,11 +1650,13 @@ def main() -> int:
          "launches": k3_launches, "max_abs_err": strip_worst,
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
-         "library_ms": None, "device_ms": k3_row["device_ms"],
+         "library_ms": k3_row["library_ms"],
+         "device_ms": k3_row["device_ms"],
          "host_ms": k3_row["host_ms"],
          "call_minus_device_ms": k3_row["call_minus_device_ms"],
          "operators": [{k: r[k] for k in ("name", "dtype", "ms", "device_ms",
-                                          "host_ms", "plain_ms", "bound_ms")}
+                                          "host_ms", "plain_ms", "library_ms",
+                                          "bound_ms")}
                        for r in strip_rows]},
         {"name": "strip_cg", "route": "cuda",
          "source": "tpufem_torch/csrc/strip_cg.cu",
@@ -1325,11 +1685,12 @@ def main() -> int:
          "launches": elast_launches, "max_abs_err": elast_worst,
          "ms": bs3["ms"], "plain_ms": bs3["plain_ms"],
          "bound_ms": bs3["bound_ms"], "bound_by": bs3["bound_by"],
-         "library_ms": None, "device_ms": bs3["device_ms"],
+         "library_ms": bs3["library_ms"], "device_ms": bs3["device_ms"],
          "host_ms": bs3["host_ms"],
          "call_minus_device_ms": bs3["call_minus_device_ms"],
          "grids": [{k: r[k] for k in ("name", "R", "ms", "device_ms",
-                                      "host_ms", "plain_ms", "bound_ms")}
+                                      "host_ms", "plain_ms", "library_ms",
+                                      "bound_ms")}
                    for r in elast_rows if r["dtype"] == "float32"]},
         {"name": "brick_flat", "route": "cuda",
          "source": "tpufem_torch/csrc/brick_flat.cu",
@@ -1345,6 +1706,22 @@ def main() -> int:
                                       "device_ms", "host_ms", "plain_ms",
                                       "library_ms", "bound_ms", "same_bits")}
                    for r in bf_rows]},
+        {"name": "dia_zones", "route": "cuda",
+         "source": "tpufem_torch/csrc/dia_zones.cu",
+         "replaces": "none (XLA _apply_zones, tpufem/fem/dia_op.py:462)",
+         "launches": dz_launches, "launches_use_strip0": dz_cg_launches,
+         "max_abs_err": dz_worst,
+         "ms": dz["ms"], "plain_ms": dz["plain_ms"],
+         "bound_ms": dz["bound_ms"], "bound_by": dz["bound_by"],
+         "library_ms": dz["library_ms"], "device_ms": dz["device_ms"],
+         "host_ms": dz["host_ms"],
+         "call_minus_device_ms": dz["call_minus_device_ms"],
+         "strip_apply_ms": dz["strip_apply_ms"],
+         "grids": [{k: r[k] for k in ("name", "dtype", "terms", "ms",
+                                      "device_ms", "host_ms", "plain_ms",
+                                      "library_ms", "bound_ms",
+                                      "strip_apply_ms", "same_bits")}
+                   for r in dz_rows]},
     ]
     check("tpufem" not in sys.modules and "jax" not in sys.modules,
           "tpufem or jax was imported")

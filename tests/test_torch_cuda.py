@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the P1 stencil, the strip apply K3, the
-whole-CG kernel K4 and the flat interior K5) against their plain PyTorch
+"""The port's CUDA kernels (the P1 stencil and its three-component form,
+the strip apply K3, the whole-CG kernel K4, the flat interior K5,
+brick_flat and the multi-kind zone kernel) against their plain PyTorch
 versions, on the card.
 Marked ``cuda``: without a CUDA device every test skips.
 
@@ -646,3 +647,111 @@ def test_poisson_amg_cli_on_the_card(device, extra, iterations, norm, flat):
     assert res.iterations == iterations
     assert abs(res.norm - norm) <= 1e-9 * norm
     assert (brick_flat_apply.launches > 0) == flat
+
+
+# -- the multi-kind (P2/P3) DIA apply: csrc/dia_zones.cu ----------------------
+def _pk_dia(order, dims, dtype, device, mode="const"):
+    mesh = BoxTetMesh(*dims)
+    bc = DirichletBC.from_space(FunctionSpace(mesh, order),
+                                mesh.locate_boundary_facets(poisson_bc_marker))
+    if mode == "dense":
+        return DiaOperator.build(mesh, order, "poisson",
+                                 bc_dofs=bc.flat_dofs(), dtype=dtype,
+                                 mode="dense", device=device)
+    op = DiaOperator.try_const(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
+                               dtype=dtype, device=device)
+    assert op is not None and op.multi_kind
+    return op
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order,dims,mode", [
+    (2, (32, 40, 48), "const"), (3, (24, 24, 32), "const"),
+    (2, (7, 9, 11), "const"), (3, (8, 7, 6), "const"),
+    (2, (5, 4, 3), "dense"), (3, (3, 4, 5), "dense")],
+    ids=["P2-500k", "P3-500k", "P2-odd", "P3-short-z", "P2-dense",
+         "P3-dense"])
+def test_dia_zones_kernel_gives_the_plain_versions_bits(device, order, dims,
+                                                        mode, dtype):
+    """The P2/P3 500k fine operators, odd lattices, edge grids of 6 planes
+    (full fields beside zone fields) and dense-mode operators (full fields
+    only): one launch through the public wrapper, the prepared launch the
+    operator keeps, and the plain version's bits (product and sum rounded
+    apart, in plan order)."""
+    from tpufem_torch.fem.dia_zones import (dia_zones_apply,
+                                            dia_zones_apply_plain)
+    op = _pk_dia(order, dims, dtype, device, mode)
+    pack = op.zone_pack
+    assert (mode == "dense") == (not pack.terms[:, 6].any())
+    rng = np.random.default_rng(order)
+    x = torch.from_numpy(rng.standard_normal(pack.ndofs)).to(device, dtype)
+    before = dia_zones_apply.launches
+    y = dia_zones_apply(x, pack)
+    assert dia_zones_apply.launches == before + 1
+    assert torch.equal(y, dia_zones_apply_plain(x, pack))
+    assert torch.equal(op.apply(x), y)
+    assert bool(torch.isfinite(y).all())
+
+
+def test_dia_zones_on_a_side_stream_and_refusals(device):
+    """The prepared launch on a non-default stream; a wrong dtype, length
+    or device raises; the entry point refuses a launch it cannot make."""
+    from tpufem_torch import _build
+    from tpufem_torch.fem.dia_zones import dia_zones_apply, prepare_dia_zones
+    op = _pk_dia(2, (7, 6, 8), torch.float32, device)
+    pack = op.zone_pack
+    x = torch.randn(pack.ndofs, device=device)
+    y0 = dia_zones_apply(x, pack)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        y = op.apply(x)
+    side.synchronize()
+    assert torch.equal(y, y0)
+    launch = prepare_dia_zones(pack)
+    with pytest.raises(ValueError):
+        launch(x.double())
+    with pytest.raises(ValueError):
+        launch(torch.zeros(2 * pack.ndofs, device=device)[::2])
+    with pytest.raises(TypeError):
+        dia_zones_apply(x.cpu(), pack)
+    lib = _build.load().lib
+    bad = _build.DiaZonesLaunch(
+        F=pack.fields.data_ptr(), terms=pack.dev_terms.data_ptr(),
+        outputs=pack.dev_outputs.data_ptr(), kinds=pack.dev_kinds.data_ptr(),
+        device=0, nterms=len(pack.terms), nout=len(pack.outputs),
+        nkinds=len(pack.kinds), max_terms=100000, max_points=pack.max_points)
+    rc = lib.tpufem_dia_zones_f32(ctypes.addressof(bad), x.data_ptr(),
+                                  y.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    torch.cuda.synchronize()
+
+
+def test_order3_golden_on_the_card(device):
+    """tests/test_golden.py's order3 in float64 through the zone kernel
+    (the P3 level; the P1 level is the coarse inverse)."""
+    from tpufem_torch import cli
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    dia_zones_apply.launches = 0
+    res = cli.main(["--problem_type", "poisson", "--order", "3", "--ndofs",
+                    "15000", "--dtype", "float64", "-ksp_rtol", "1e-8",
+                    "--device", "cuda"])
+    assert res.iterations == 19
+    assert abs(res.norm - 25.64720150160304) <= 1e-9 * 25.64720150160304
+    assert dia_zones_apply.launches > 0
+
+
+def test_cgpoisson_use_strip0_engages_the_zone_kernel(device):
+    from tpufem_torch import cli
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    dia_zones_apply.launches = 0
+    StripOperator.apply_strips.launches = 0
+    res = cli.main(["--problem_type", "cgpoisson", "--order", "2", "--ndofs",
+                    "3000", "--dtype", "float64", "--device", "cuda",
+                    "-use_strip", "0"])
+    assert isinstance(res.problem.solver_function.op, DiaOperator)
+    assert dia_zones_apply.launches > 0
+    assert StripOperator.apply_strips.launches == 0
+    assert res.iterations == 78
+    assert abs(res.norm - 11.382201359027317) <= 1e-9 * 11.382201359027317

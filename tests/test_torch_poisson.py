@@ -111,19 +111,16 @@ def test_cuda_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("argv", [
-    # -use_flat 1 is ported; on a lattice too small for the flat layout it
-    # falls through to the strip choice, where -use_strip 0 is not
-    ["--problem_type", "cgpoisson", "-use_flat", "1", "--order", "2",
-     "-use_strip", "0"],
     ["--problem_type", "cgpoisson", "--mesh_type", "unstructured"],
     ["--problem_type", "elasticity", "--order", "2"],
     ["--problem_type", "elasticity", "-pc_type", "amg", "-amg_brick", "off"],
     ["--mesh_type", "unstructured"],
-    ["--order", "2"],
+    # P2/P3 Poisson is ported; its -pc_type amg is tpufem's SA-AMG
+    ["--order", "2", "-pc_type", "amg"],
     ["--num_shards", "2"],
     ["-pc_type", "amg", "-amg_brick", "off"],
-], ids=["cgpoisson_use_flat", "cgpoisson_unstructured", "elasticity_order2",
-        "elasticity_amg", "unstructured", "order2", "shards", "amg"])
+], ids=["cgpoisson_unstructured", "elasticity_order2", "elasticity_amg",
+        "unstructured", "order2", "shards", "amg"])
 def test_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--ndofs", "3000", "--device", "cpu"] + argv)

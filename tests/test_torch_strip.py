@@ -254,14 +254,17 @@ def test_structured_operator_matches_tpufem(order, dims):
 
 def test_build_operator_picks_tpufem_forms():
     """P2/P3 const DIA when the lattice allows it, else the per-perm
-    operator; the multi-kind DIA has no device apply."""
+    operator; the multi-kind DIA applies on its device (the zone
+    kernel's plain version on the CPU)."""
     from tpufem_torch.fem.dia_op import build_operator
     cpu = torch.device("cpu")
     big = build_operator(BoxTetMesh(6, 6, 8), 3, "poisson", dtype=F64,
                          device=cpu)
     assert isinstance(big, DiaOperator) and big.is_const()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        big.apply(torch.zeros(big.layout.ndofs, dtype=F64))
+    x = np.random.default_rng(0).standard_normal(big.layout.ndofs)
+    np.testing.assert_allclose(big.apply(torch.from_numpy(x)).numpy(),
+                               big.apply_np(x), rtol=0,
+                               atol=1e-13 * np.abs(big.apply_np(x)).max())
     small = build_operator(BoxTetMesh(4, 4, 6), 3, "poisson", dtype=F64,
                            device=cpu)
     assert isinstance(small, StructuredOperator)

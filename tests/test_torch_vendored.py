@@ -15,7 +15,10 @@ from tpufem.cli import parse_args as tpu_parse_args
 from tpufem.fem import assemble as tpu_assemble
 from tpufem.fem import kernels as tpu_kernels
 from tpufem.fem.reference import ReferenceTet as TpuRef
+from tpufem.fem.reference import \
+    _edge_interior_params as tpu_edge_interior_params
 from tpufem.fem.space import FunctionSpace as TpuSpace
+from tpufem.fem.structured_op import StructuredOperator as TpuStructured
 from tpufem.fem.structured_op import \
     perm_element_matrices as tpu_perm_element_matrices
 from tpufem.la import nullspace as tpu_nullspace
@@ -24,9 +27,11 @@ from tpufem.problems import common as tpu_common
 
 from tpufem_torch import cli
 from tpufem_torch.fem import assemble
-from tpufem_torch.fem.reference import ReferenceTet
+from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.reference import ReferenceTet, _edge_interior_params
 from tpufem_torch.fem.space import FunctionSpace
-from tpufem_torch.fem.structured_op import perm_element_matrices
+from tpufem_torch.fem.structured_op import (StructuredOperator,
+                                            perm_element_matrices)
 from tpufem_torch.la import nullspace
 from tpufem_torch.mesh import structured
 from tpufem_torch.problems import common
@@ -62,6 +67,42 @@ def test_reference_element_bitwise(order):
     for name in ("nodes", "stiffness_tensors", "mass_tensor",
                  "facet_mass_tensors"):
         assert np.array_equal(getattr(mine, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("variant", ["gll_warped", "equispaced"])
+def test_edge_interior_params_bitwise(variant):
+    """The P_k edge-node parameters the p-transfers interpolate at."""
+    for k in (1, 2, 3, 4):
+        assert np.array_equal(_edge_interior_params(k, variant),
+                              tpu_edge_interior_params(k, variant))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("order", [2, 3])
+def test_structured_operator_diagonal_and_twin_bitwise(order, dtype):
+    """The per-perm operator's host diagonal (bitwise, from the element
+    matrices in the working dtype), its device diagonal and its host
+    BC-eliminated apply against tpufem's."""
+    import jax.numpy as jnp
+    import torch
+    dims = (3, 4, 5)
+    mesh = structured.BoxTetMesh(*dims)
+    bc = DirichletBC.from_space(FunctionSpace(mesh, order),
+                                mesh.locate_boundary_facets(
+                                    common.poisson_bc_marker)).flat_dofs()
+    op = StructuredOperator.build(mesh, order, "poisson", bc_dofs=bc,
+                                  dtype=getattr(torch, dtype),
+                                  device=torch.device("cpu"))
+    tmesh = tpu_structured.BoxTetMesh(*dims)
+    ref = TpuStructured.build(tmesh, order, "poisson", bc_dofs=bc,
+                              dtype=getattr(jnp, dtype), device=False)
+    assert np.array_equal(op.diagonal_np(), ref.diagonal_np())
+    ref_dev = TpuStructured.build(tmesh, order, "poisson", bc_dofs=bc,
+                                  dtype=getattr(jnp, dtype))
+    assert np.array_equal(op.diagonal().numpy(),
+                          np.asarray(ref_dev.diagonal()))
+    x = np.random.default_rng(3).standard_normal(op.layout.ndofs)
+    assert np.array_equal(op.apply_np(x), ref.apply_np(x))
 
 
 @pytest.mark.parametrize("order", [1, 2, 3])

@@ -40,6 +40,17 @@ class BrickFlatLaunch(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ("device", "az", "ay", "W", "nf")])
 
 
+class DiaZonesLaunch(ctypes.Structure):
+    """What a multi-kind DIA apply needs beside x, y and the stream
+    (csrc/dia_zones.cu:DiaZonesLaunch), filled once per operator."""
+
+    _fields_ = ([(k, ctypes.c_void_p)
+                 for k in ("F", "terms", "outputs", "kinds")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "nterms", "nout", "nkinds",
+                             "max_terms", "max_points")])
+
+
 class FlatLaunch(ctypes.Structure):
     """What a flat interior launch needs beside x, y and the stream
     (csrc/flat_interior.cu:FlatLaunch), filled once per operator."""
@@ -128,6 +139,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ci
         fn = getattr(lib, f"tpufem_brick_flat_{suffix}")
         # BrickFlatLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
+        fn.restype = ci
+        fn = getattr(lib, f"tpufem_dia_zones_{suffix}")
+        # DiaZonesLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
     # device, blocks, grid barriers, stream: the whole-CG kernel's grid

@@ -2,22 +2,22 @@
 
 Takes tpufem's flags (``parse_args`` is a copy of tpufem's) plus
 ``--device`` (default ``cuda``; there is no fallback to the CPU), builds
-the cube mesh, runs the Poisson, matrix-free CG Poisson or P1 elasticity
-problem on one device, prints the reproducibility summary, the ZZZ
+the cube mesh, runs the Poisson (P1-P3), matrix-free CG Poisson (P1-P3)
+or P1 elasticity problem on one device, prints the reproducibility summary, the ZZZ
 timing table, the Krylov iterations, the solution norm and, for
 ``poisson`` and ``elasticity``, the certified true residual.
 ``-log_view`` writes a ``torch.profiler`` trace of the solve, as tpufem
 writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 
-``-pc_type amg`` runs lattice-brick AMG (la.bramg) for Poisson and
+``-pc_type amg`` runs lattice-brick AMG (la.bramg) for P1 Poisson and
 elasticity, as does tpufem's fallback where GMG cannot coarsen the
 lattice.  Not ported yet (each raises NotImplementedError naming its
-ROADMAP item): P2/P3 elasticity, the unstructured mesh, Poisson orders
-above 1, tpufem's generic SA-AMG (``-amg_brick off``), more than one
-shard, --output and --memory_profiling.
+ROADMAP item): P2/P3 elasticity, the unstructured mesh, tpufem's generic
+SA-AMG (``-amg_brick off``, and ``-pc_type amg`` at orders above 1),
+more than one shard, --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
-          --scaling_type strong --device cuda
+          --scaling_type strong --device cuda [--order 2|3]
       python -m tpufem_torch --problem_type cgpoisson --order 3 \\
           --ndofs 500000 --scaling_type strong --device cuda [-use_flat 1]
       python -m tpufem_torch --problem_type elasticity --ndofs 500000 \\
@@ -160,7 +160,6 @@ def _check_scope(cfg: Config) -> None:
          f"--problem_type cgpoisson --mesh_type {cfg.mesh_type} (the "
          "matrix-free gather/scatter action): ROADMAP M9"),
         (cfg.mesh_type != "cube", f"--mesh_type {cfg.mesh_type}: ROADMAP M14, M15"),
-        (not cg and cfg.order != 1, f"--order {cfg.order}: ROADMAP M10"),
         (cfg.num_shards > 1, f"--num_shards {cfg.num_shards}: ROADMAP M16"),
         (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
         (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),

@@ -29,15 +29,20 @@ def dia_from_numpy(plan: Tuple, weights: Sequence[np.ndarray],
                    zone_plan: Optional[Tuple] = None,
                    zones: Optional[Tuple] = None,
                    surr_dims: Optional[Tuple[int, int, int]] = None,
-                   bs: int = 1, planar: bool = False) -> DiaOperator:
-    """A port DiaOperator on ``device`` from a P1 tpufem operator's
-    ``plan``, ``weights`` (surrogate tables or dense dst-slice arrays),
-    ``bc_mask`` (in the operator's layout), lattice ``dims`` (Nx, Ny, Nz),
-    in const mode its ``zone_plan``, ``zones`` and ``surr_dims``, and its
-    ``bs`` and ``planar`` (a planar bs = 3 elasticity operator)."""
+                   bs: int = 1, planar: bool = False, order: int = 1,
+                   kinds: Optional[Sequence] = None) -> DiaOperator:
+    """A port DiaOperator on ``device`` from a tpufem operator's ``plan``,
+    ``weights`` (surrogate tables or dense dst-slice arrays), ``bc_mask``
+    (in the operator's layout), lattice ``dims`` (Nx, Ny, Nz), in const
+    mode its ``zone_plan``, ``zones`` and ``surr_dims``, and its ``bs``
+    and ``planar`` (a planar bs = 3 elasticity operator); a P2/P3
+    (multi-kind) operator also takes its ``order`` and its layout's
+    ``kinds`` ((base, (X, Y, Z), slots) per typed dof grid)."""
     Nx, Ny, Nz = dims
-    layout = GridLayout(order=1, Nx=Nx, Ny=Ny, Nz=Nz,
-                        kinds=((0, (Nx + 1, Ny + 1, Nz + 1), 1),))
+    kinds = (((0, (Nx + 1, Ny + 1, Nz + 1), 1),) if kinds is None else
+             tuple((int(b), tuple(int(v) for v in d), int(s))
+                   for b, d, s in kinds))
+    layout = GridLayout(order=order, Nx=Nx, Ny=Ny, Nz=Nz, kinds=kinds)
     op = DiaOperator(
         weights=[np.asarray(w) for w in weights],
         bc_mask_np=np.array(bc_mask, dtype=bool),
@@ -53,11 +58,13 @@ def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                    lmax: Sequence[float], coarse_inv: np.ndarray,
                    coarse_bc_mask: np.ndarray, dims: Tuple,
                    device: torch.device, smoother_degree: int = 2,
-                   bs: int = 1, planar: bool = False) -> GMG:
+                   bs: int = 1, planar: bool = False, order: int = 1) -> GMG:
     """A port GMG on ``device`` from the level operators (port objects,
     e.g. from ``dia_from_numpy``) and tpufem's per-level ``dinv`` and
     ``lmax``, ``coarse_inv``, ``coarse_bc_mask``, per-level ``dims`` and
-    its ``bs`` and ``planar``."""
+    its ``bs``, ``planar`` and fine ``order`` (order k > 1: level 0 is
+    the order-k operator, with its own dinv and lmax, above the P1
+    level on the same lattice)."""
     levels = [GLevel(op=op, dinv=torch.from_numpy(np.array(d)).to(device),
                      lmax=float(lm))
               for op, d, lm in zip(ops, dinv, lmax)]
@@ -66,7 +73,8 @@ def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                coarse_bc_mask=torch.from_numpy(
                    np.array(coarse_bc_mask, dtype=bool)).to(device),
                dims=tuple(tuple(d) for d in dims),
-               smoother_degree=smoother_degree, bs=bs, planar=planar)
+               smoother_degree=smoother_degree, bs=bs, planar=planar,
+               order=order)
 
 
 def bramg_from_numpy(levels: Sequence[Dict], coarse_inv: np.ndarray,

@@ -24,8 +24,11 @@ into the weights (``bake_bc=True``), or only recorded in the mask
 (``bake_bc=False``, the matrix-free rows-zero convention).  On the
 device a P1 operator stacks its fields into one [D, R, Y, X] tensor and
 ``apply`` is ONE stencil launch (fem.stencil.stencil_apply, the CUDA
-kernel on a card).  A P2/P3 operator stays on the host: the device runs
-it as a fem.strip_op.StripOperator built from its tables.
+kernel on a card).  A P2/P3 operator packs the fields of all its terms
+into one buffer with a term table grouped by output (fem.dia_zones), and
+``apply`` is ONE launch of the multi-kind zone kernel
+(fem.dia_zones.dia_zones_apply); ``cgpoisson`` runs the same matrix as a
+fem.strip_op.StripOperator by default.
 
 Elasticity (bs = 3, P1 only; P2/P3 is ROADMAP M12 P2): each [3, 3] block
 expands into 9 scalar zone terms (tpufem's zone plan, entries
@@ -46,6 +49,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpufem_torch.fem.dia_zones import (ZonePack, dia_zones_apply,
+                                        pack_terms, prepare_dia_zones)
 from tpufem_torch.fem.stencil import (prepare_stencil, prepare_stencil_bs3,
                                       stencil_apply, stencil_apply_bs3)
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
@@ -117,10 +122,10 @@ class DiaOperator:
     (r, s) component of a block; ``bc_mask_np`` the Dirichlet mask, in
     the operator's vector layout (planar when ``planar``).
 
-    Device state (after ``_finalize(device)``): ``bc_mask``, and for a
-    P1 (single-kind) operator ``fields`` [D, R, Y, X] (bs = 3: [9 D, R,
-    Y, X], the [3, D, 3] (r, d, s) fields flattened) and ``offsets`` (D
-    triples (dx, dy, dz)).
+    Device state (after ``_finalize(device)``): ``bc_mask``; for a P1
+    (single-kind) operator ``fields`` [D, R, Y, X] (bs = 3: [9 D, R, Y,
+    X], the [3, D, 3] (r, d, s) fields flattened) and ``offsets`` (D
+    triples (dx, dy, dz)); for a P2/P3 (multi-kind) one ``zone_pack``.
     """
 
     weights: List[np.ndarray]
@@ -133,6 +138,7 @@ class DiaOperator:
     fields: Optional[torch.Tensor] = None
     offsets: Optional[Tuple] = None
     bc_mask: Optional[torch.Tensor] = None
+    zone_pack: Optional[ZonePack] = None
     bs: int = 1
     planar: bool = False   # bs > 1: component-planar vectors, c * n + i
 
@@ -204,8 +210,8 @@ class DiaOperator:
 
     def _finalize(self, device: Optional[torch.device]) -> "DiaOperator":
         """Precompute the zone fields (const mode) and, given a device,
-        ship the bc mask and (single-kind operators) the stacked fields
-        there."""
+        ship the bc mask and the stacked fields (single-kind operators)
+        or the zone pack (multi-kind) there."""
         if self.is_const() and self.zones is None:
             self._build_zones_np()
         if device is None:
@@ -217,6 +223,10 @@ class DiaOperator:
                 "SA-AMG, ROADMAP M14)")
         self.bc_mask = torch.from_numpy(self.bc_mask_np).to(device)
         if self.multi_kind:
+            dtype = (torch.float32 if np.asarray(self.weights[0]).dtype
+                     == np.float32 else torch.float64)
+            self.zone_pack = pack_terms(self.layout, self._zone_terms_np(),
+                                        dtype, device)
             return self
         fields, offsets = self._stencil_fields_np()
         self.fields = torch.from_numpy(np.ascontiguousarray(fields)).to(device)
@@ -406,6 +416,22 @@ class DiaOperator:
         self.zone_plan = tuple(zone_plan)
         self.zones = tuple(zones)
 
+    def _zone_terms_np(self):
+        """The terms of a scalar multi-kind operator as the zone pack takes
+        them, in plan order: ((ko, so, ki, si, d), fields) with the z-zone
+        fields of a const-mode operator, or one full field (zero outside
+        the dst slice) per dense-mode term."""
+        if self.zones is not None:
+            return [(zp[:5], z) for zp, z in zip(self.zone_plan, self.zones)]
+        out = []
+        for meta, W in self.terms():
+            (z0, z1, y0, y1, x0, x1) = meta[5]
+            _, (X, Y, Z), _ = self.layout.kinds[meta[0]]
+            full = np.zeros((Z, Y, X), dtype=np.asarray(W).dtype)
+            full[z0:z1, y0:y1, x0:x1] = self._dense_weight_np(meta, W)
+            out.append((meta[:5], (full,)))
+        return out
+
     def _stencil_fields_np(self):
         """The device stack of a single-kind operator: the zone fields
         (R = 7 rows) or full fields (R = Z) as [bs, D, bs, R, Y, X] (r, d,
@@ -435,12 +461,15 @@ class DiaOperator:
     # -- apply ------------------------------------------------------------------
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x on the operator's device (one stencil launch; bs = 3:
-        one launch of the three-component form, on planar vectors)."""
+        one launch of the three-component form, on planar vectors; P2/P3:
+        one launch of the multi-kind zone kernel)."""
         if self.multi_kind:
-            raise NotImplementedError(
-                "the device apply of a P2/P3 DIA operator (-use_strip 0) is "
-                "not ported: ROADMAP M8b (the default runs it as a "
-                "StripOperator)")
+            if self.zone_pack is None:
+                raise RuntimeError("host-only operator: build it with a "
+                                   "device")
+            if self.zone_pack.fields.device.type == "cuda":
+                return self._dia_zones(x)
+            return dia_zones_apply(x, self.zone_pack)
         if self.fields is None:
             raise RuntimeError("host-only operator: build it with a device")
         if self.fields.device.type == "cuda":
@@ -449,6 +478,11 @@ class DiaOperator:
             return stencil_apply_bs3(x, self.fields, self.offsets,
                                      self.grid_dims)
         return stencil_apply(x, self.fields, self.offsets, self.grid_dims)
+
+    @functools.cached_property
+    def _dia_zones(self):
+        """The operator's prepared zone-kernel launch (pack on a card)."""
+        return prepare_dia_zones(self.zone_pack)
 
     @functools.cached_property
     def _stencil(self):

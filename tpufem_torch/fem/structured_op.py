@@ -252,6 +252,26 @@ class StructuredOperator:
         (reference cgpoisson_problem.cpp:207)."""
         return torch.where(self.bc_mask, 0.0, self.apply_raw(x))
 
+    def diagonal(self) -> torch.Tensor:
+        """The operator diagonal on its device, in the working dtype (BC
+        rows get 1), for Jacobi/Chebyshev: each perm's element-matrix
+        diagonal added at the n shifted slices, tpufem's order
+        (tpufem/fem/structured_op.py:382-400)."""
+        if self.A_dev is None:
+            raise RuntimeError("host-only operator: build it with a device")
+        lay = self.layout
+        plan = dof_slice_plan(lay.order)
+        Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
+        grids = [torch.zeros((k[1][2], k[1][1], k[1][0], k[2]),
+                             dtype=self.A_dev.dtype, device=self.A_dev.device)
+                 for k in lay.kinds]
+        for p in range(6):
+            for l, (kind, (dx, dy, dz), slot) in enumerate(plan[p]):
+                grids[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += \
+                    self.A_dev[p, l, l]
+        flat = torch.cat([g.reshape(-1) for g in grids])
+        return torch.where(self.bc_mask, 1.0, flat)
+
     # -- host (numpy float64) twins ---------------------------------------------
     def apply_raw_np(self, x: np.ndarray) -> np.ndarray:
         """Pure-numpy float64 apply, tpufem's arithmetic (host RHS)."""
@@ -271,3 +291,30 @@ class StructuredOperator:
                 outs[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += \
                     y[..., l, :]
         return np.concatenate([o.reshape(-1) for o in outs])
+
+    def apply_np(self, x: np.ndarray) -> np.ndarray:
+        """Host float64 twin of ``apply`` (BC-eliminated)."""
+        bc = np.asarray(self.bc_mask_np)
+        return np.where(bc, x, self.apply_raw_np(np.where(bc, 0.0, x)))
+
+    def diagonal_np(self) -> np.ndarray:
+        """Host float64 operator diagonal (BC rows get 1), from the element
+        matrices in the working dtype, tpufem's arithmetic
+        (tpufem/fem/structured_op.py:363-380)."""
+        lay = self.layout
+        plan = dof_slice_plan(lay.order)
+        Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
+        Ap = np.asarray(self.Ap, dtype=np.float64)
+        outs = [np.zeros((k[1][2], k[1][1], k[1][0], k[2])) for k in lay.kinds]
+        for p in range(6):
+            dA = np.diagonal(Ap[p])
+            for l, (kind, (dx, dy, dz), slot) in enumerate(plan[p]):
+                outs[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += dA[l]
+        flat = np.concatenate([o.reshape(-1) for o in outs])
+        return np.where(np.asarray(self.bc_mask_np), 1.0, flat)
+
+    @property
+    def bc_mask_np(self) -> np.ndarray:
+        """The Dirichlet mask on the host."""
+        m = self.bc_mask
+        return m.cpu().numpy() if isinstance(m, torch.Tensor) else m

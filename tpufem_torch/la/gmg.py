@@ -1,14 +1,19 @@
-"""Structured geometric multigrid for P1 problems (counterpart of
-tpufem/la/gmg.py: ``prolong_h``/``restrict_h`` :74-116, ``GMG.setup``
-:236-339 for P1, scalar and planar bs = 3, ``vcycle`` :341-404,
-``gmg_viable``, ``surrogate_lmax``, ``_host_lmax``).
+"""Structured geometric multigrid (counterpart of tpufem/la/gmg.py:
+``prolong_h``/``restrict_h`` :74-116, ``prolong_p``/``restrict_p``
+:118-193, ``GMG.setup`` :236-339, scalar P1-P3 and planar bs = 3 P1,
+``vcycle`` :341-404, ``gmg_viable``, ``surrogate_lmax``, ``_host_lmax``).
 
 Nested Kuhn lattices give an exact geometric hierarchy: P1 prolongation
 is linear interpolation (every fine vertex is a coarse vertex or the
 midpoint of a coarse vertex pair), level operators are the re-discretized
 DIA stencils with their own Dirichlet masks, the smoother is
-Chebyshev/Jacobi with one lmax estimated on a small surrogate lattice,
-and the coarsest level is solved by a dense inverse.
+Chebyshev/Jacobi with one lmax per order estimated on a small surrogate
+lattice, and the coarsest level is solved by a dense inverse.  An order
+k > 1 problem has one more level on top: the order-k operator of
+``build_operator`` on the same lattice (the multi-kind DIA, one launch
+of the zone kernel an apply, or the per-perm StructuredOperator on small
+lattices), reached from the P1 level by the p-transfers: point
+evaluation of the linear field at the P_k nodes and its adjoint.
 
 Elasticity runs in the component-planar layout (``planar``): the level
 operators are planar bs = 3 DiaOperators, the transfers act on the
@@ -34,12 +39,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
+from tpufem_torch.fem.dia_op import build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
+from tpufem_torch.fem.reference import _edge_interior_params
 from tpufem_torch.fem.space import FunctionSpace
+from tpufem_torch.fem.structured_op import GridLayout
 from tpufem_torch.la.chebyshev import (chebyshev_smoother,
                                        chebyshev_smoother_zero)
-from tpufem_torch.mesh.structured import BoxTetMesh
+from tpufem_torch.mesh.structured import EDGE_TYPES, FACE_TYPES, BoxTetMesh
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +116,50 @@ def restrict_h(f: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def prolong_p(v: torch.Tensor, layout: GridLayout) -> torch.Tensor:
+    """P1 -> P_k on the same lattice: the P1 vertex grid v [Z+1, Y+1,
+    X+1] evaluated at the P_k nodes of ``layout`` (vertex copy; an edge
+    node at parameter t gets (1 - t) va + t vb; a face centroid the
+    average of its 3 vertices), as a flat P_k vector."""
+    k = layout.order
+    grids = [v[..., None]]
+    for (_, (X, Y, Z), _), d in zip(layout.kinds[1:8], EDGE_TYPES):
+        va = v[:Z, :Y, :X]
+        vb = v[d[2]: d[2] + Z, d[1]: d[1] + Y, d[0]: d[0] + X]
+        grids.append(torch.stack([(1 - t) * va + t * vb for t in
+                                  map(float, _edge_interior_params(
+                                      k, "gll_warped"))], dim=3))
+    if k >= 3:
+        for (_, (X, Y, Z), _), (o1, o2) in zip(layout.kinds[8:], FACE_TYPES):
+            v0 = v[:Z, :Y, :X]
+            v1 = v[o1[2]: o1[2] + Z, o1[1]: o1[1] + Y, o1[0]: o1[0] + X]
+            v2 = v[o2[2]: o2[2] + Z, o2[1]: o2[1] + Y, o2[0]: o2[0] + X]
+            grids.append(((v0 + v1 + v2) / 3.0)[..., None])
+    return layout.join(grids)
+
+
+def restrict_p(r: torch.Tensor, layout: GridLayout) -> torch.Tensor:
+    """Adjoint of prolong_p: a flat P_k residual -> the P1 vertex grid
+    [Z+1, Y+1, X+1], summed in tpufem's order."""
+    k = layout.order
+    grids = layout.split(r)  # [Z, Y, X, slots]
+    out = grids[0][..., 0].clone()
+    tparams = [float(t) for t in _edge_interior_params(k, "gll_warped")]
+    for g, d in zip(grids[1:8], EDGE_TYPES):
+        Z, Y, X = g.shape[:3]
+        for s, t in enumerate(tparams):
+            out[:Z, :Y, :X] += (1 - t) * g[..., s]
+            out[d[2]: d[2] + Z, d[1]: d[1] + Y, d[0]: d[0] + X] += t * g[..., s]
+    if k >= 3:
+        for g, (o1, o2) in zip(grids[8:], FACE_TYPES):
+            Z, Y, X = g.shape[:3]
+            third = g[..., 0] / 3.0
+            out[:Z, :Y, :X] += third
+            out[o1[2]: o1[2] + Z, o1[1]: o1[1] + Y, o1[0]: o1[0] + X] += third
+            out[o2[2]: o2[2] + Z, o2[1]: o2[1] + Y, o2[0]: o2[0] + X] += third
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Hierarchy
 # ---------------------------------------------------------------------------
@@ -116,15 +167,16 @@ def restrict_h(f: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class GLevel:
-    op: DiaOperator
+    op: object      # a DiaOperator, or a StructuredOperator at order k > 1
     dinv: torch.Tensor
     lmax: float
 
 
 @dataclasses.dataclass
 class GMG:
-    """Geometric multigrid preconditioner for P1 BoxTetMesh problems
-    (scalar, or planar bs = 3); level 0 is the finest."""
+    """Geometric multigrid preconditioner for BoxTetMesh problems (scalar
+    P1-P3, or planar bs = 3 P1); level 0 is the finest, of order
+    ``order``, the others P1."""
 
     levels: List[GLevel]
     coarse_inv: torch.Tensor
@@ -133,6 +185,7 @@ class GMG:
     smoother_degree: int = 2
     bs: int = 1
     planar: bool = False         # bs > 1: component-planar vectors
+    order: int = 1               # fine order (a p-transfer below it if > 1)
 
     def __post_init__(self) -> None:
         d = self.smoother_degree
@@ -148,13 +201,18 @@ class GMG:
               dtype: torch.dtype = torch.float32,
               coarse_limit: int = 1000, smoother_degree: int = 2,
               max_levels: int = 12, planar: bool = False) -> "GMG":
-        """``problem`` "poisson" or "elasticity" (bs = 3; ``planar``
-        runs it in the component-planar layout)."""
-        if order != 1 or problem not in ("poisson", "elasticity"):
-            raise NotImplementedError(
-                f"GMG for order {order} {problem}: the port's multigrid is "
-                "P1 (P2/P3 Poisson: ROADMAP M10, P2 elasticity: M12 P2)")
+        """``problem`` "poisson" (order 1-3) or "elasticity" (bs = 3, P1;
+        ``planar`` runs it in the component-planar layout).  Order k > 1:
+        the levels are [the order-k operator, P1 on the same lattice, the
+        P1 halvings], each order smoothing on its own surrogate lmax
+        (tpufem/la/gmg.py:250-308)."""
+        if problem not in ("poisson", "elasticity"):
+            raise NotImplementedError(f"GMG for {problem}")
         bs = 3 if problem == "elasticity" else 1
+        if bs > 1 and order != 1:
+            raise NotImplementedError(
+                f"GMG for P{order} elasticity (the blocked "
+                "StructuredOperator): ROADMAP M12 P2")
         if bs > 1 and not planar:
             raise NotImplementedError(
                 "the interleaved bs = 3 GMG (the port runs elasticity in "
@@ -162,12 +220,15 @@ class GMG:
                 "SA-AMG, ROADMAP M14)")
         planar = planar and bs > 1
 
-        def level_bc(m: BoxTetMesh) -> DirichletBC:
-            space = FunctionSpace(m, 1, bs=bs)
+        def level_bc(m: BoxTetMesh, k: int) -> DirichletBC:
+            space = FunctionSpace(m, k, bs=bs)
             return DirichletBC.from_space(space,
                                           m.locate_boundary_facets(bc_marker))
 
-        meshes = hierarchy(mesh, coarse_limit, max_levels, bs)
+        top = [mesh] if order > 1 else []
+        meshes = top + hierarchy(mesh, coarse_limit, max_levels - len(top),
+                                 bs)
+        orders = [order] + [1] * (len(meshes) - 1)
         mC = meshes[-1]
         coarse_ndofs = (mC.Nx + 1) * (mC.Ny + 1) * (mC.Nz + 1) * bs
         if coarse_ndofs > 8 * coarse_limit:
@@ -176,20 +237,21 @@ class GMG:
                 f"(dims {mC.Nx}x{mC.Ny}x{mC.Nz}); pick lattice dims "
                 f"divisible by 2^levels (compute_box_size_structured)")
 
-        lmax = surrogate_lmax(mesh, 1, problem, bc_marker, dtype)
+        lmax_of = {k: surrogate_lmax(mesh, k, problem, bc_marker, dtype)
+                   for k in sorted(set(orders[:-1]))}
         levels: List[GLevel] = []
-        for m in meshes[:-1]:
-            op = build_operator(m, 1, problem,
-                                bc_dofs=level_bc(m).flat_dofs(),
+        for m, k in zip(meshes[:-1], orders[:-1]):
+            op = build_operator(m, k, problem,
+                                bc_dofs=level_bc(m, k).flat_dofs(),
                                 dtype=dtype, device=device, planar=planar)
             dinv_np = 1.0 / op.diagonal_np()
             levels.append(GLevel(
-                op=op, lmax=lmax,
+                op=op, lmax=lmax_of[k],
                 dinv=torch.from_numpy(dinv_np.astype(np_dtype(dtype))).to(device)))
 
-        # coarsest: dense inverse of the BC-eliminated operator
+        # coarsest: dense inverse of the BC-eliminated P1 operator
         # (interleaved), permuted to planar component order
-        bc_c = level_bc(mC)
+        bc_c = level_bc(mC, 1)
         Ac = build_operator(mC, 1, problem, bc_dofs=bc_c.flat_dofs(),
                             dtype=torch.float64).to_scipy().toarray()
         coarse_inv = np.linalg.inv(Ac)
@@ -204,7 +266,8 @@ class GMG:
                        device=device, dtype=dtype),
                    coarse_bc_mask=torch.from_numpy(cmask).to(device),
                    dims=tuple((m.Nx, m.Ny, m.Nz) for m in meshes),
-                   smoother_degree=smoother_degree, bs=bs, planar=planar)
+                   smoother_degree=smoother_degree, bs=bs, planar=planar,
+                   order=order)
 
     def _bc_mask_of(self, i: int) -> torch.Tensor:
         if i == len(self.levels):
@@ -227,9 +290,18 @@ class GMG:
         x, rr = self._smooth0[i](r)
         # symmetric BC-filtered transfers keep the preconditioner SPD
         rr = rr.masked_fill(mask, 0.0)
-        rc = restrict_h(self._grid(rr, i)).reshape(-1).masked_fill(cmask, 0.0)
+        p_transfer = self.order > 1 and i == 0
+        if p_transfer:
+            rc = restrict_p(rr, self.levels[0].op.layout)
+        else:
+            rc = restrict_h(self._grid(rr, i))
+        rc = rc.reshape(-1).masked_fill(cmask, 0.0)
         xc = self.vcycle(rc, i + 1).masked_fill(cmask, 0.0)
-        e = prolong_h(self._grid(xc, i + 1)).reshape(-1).masked_fill(mask, 0.0)
+        if p_transfer:
+            e = prolong_p(self._grid(xc, 1), self.levels[0].op.layout)
+        else:
+            e = prolong_h(self._grid(xc, i + 1))
+        e = e.reshape(-1).masked_fill(mask, 0.0)
         return self._smooth[i](x + e, r)
 
 
@@ -261,9 +333,12 @@ def surrogate_lmax(mesh: BoxTetMesh, order: int, problem: str,
                    bc_marker: Callable,
                    dtype: torch.dtype = torch.float32) -> float:
     """lmax(D^-1 A) estimated on a small surrogate lattice with the same
-    (hx : hy : hz) anisotropy; one host estimate serves every level.  The
-    surrogate is interleaved for bs = 3, as tpufem's: the seeded start
-    vector of the power iteration depends on the layout."""
+    (hx : hy : hz) anisotropy; one host estimate serves every level of
+    order ``order``.  The surrogate is interleaved for bs = 3, as
+    tpufem's: the seeded start vector of the power iteration depends on
+    the layout.  At order k > 1 the surrogate lattice is often too small
+    for the const DIA form (P2 500k: 4x5x6), and its operator is the
+    per-perm StructuredOperator."""
     g = math.gcd(math.gcd(mesh.Nx, mesh.Ny), mesh.Nz)
     sdims = (mesh.Nx // g, mesh.Ny // g, mesh.Nz // g)
     scale = max(1, 8 // max(sdims))
@@ -277,7 +352,7 @@ def surrogate_lmax(mesh: BoxTetMesh, order: int, problem: str,
     return _host_lmax(sop, 1.0 / sop.diagonal_np()) * 1.05
 
 
-def _host_lmax(op: DiaOperator, dinv_np: np.ndarray,
+def _host_lmax(op, dinv_np: np.ndarray,
                iters: int = 20) -> float:
     """Host power iteration for lambda_max(D^-1 A), from a seeded start
     vector (the Chebyshev interval decides iteration counts)."""

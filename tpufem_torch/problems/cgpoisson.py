@@ -17,8 +17,10 @@ chain (cgpoisson.py:110-212):
   (fem.strip_op), one launch of the strip kernel per apply (K3); with
   ``-cg_kernel on`` and a resident state within tpufem's 14 MiB gate,
   the whole CG loop is one launch of the cooperative CG kernel (K4);
-  lattices too small for the const form use the per-perm
-  StructuredOperator with the rows-zero convention;
+  with ``-use_strip 0``, or where the matrix does not fit the strip
+  layout, the multi-kind DIA itself, one launch of the zone kernel per
+  apply (fem.dia_zones); lattices too small for the const form use the
+  per-perm StructuredOperator with the rows-zero convention;
 - P2/P3 with ``-use_flat 1``: the same matrix on the channel-plane layout
   (fem.flat_op), one launch of the flat interior kernel (K5) per apply
   plus the slab corrections in torch; float32 whatever ``--dtype``, as in
@@ -142,8 +144,10 @@ def _operator(mesh: BoxTetMesh, order: int, bc: DirichletBC, cfg: Config,
     convention for an unbaked one)."""
     extra = cfg.solver.extra
     consumed = cfg.solver._consumed
+    # P2/P3: the DIA's device state ships only if it stays the operator
     op = build_operator(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
-                        dtype=dtype, device=device, bake_bc=True)
+                        dtype=dtype, device=device if order == 1 else None,
+                        bake_bc=True)
     baked = isinstance(op, DiaOperator) and op.is_const()
     if not baked:
         op = build_operator(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
@@ -173,16 +177,9 @@ def _operator(mesh: BoxTetMesh, order: int, bc: DirichletBC, cfg: Config,
     use_strip = int(extra.get("use_strip", 1))
     consumed.add("use_strip")
     if order >= 2 and baked and isinstance(op, DiaOperator):
-        if not use_strip:
-            raise NotImplementedError(
-                "-use_strip 0: the device apply of the P2/P3 DIA operator "
-                "is not ported (ROADMAP M8b)")
-        sop = StripOperator.from_dia(op, dtype=dtype, device=device)
-        if sop is None:
-            raise NotImplementedError(
-                "a const-table operator that does not fit the strip layout "
-                "(ROADMAP M8b)")
-        op = sop
+        sop = (StripOperator.from_dia(op, dtype=dtype, device=device)
+               if use_strip else None)
+        op = op._finalize(device) if sop is None else sop
     apply = op.apply if baked else op.apply_bc_rows_zero
     return op, apply
 

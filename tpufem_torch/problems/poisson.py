@@ -1,17 +1,20 @@
 """Assembled-matrix Poisson problem on the structured cube mesh
-(counterpart of tpufem/problems/poisson.py, P1 structured path).
+(counterpart of tpufem/problems/poisson.py, structured path,
+:517-581).
 
-P1 Lagrange space; Dirichlet u = 0 on x0 in {0, 1}; RHS f = Gaussian
-bump (volume) + g = sin(5 x0) (surface); the operator is the
-BC-eliminated DIA stencil; the solver is CG preconditioned by geometric
-multigrid, lattice-brick AMG (``-pc_type amg``, and where GMG cannot
-coarsen the lattice), Jacobi or nothing, and a float32 solve is
-certified against a float64 host twin of the system with iterative
-refinement.
+P1-P3 GLL-warped Lagrange space; Dirichlet u = 0 on x0 in {0, 1}; RHS
+f = Gaussian bump (volume) + g = sin(5 x0) (surface); the operator is
+the BC-eliminated structured operator of ``build_operator`` (the P1 DIA
+stencil, the P2/P3 multi-kind DIA, or the per-perm StructuredOperator on
+lattices too small for it); the solver is CG preconditioned by geometric
+multigrid (at order k > 1 with a p-transfer to P1 below the fine level),
+lattice-brick AMG (``-pc_type amg`` at P1, and where GMG cannot coarsen
+the lattice), Jacobi or nothing, and a float32 solve is certified
+against a float64 host twin of the system with iterative refinement.
 
 The float32 RHS is assembled on the device: the volume term is ONE
-mass-stencil apply of the closed-form f, plus the O(surface) host facet
-term.  Float64 runs assemble the RHS on the host.
+mass-operator apply (P1: of the closed-form f), plus the O(surface) host
+facet term.  Float64 runs assemble the RHS on the host.
 """
 
 from __future__ import annotations
@@ -124,7 +127,7 @@ class Solver:
     ``true_rel``, ``refine_passes``, ``refine_iterations``,
     ``certify_s`` and ``norm64``."""
 
-    def __init__(self, A: DiaOperator, mesh: BoxTetMesh, order: int,
+    def __init__(self, A, mesh: BoxTetMesh, order: int,
                  cfg: Config, dtype: torch.dtype, acc_dtype: torch.dtype,
                  device: torch.device,
                  fidelity: Optional[Callable[[], Tuple]] = None,
@@ -178,9 +181,11 @@ class Solver:
             if self.pc_type == "amg":
                 from tpufem_torch.la.bramg import BrickAMG, brick_viable
                 if not brick_viable(self.mesh, self.order, self.solver):
+                    why = (f"-pc_type amg at order {self.order} (brick-AMG "
+                           "is P1)" if self.order != 1 else "-amg_brick off")
                     raise NotImplementedError(
-                        "-amg_brick off: tpufem's generic SA-AMG is not "
-                        "ported yet (ROADMAP M14)")
+                        f"{why}: tpufem's generic SA-AMG is not ported yet "
+                        "(ROADMAP M14)")
                 self.pc = BrickAMG.setup(
                     self.A, self.mesh, self.A.bs, self.solver,
                     dtype=self.dtype, near_nullspace=self.near_nullspace,
@@ -268,9 +273,6 @@ class Solver:
 
 def problem(mesh: BoxTetMesh, order: int, cfg: Config,
             device: torch.device) -> common.Problem:
-    if order != 1:
-        raise NotImplementedError(
-            f"--order {order}: the port's Poisson slice is P1 (ROADMAP M10)")
     dtype, acc_dtype = common.resolve_dtype(cfg)
 
     with Timer("ZZZ FunctionSpace"):
@@ -288,8 +290,12 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
     mass = None
     with Timer("ZZZ Assemble vector", device):
         if dtype == torch.float32:
-            mass = DiaOperator.build(mesh, 1, "mass", dtype=dtype,
-                                     device=device)
+            if order == 1:
+                mass = DiaOperator.build(mesh, 1, "mass", dtype=dtype,
+                                         device=device)
+            else:
+                mass = StructuredOperator.build(mesh, order, "mass",
+                                                dtype=dtype, device=device)
             b = assemble_poisson_rhs_structured_dev(space, bc, mass)
         else:
             b_np = assemble_poisson_rhs_np(space)
