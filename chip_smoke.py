@@ -93,7 +93,21 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    --order 3 --ndofs 500000 --scaling_type strong --dtype float32
    -use_strip 0``, which must launch the zone kernel and no K3, run 100
    iterations and agree with tpufem's float32 DIA run (CGPOISSON_REF),
-   and whose solve to rtol 1e-6 must agree with the strip form's.
+   and whose solve to rtol 1e-6 must agree with the strip form's;
+13. P2/P3 elasticity: ``python -m tpufem_torch --problem_type elasticity
+   --order 2|3 --ndofs 500000 --scaling_type strong --dtype float32
+   -pc_type gmg`` (the blocked per-perm fine level, planar, the
+   p-transfer to the P1 levels), each of which must launch the perm_apply
+   kernel (5 a CG iteration) and the three-component K1 (the P1 levels),
+   counted from zero around the run, build tpufem's GMG hierarchy,
+   converge within one iteration of tpufem's own float32 CPU run
+   (ELASTICITY_PK_REF) and certify a true residual <= 1e-8; warm solves
+   and a warm build; perm_apply against its plain version on the two fine
+   operators and two small lattices, in float32 and float64 (within
+   ``perm_apply_bound``), with times, the host cost, the bound (bytes,
+   the needed operations 2 nnz, beside the per-perm form's count) and
+   ``torch.sparse.mm`` of the planar CSR; and tpufem's float64 P2 (10,647
+   dofs) and P3 (9,633) runs on the card (ELASTICITY_PK_GOLD, rel 1e-9).
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -231,6 +245,25 @@ ORDER3_ARGS = ["--problem_type", "poisson", "--order", "3", "--ndofs",
                "15000", "--dtype", "float64", "-ksp_rtol", "1e-8",
                "--device", "cuda"]
 ORDER3_ITERATIONS, ORDER3_NORM = 19, 25.64720150160304
+# P2/P3 elasticity (phase 13): tpufem's own CPU runs through its CLI (jax
+# 0.9.0, CG + GMG to rtol 1e-8, certified; x64 off in float32), from
+#   python scripts/poisson_pk_reference.py --problem_type elasticity \
+#       --order O --ndofs 500000 --scaling_type strong --dtype float32
+# order -> (ndofs, iterations, norm, true_rel, refinement passes), and
+# the GMG hierarchy (level dofs, coarse dofs) with the default coarse
+# limit of 1000
+ELAST_PK_ARGS = ["--problem_type", "elasticity", "--ndofs", "500000",
+                 "--scaling_type", "strong", "--dtype", "float32",
+                 "-pc_type", "gmg", "-ksp_rtol", "1e-8", "-ksp_max_it", "100",
+                 "--device", "cuda"]
+ELASTICITY_PK_REF = {2: (468195, 18, 0.00014600757276639342, 9.722e-13, 2),
+                     3: (525819, 34, 0.00015475328837055713, 5.004e-11, 2)}
+ELASTICITY_PK_LEVELS = {2: ([468195, 61875, 8619, 1323], 240),
+                        3: ([525819, 21675, 3159], 525)}
+# tpufem's float64 runs (--ndofs 10000 --scaling_type weak --dtype
+# float64): order -> (ndofs, iterations, norm)
+ELASTICITY_PK_GOLD = {2: (10647, 19, 2.2017755354284647e-05),
+                      3: (9633, 33, 2.098447872071006e-05)}
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1394,6 +1427,275 @@ def pk_phase(cli, gpu: str):
     return launches, n["dia_zones"], rows, worst
 
 
+def elasticity_pk_run(cli, order: int, gpu: str):
+    """P2/P3 elasticity 500k f32 through the CLI with perm_apply's and the
+    three-component K1's counts set to zero just before it and read just
+    after; the hierarchy, warm solves and a warm build.  Returns (result,
+    {kernel: launches})."""
+    import torch
+    from tpufem_torch.fem.perm_apply import perm_apply
+    from tpufem_torch.fem.stencil import stencil_apply_bs3
+    from tpufem_torch.fem.structured_op import StructuredOperator
+    from tpufem_torch.problems import elasticity
+    from tpufem_torch.timing import REGISTRY
+    argv = ELAST_PK_ARGS + ["--order", str(order)]
+    REGISTRY.reset()
+    perm_apply.launches = stencil_apply_bs3.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    first_s = time.perf_counter() - t0
+    n = {"perm_apply": perm_apply.launches,
+         "K1_bs3": stencil_apply_bs3.launches}
+    solver, prob = res.problem.solver_function, res.problem
+    ndofs, ref_it, ref_norm, ref_rel, ref_passes = ELASTICITY_PK_REF[order]
+    its = res.iterations + res.refine_iterations
+    pc = solver.pc
+    levels = [3 * lv.op.layout.ndofs for lv in pc.levels]
+    print(f"elasticity P{order} 500k float32: {prob.space.ndofs} dofs, GMG "
+          f"levels {levels} + coarse {pc.coarse_inv.shape[0]} (dims "
+          f"{list(pc.dims)}), {res.iterations} iterations (tpufem {ref_it}),"
+          f" norm {res.norm!r} (tpufem {ref_norm!r}, off by "
+          f"{abs(res.norm - ref_norm) / ref_norm:.2e}), true_rel "
+          f"{res.true_rel!r} (tpufem {ref_rel:g}), {res.refine_passes} "
+          f"refinement pass(es) (tpufem {ref_passes}, +"
+          f"{res.refine_iterations} its); launches perm_apply "
+          f"{n['perm_apply']} ({n['perm_apply'] / its:.2f} per CG "
+          f"iteration), three-component K1 {n['K1_bs3']} "
+          f"({n['K1_bs3'] / its:.2f} per CG iteration) over {its} CG "
+          f"iterations; PC setup {solver.pc_setup_s:.3f} s, certify "
+          f"{solver.certify_s:.3f} s, first solve (ZZZ Solve) "
+          f"{REGISTRY.get('ZZZ Solve'):.3f} s, whole CLI run {first_s:.3f} s"
+          f"  [{gpu}]", flush=True)
+    check(prob.space.ndofs == ndofs,
+          f"P{order}: {prob.space.ndofs} dofs, tpufem's run had {ndofs}")
+    check((levels, pc.coarse_inv.shape[0]) == ELASTICITY_PK_LEVELS[order],
+          f"P{order}: GMG levels {levels} + {pc.coarse_inv.shape[0]}")
+    check(isinstance(solver.A, StructuredOperator) and solver.A.planar
+          and solver.A.bs == 3, f"P{order}: the fine operator is not the "
+          "planar blocked StructuredOperator")
+    check(n["perm_apply"] == 5 * its and n["K1_bs3"] > 0,
+          f"P{order}: launches {n} over {its} CG iterations")
+    check(abs(res.iterations - ref_it) <= 1,
+          f"P{order}: {res.iterations} iterations, tpufem {ref_it}")
+    check(res.true_rel is not None and res.true_rel <= 1e-8
+          and res.refine_passes <= 3,
+          f"P{order}: certified true residual {res.true_rel} after "
+          f"{res.refine_passes} passes")
+    check(res.x.shape == (ndofs,) and bool(torch.isfinite(res.x).all()),
+          f"P{order}: the solution is not a finite vector of ndofs")
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, its_w, _ = solver.run(prob.u, prob.b)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    check(its_w == res.iterations, f"P{order}: warm solve took {its_w} its")
+    solve_s = statistics.median(runs)
+    cfg, device = cli.parse_args(argv)
+    t0 = time.perf_counter()
+    elasticity.problem(prob.space.mesh, order, cfg, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"elasticity P{order} 500k warm CG+GMG solve (uncertified): median "
+          f"{solve_s:.4f} s of 5 (min {min(runs):.4f}, max {max(runs):.4f}),"
+          f" {solve_s / its_w * 1e3:.3f} ms/iteration; warm build "
+          f"{build_s:.4f} s; {ndofs / (build_s + solve_s):.1f} dofs/s "
+          f"build+solve  [{gpu}]", flush=True)
+    return res, n
+
+
+def perm_csr(pack, dtype):
+    """The BC-eliminated blocked operator of ``pack`` as a torch CSR
+    matrix in planar order on its device (the library yardstick:
+    torch.sparse.mm, cuSPARSE), assembled there from the element matrices
+    and dof_gids_for_cells: zeroed Dirichlet rows and columns, a unit
+    diagonal on them."""
+    import numpy as np
+    import torch
+    from tpufem_torch.fem.structured_op import dof_gids_for_cells
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    Nx, Ny, Nz = pack.dims
+    mesh = BoxTetMesh(Nx, Ny, Nz)
+    cz, cy, cx = np.meshgrid(np.arange(Nz), np.arange(Ny), np.arange(Nx),
+                             indexing="ij")
+    cubes = np.repeat(np.stack([cx, cy, cz], -1).reshape(-1, 3), 6, axis=0)
+    perms = np.tile(np.arange(6), Nx * Ny * Nz)
+    order = 2 if pack.n == 10 else 3
+    device, ns, n = pack.weights.device, pack.ns, pack.n
+    gids = torch.from_numpy(dof_gids_for_cells(mesh, order, cubes,
+                                               perms)).to(device)
+    # planar index of the cell's interleaved local dof 3 l + c
+    idx = (torch.arange(3, device=device)[None, None, :] * ns
+           + gids[:, :, None]).reshape(len(perms), 3 * n)
+    rows = idx[:, :, None].expand(-1, -1, 3 * n)
+    cols = idx[:, None, :].expand(-1, 3 * n, -1)
+    vals = pack.Ap.to(torch.float64)[torch.from_numpy(perms).to(device)]
+    keep = ~(pack.mask[rows] | pack.mask[cols])
+    bc = torch.nonzero(pack.mask)[:, 0]
+    r = torch.cat([rows[keep], bc])
+    c = torch.cat([cols[keep], bc])
+    v = torch.cat([vals[keep], torch.ones(len(bc), dtype=torch.float64,
+                                          device=device)])
+    A = torch.sparse_coo_tensor(torch.stack([r, c]), v,
+                                (3 * ns, 3 * ns)).coalesce()
+    del rows, cols, vals, keep, r, c, v
+    nz = A.values() != 0.0  # entries that cancel in the assembly
+    A = torch.sparse_coo_tensor(A.indices()[:, nz], A.values()[nz],
+                                A.shape).coalesce()
+    return A.to_sparse_csr().to(dtype)
+
+
+def perm_work(pack, nnz: int):
+    """(bytes, needed flops, per-perm flops) of one perm apply: x, the
+    mask, the element matrices and the tables read once, y written once;
+    2 nnz operations (the assembled matrix's), beside the per-perm form's
+    2 x 6 cubes (3n)^2."""
+    item = pack.weights.element_size()
+    Nx, Ny, Nz = pack.dims
+    nbytes = (3 * pack.ns * (2 * item + 1) + pack.Ap.numel() * item
+              + 4 * (pack.entries.size + pack.outputs.size
+                     + pack.sources.size + pack.kinds.size))
+    return nbytes, 2 * nnz, 2 * 6 * Nx * Ny * Nz * (3 * pack.n) ** 2
+
+
+def perm_apply_phase(ops, gpu: str):
+    """perm_apply against its plain version on ``ops`` ((name, the blocked
+    StructuredOperator)), in float32 and, with the matrices cast, float64:
+    within perm_apply_bound, Dirichlet rows equal to x, one launch per
+    wrapper call, the prepared launch; times, the wrapper's host cost, the
+    bound and torch.sparse.mm of the planar CSR.  Returns (rows, worst
+    abs error)."""
+    import dataclasses
+    import torch
+    from tpufem_torch.fem.perm_apply import (perm_apply, perm_apply_bound,
+                                             perm_apply_plain,
+                                             prepare_perm_apply)
+    rows, worst = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device="cuda").manual_seed(909)
+        for name, op in ops:
+            pack = dataclasses.replace(op.pack, Ap=op.pack.Ap.to(dtype),
+                                       weights=op.pack.weights.to(dtype))
+            device = pack.weights.device
+            x = torch.randn(3 * pack.ns, generator=gen, device=device,
+                            dtype=dtype)
+            before = perm_apply.launches
+            yk = perm_apply(x, pack)
+            check(perm_apply.launches == before + 1,
+                  f"perm_apply {name}: the wrapper did not launch once")
+            launch = prepare_perm_apply(pack)
+            check(torch.equal(launch(x), yk), f"perm_apply {name} {dtype}: "
+                  "the prepared launch and the public wrapper differ")
+            yp = perm_apply_plain(x, pack)
+            bound = perm_apply_bound(x, pack)
+            torch.cuda.synchronize()
+            diff = (yk - yp).abs()
+            abs_err = float(diff.max())
+            ratio = float((diff / torch.where(bound > 0, bound, 1.0)).max())
+            check(bool((diff <= bound).all())
+                  and torch.equal(yk[pack.mask], x[pack.mask])
+                  and bool(torch.isfinite(yk).all()),
+                  f"perm_apply {name} {dtype}: off the plain version by "
+                  f"{abs_err:.3e} ({ratio:.3e} of perm_apply_bound)")
+            worst = max(worst, abs_err)
+            lib = perm_csr(pack, dtype)
+            nnz = lib._nnz()
+            lib_ms, lib_err = library_ms(lib, x, yp)
+            del lib
+            ms = median_ms(lambda: launch(x))
+            public_ms = median_ms(lambda: perm_apply(x, pack))
+            plain_ms = median_ms(lambda: perm_apply_plain(x, pack), reps=3,
+                                 samples=3)
+            dev = device_ms(lambda: launch(x))
+            plain_dev = device_ms(lambda: perm_apply_plain(x, pack), reps=3)
+            host = host_ms(lambda: launch(x))
+            nbytes, flops, perm_flops = perm_work(pack, nnz)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            pp_ms = bound_ms(nbytes, perm_flops)[0]
+            rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
+                             entries=len(pack.entries), nnz=nnz,
+                             max_abs_err=abs_err, err_of_bound=ratio, ms=ms,
+                             public_ms=public_ms, plain_ms=plain_ms,
+                             device_ms=dev, plain_device_ms=plain_dev,
+                             host_ms=host, library_ms=lib_ms, bound_ms=b_ms,
+                             bound_by=b_by, per_perm_bound_ms=pp_ms,
+                             smem_bytes=pack.smem_bytes(),
+                             call_minus_device_ms=(None if dev is None
+                                                   else ms - dev)))
+            print(f"perm_apply {name:<22} {rows[-1]['dtype']:<7} "
+                  f"{len(pack.entries)} entries over {len(pack.outputs)} "
+                  f"outputs, {pack.smem_bytes()} B shared a block | off the "
+                  f"plain version by {abs_err:.3e} ({ratio:.3e} of the "
+                  f"bound) | per call: kernel {ms:.4f} ms (public wrapper "
+                  f"{public_ms:.4f}), plain {plain_ms:.4f} ms, "
+                  f"torch.sparse.mm (CSR, {nnz} entries, off the plain "
+                  f"version by {lib_err:.3e}) {lib_ms:.4f} ms | device: "
+                  f"kernel {fmt_ms(dev)}, plain {fmt_ms(plain_dev)} | "
+                  f"wrapper's host cost {host:.4f} ms per queued call | bound"
+                  f" {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.1f} MFLOP needed; the per-perm form's "
+                  f"{perm_flops / 1e6:.1f} MFLOP: {pp_ms:.4f} ms)  [{gpu}]",
+                  flush=True)
+            torch.cuda.empty_cache()
+    return rows, worst
+
+
+def elasticity_pk_phase(cli, gpu: str):
+    """Phase 13: P2/P3 elasticity 500k f32 (CG + p-then-h GMG, planar,
+    certified), perm_apply against its plain version, the f64 P2/P3
+    goldens.  Returns (the runs' perm_apply launches, kernel rows, worst
+    abs error)."""
+    import torch
+    from tpufem_torch.fem.dirichlet import DirichletBC
+    from tpufem_torch.fem.perm_apply import perm_apply
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.fem.structured_op import StructuredOperator
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    from tpufem_torch.problems.common import elasticity_bc_marker
+    from tpufem_torch.timing import REGISTRY
+    launches, ops = 0, []
+    for order in (2, 3):
+        res, n = elasticity_pk_run(cli, order, gpu)
+        launches += n["perm_apply"]
+        A = res.problem.solver_function.A
+        ops.append((f"P{order} 500k {A.layout.Nx}x{A.layout.Ny}x"
+                    f"{A.layout.Nz}", A))
+        del res
+        torch.cuda.empty_cache()
+    # every entry near the boundary (2x3x2 cubes), and an odd lattice
+    device = torch.device("cuda", 0)
+    for order, dims in ((3, (2, 3, 2)), (2, (5, 3, 7))):
+        mesh = BoxTetMesh(*dims)
+        bc = DirichletBC.from_space(
+            FunctionSpace(mesh, order, bs=3),
+            mesh.locate_boundary_facets(elasticity_bc_marker)).flat_dofs()
+        ops.append((f"P{order} {'x'.join(map(str, dims))}",
+                    StructuredOperator.build(mesh, order, "elasticity",
+                                             bc_dofs=bc, dtype=torch.float32,
+                                             device=device, planar=True)))
+    rows, worst = perm_apply_phase(ops, gpu)
+    del ops
+    torch.cuda.empty_cache()
+
+    for order, (ndofs, its, norm) in ELASTICITY_PK_GOLD.items():
+        REGISTRY.reset()
+        perm_apply.launches = 0
+        gold = cli.main(["--problem_type", "elasticity", "--order",
+                         str(order), "--ndofs", "10000", "--scaling_type",
+                         "weak", "--dtype", "float64", "-ksp_rtol", "1e-8",
+                         "--device", "cuda"])
+        rel = abs(gold.norm - norm) / norm
+        print(f"elasticity P{order} float64 ({gold.problem.space.ndofs} "
+              f"dofs): {gold.iterations} iterations (tpufem {its}), norm "
+              f"{gold.norm!r} (tpufem {norm!r}, rel {rel:.2e}), perm_apply "
+              f"launches {perm_apply.launches}  [{gpu}]", flush=True)
+        check(gold.problem.space.ndofs == ndofs and gold.iterations == its
+              and rel <= 1e-9 and perm_apply.launches > 0,
+              f"elasticity P{order} float64 golden not held")
+        del gold
+    return launches, rows, worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1405,6 +1707,7 @@ def main() -> int:
     from tpufem_torch.fem.stencil import stencil_apply
     from tpufem_torch.timing import REGISTRY
 
+    t_start = time.perf_counter()
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1629,6 +1932,14 @@ def main() -> int:
     dz = [r for r in dz_rows if r["name"].startswith("P3 500k")
           and r["dtype"] == "float32"][0]
 
+    # -- 13. P2/P3 elasticity: the blocked per-perm apply (perm_apply) -------
+    t13 = time.perf_counter()
+    pa_launches, pa_rows, pa_worst = elasticity_pk_phase(cli, gpu)
+    pa = [r for r in pa_rows if r["name"].startswith("P2 500k")
+          and r["dtype"] == "float32"][0]
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -1722,6 +2033,22 @@ def main() -> int:
                                       "library_ms", "bound_ms",
                                       "strip_apply_ms", "same_bits")}
                    for r in dz_rows]},
+        {"name": "perm_apply", "route": "cuda",
+         "source": "tpufem_torch/csrc/perm_apply.cu",
+         "replaces": "none (XLA StructuredOperator.apply at bs = 3, "
+                     "tpufem/fem/structured_op.py:263)",
+         "launches": pa_launches, "max_abs_err": pa_worst,
+         "ms": pa["ms"], "plain_ms": pa["plain_ms"],
+         "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
+         "library_ms": pa["library_ms"], "device_ms": pa["device_ms"],
+         "host_ms": pa["host_ms"],
+         "call_minus_device_ms": pa["call_minus_device_ms"],
+         "per_perm_bound_ms": pa["per_perm_bound_ms"],
+         "grids": [{k: r[k] for k in ("name", "dtype", "entries", "nnz", "ms",
+                                      "device_ms", "host_ms", "plain_ms",
+                                      "library_ms", "bound_ms",
+                                      "per_perm_bound_ms", "err_of_bound")}
+                   for r in pa_rows]},
     ]
     check("tpufem" not in sys.modules and "jax" not in sys.modules,
           "tpufem or jax was imported")

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
 """Reference values of tpufem's own P2/P3 runs on the CPU, for the port's
-checks on the card (chip_smoke.py pins them in POISSON_PK_REF and
-CGPOISSON_REF).
+checks on the card (chip_smoke.py pins them in POISSON_PK_REF,
+ELASTICITY_PK_REF and CGPOISSON_REF).
 
-``--problem_type poisson`` (the default) runs tpufem's CLI
-(``tpufem.cli.solve``) with JAX on the CPU: the assembled P2/P3 Poisson
-problem on the cube mesh, CG to rtol 1e-8 preconditioned by GMG (the
-order-k fine level, one p-transfer to P1, the P1 h-hierarchy), and the
-float64 certification.  ``--problem_type cgpoisson`` runs, without the
-CLI's timing loop of 30 more solves, the loop tpufem's
-``cgpoisson.problem`` runs under ``-use_strip 0``
+``--problem_type poisson`` (the default) and ``elasticity`` run tpufem's
+CLI (``tpufem.cli.solve``) with JAX on the CPU: the assembled P2/P3
+Poisson or elasticity problem on the cube mesh, CG to rtol 1e-8
+preconditioned by GMG (the order-k fine level, one p-transfer to P1, the
+P1 h-hierarchy), and the float64 certification.  ``--problem_type
+cgpoisson`` runs, without the CLI's timing loop of 30 more solves, the
+loop tpufem's ``cgpoisson.problem`` runs under ``-use_strip 0``
 (tpufem/problems/cgpoisson.py:170-183, 259-266): the device RHS, the
 baked const-table DIA operator and ``cg_solve_fused`` (kmax 100, rtol
 1e-6).  It prints one JSON line: the lattice, ndofs, iterations, the
-solution norm and, for poisson, the certified true residual.
+solution norm and, for poisson and elasticity, the certified true
+residual.
 
     python scripts/poisson_pk_reference.py --order 2 --ndofs 500000 \\
         --scaling_type strong --dtype float32
+    python scripts/poisson_pk_reference.py --problem_type elasticity \\
+        --order 2 --ndofs 500000 --scaling_type strong --dtype float32
     python scripts/poisson_pk_reference.py --problem_type cgpoisson \\
         --order 3 --ndofs 500000 --scaling_type strong --dtype float32
 
 float64 turns on jax's x64 mode, as tpufem's CLI does; float32 keeps it
-off, so dots accumulate in float32, as in a tpufem float32 run.
+off, so dots accumulate in float32, as in a tpufem float32 run (tpufem's
+order-k float32 solve fails with x64 on: its CG carry turns float64).
+Run each case in a fresh process.
 """
 
 from __future__ import annotations
@@ -40,11 +45,11 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
-def poisson(a) -> dict:
+def cli_run(a) -> dict:
     """tpufem's CLI run: (iterations, norm, true_rel, refinement passes)."""
     from tpufem.cli import parse_args, solve
-    cfg = parse_args(["--problem_type", "poisson", "--order", str(a.order),
-                      "--ndofs", str(a.ndofs), "--scaling_type",
+    cfg = parse_args(["--problem_type", a.problem_type, "--order",
+                      str(a.order), "--ndofs", str(a.ndofs), "--scaling_type",
                       a.scaling_type, "--dtype", a.dtype, "--num_shards", "1",
                       "-pc_type", "gmg", "-ksp_rtol", "1e-8",
                       "-ksp_max_it", "100"])
@@ -89,7 +94,7 @@ def cgpoisson_dia(a, mesh, space, bc, dtype) -> dict:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--problem_type", default="poisson",
-                   choices=("poisson", "cgpoisson"))
+                   choices=("poisson", "elasticity", "cgpoisson"))
     p.add_argument("--order", type=int, required=True)
     p.add_argument("--ndofs", type=int, required=True)
     p.add_argument("--scaling_type", default="strong")
@@ -111,13 +116,14 @@ def main() -> None:
                                         compute_box_size_structured)
     from tpufem.problems import common
 
+    bs = 3 if a.problem_type == "elasticity" else 1
     nx, ny, nz, _ = compute_box_size_structured(
-        a.ndofs, a.scaling_type == "strong", 1, a.order, 1)
+        a.ndofs, a.scaling_type == "strong", bs, a.order, 1)
     mesh = BoxTetMesh(nx, ny, nz)
-    space = FunctionSpace(mesh, a.order)
+    space = FunctionSpace(mesh, a.order, bs=bs)
     t0 = time.perf_counter()
-    if a.problem_type == "poisson":
-        rec = poisson(a)
+    if a.problem_type != "cgpoisson":
+        rec = cli_run(a)
     else:
         bc = DirichletBC.from_space(
             space, mesh.locate_boundary_facets(common.poisson_bc_marker))

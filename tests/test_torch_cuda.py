@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the P1 stencil and its three-component form,
 the strip apply K3, the whole-CG kernel K4, the flat interior K5,
-brick_flat and the multi-kind zone kernel) against their plain PyTorch
-versions, on the card.
+brick_flat, the multi-kind zone kernel and the blocked per-perm apply)
+against their plain PyTorch versions, on the card.
 Marked ``cuda``: without a CUDA device every test skips.
 
 This file imports no jax, so it also runs on a machine without jax; the
@@ -755,3 +755,109 @@ def test_cgpoisson_use_strip0_engages_the_zone_kernel(device):
     assert StripOperator.apply_strips.launches == 0
     assert res.iterations == 78
     assert abs(res.norm - 11.382201359027317) <= 1e-9 * 11.382201359027317
+
+
+# -- the blocked per-perm apply of P2/P3 elasticity: csrc/perm_apply.cu -------
+def _perm_op(order, dims, dtype, device):
+    from tpufem_torch.fem.structured_op import StructuredOperator
+    from tpufem_torch.problems.common import elasticity_bc_marker
+    mesh = BoxTetMesh(*dims)
+    bc = DirichletBC.from_space(
+        FunctionSpace(mesh, order, bs=3),
+        mesh.locate_boundary_facets(elasticity_bc_marker))
+    return StructuredOperator.build(mesh, order, "elasticity",
+                                    bc_dofs=bc.flat_dofs(), dtype=dtype,
+                                    device=device, planar=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order,dims", [
+    (2, (2, 3, 2)), (3, (2, 3, 2)), (2, (24, 24, 32)), (3, (16, 16, 24)),
+    (3, (5, 3, 7))],
+    ids=["P2-2x3x2", "P3-2x3x2", "P2-500k", "P3-500k", "P3-odd"])
+def test_perm_apply_kernel_matches_plain(device, order, dims, dtype):
+    """Lattices where every entry lies near the boundary (2x3x2 cubes), the
+    500k fine operators (hundreds of blocks an output, more than the
+    card's SMs; P3 f64 stages the most shared memory, 36,576 bytes a
+    block) and an odd lattice: one launch an apply, through the
+    operator's prepared launch and the public wrapper, within
+    perm_apply_bound of the plain version; Dirichlet rows return x
+    exactly."""
+    from tpufem_torch.fem.perm_apply import (perm_apply, perm_apply_bound,
+                                             perm_apply_plain)
+    op = _perm_op(order, dims, dtype, device)
+    pack = op.pack
+    assert pack.mask.any()
+    if dims[0] > 8:  # blocks with work, over all outputs
+        pts = np.prod(pack.kinds[pack.outputs[:, 0], 1:4], axis=1)
+        assert ((pts * pack.outputs[:, 4] + 255) // 256).sum() > 132
+    x = torch.from_numpy(np.random.default_rng(order).standard_normal(
+        3 * pack.ns)).to(device, dtype)
+    before = perm_apply.launches
+    y = op.apply(x)
+    assert perm_apply.launches == before + 1
+    yp = perm_apply_plain(x, pack)
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= perm_apply_bound(x, pack)).all())
+    assert torch.equal(y[pack.mask], x[pack.mask])
+    assert torch.equal(perm_apply(x, pack), y)
+    assert bool(torch.isfinite(y).all())
+
+
+def test_perm_apply_on_a_side_stream_and_refusals(device):
+    """The prepared launch on a non-default stream; a wrong dtype, length
+    or device raises; the entry point refuses cells it has no form for."""
+    from tpufem_torch import _build
+    from tpufem_torch.fem.perm_apply import perm_apply, prepare_perm_apply
+    op = _perm_op(2, (4, 3, 5), torch.float32, device)
+    pack = op.pack
+    x = torch.randn(3 * pack.ns, device=device)
+    y0 = perm_apply(x, pack)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        y = op.apply(x)
+    side.synchronize()
+    assert torch.equal(y, y0)
+    launch = prepare_perm_apply(pack)
+    with pytest.raises(ValueError):
+        launch(x.double())
+    with pytest.raises(ValueError):
+        launch(torch.zeros(2 * x.numel(), device=device)[::2])
+    with pytest.raises(ValueError):
+        launch(x[1:])
+    with pytest.raises(TypeError):
+        perm_apply(x.cpu(), pack)
+    with pytest.raises(TypeError):
+        perm_apply(x.double(), pack)
+    lib = _build.load().lib
+    Nx, Ny, Nz = pack.dims
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, max_entries in ((7, pack.max_entries), (pack.n, 1000)):
+        bad = _build.PermApplyLaunch(
+            W=pack.weights.data_ptr(), entries=pack.dev_entries.data_ptr(),
+            outputs=pack.dev_outputs.data_ptr(),
+            sources=pack.dev_sources.data_ptr(),
+            kinds=pack.dev_kinds.data_ptr(), mask=pack.mask.data_ptr(),
+            device=0, n=n, ns=pack.ns, nout=len(pack.outputs), Nx=Nx, Ny=Ny,
+            Nz=Nz, max_entries=max_entries, max_blocks=pack.max_blocks)
+        rc = lib.tpufem_perm_apply_f32(ctypes.addressof(bad), x.data_ptr(),
+                                       y.data_ptr(), stream)
+        assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("order,iterations,norm", [
+    (2, 19, 2.2017755354284647e-05), (3, 33, 2.098447872071006e-05)])
+def test_elasticity_pk_goldens_on_the_card(device, order, iterations, norm):
+    """tpufem's float64 P2 (10,647 dofs) and P3 (9,633 dofs) elasticity
+    runs through the perm_apply kernel: 5 launches per CG iteration."""
+    from tpufem_torch import cli
+    from tpufem_torch.fem.perm_apply import perm_apply
+    perm_apply.launches = 0
+    res = cli.main(["--problem_type", "elasticity", "--order", str(order),
+                    "--ndofs", "10000", "--dtype", "float64", "--device",
+                    "cuda"])
+    assert res.iterations == iterations
+    assert abs(res.norm - norm) <= 1e-9 * norm
+    assert perm_apply.launches == 5 * res.iterations

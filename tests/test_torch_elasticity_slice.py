@@ -3,8 +3,8 @@ problem and solve against tpufem's ``elasticity.problem`` (RHS to rel
 1e-13, the same iteration count, the solution norm to rel 1e-10), the
 goldens of tests/test_golden.py and tpufem's 10k run through the CLI,
 the float32 certified contract, the brick-AMG fallback where GMG cannot
-coarsen the lattice, and the refusals (P2, tpufem's generic SA-AMG, no
-CUDA fallback)."""
+coarsen the lattice, and the refusals (tpufem's generic SA-AMG, at order
+2 and with -amg_brick off, the unstructured mesh, no CUDA fallback)."""
 
 import numpy as np
 import pytest
@@ -99,7 +99,7 @@ def test_float32_certified_contract():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--order", "2"],
+    ["--order", "2", "-pc_type", "amg"],
     ["-pc_type", "amg", "-amg_brick", "off"],
     ["--mesh_type", "unstructured"],
 ], ids=["order2", "amg", "unstructured"])

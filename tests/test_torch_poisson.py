@@ -112,7 +112,8 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("argv", [
     ["--problem_type", "cgpoisson", "--mesh_type", "unstructured"],
-    ["--problem_type", "elasticity", "--order", "2"],
+    # P2/P3 elasticity is ported; its -pc_type amg is tpufem's SA-AMG
+    ["--problem_type", "elasticity", "--order", "2", "-pc_type", "amg"],
     ["--problem_type", "elasticity", "-pc_type", "amg", "-amg_brick", "off"],
     ["--mesh_type", "unstructured"],
     # P2/P3 Poisson is ported; its -pc_type amg is tpufem's SA-AMG

@@ -105,6 +105,40 @@ def test_structured_operator_diagonal_and_twin_bitwise(order, dtype):
     assert np.array_equal(op.apply_np(x), ref.apply_np(x))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("order", [2, 3])
+def test_blocked_structured_operator_bitwise(order, dtype):
+    """The blocked (bs = 3) per-perm operator of P2/P3 elasticity: its
+    element matrices, host diagonal and host BC-eliminated apply
+    (interleaved, tpufem's layout) against tpufem's, and its device
+    diagonal (planar) against tpufem's device diagonal, permuted."""
+    import jax.numpy as jnp
+    import torch
+    from tpufem_torch.fem.structured_op import to_interleaved
+    dims = (3, 4, 2)
+    mesh = structured.BoxTetMesh(*dims)
+    bc = DirichletBC.from_space(FunctionSpace(mesh, order, bs=3),
+                                mesh.locate_boundary_facets(
+                                    common.elasticity_bc_marker)).flat_dofs()
+    host = StructuredOperator.build(mesh, order, "elasticity", bc_dofs=bc,
+                                    dtype=getattr(torch, dtype))
+    tmesh = tpu_structured.BoxTetMesh(*dims)
+    ref = TpuStructured.build(tmesh, order, "elasticity", bc_dofs=bc,
+                              dtype=getattr(jnp, dtype), device=False)
+    assert host.bs == ref.bs == 3 and np.array_equal(host.Ap, ref.Ap)
+    assert np.array_equal(host.bc_mask_np, np.asarray(ref.bc_mask))
+    assert np.array_equal(host.diagonal_np(), ref.diagonal_np())
+    x = np.random.default_rng(order).standard_normal(3 * host.layout.ndofs)
+    assert np.array_equal(host.apply_np(x), ref.apply_np(x))
+    dev = StructuredOperator.build(mesh, order, "elasticity", bc_dofs=bc,
+                                   dtype=getattr(torch, dtype),
+                                   device=torch.device("cpu"), planar=True)
+    ref_dev = TpuStructured.build(tmesh, order, "elasticity", bc_dofs=bc,
+                                  dtype=getattr(jnp, dtype))
+    assert np.array_equal(to_interleaved(dev.diagonal().numpy(), 3),
+                          np.asarray(ref_dev.diagonal()))
+
+
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_function_space_matches_tpufem(order):
     mine = FunctionSpace(structured.BoxTetMesh(3, 4, 5), order)
@@ -174,8 +208,8 @@ def test_parse_args_gives_tpufem_config(argv):
 
 def test_runs_with_tpufem_unimportable():
     """``sys.modules["tpufem"] = None`` makes any import of tpufem raise:
-    the port's poisson, cgpoisson, cgpoisson -use_flat, elasticity and
-    -pc_type amg (la.bramg) CLI runs must not need it."""
+    the port's poisson, cgpoisson, cgpoisson -use_flat, elasticity (P1
+    and P2) and -pc_type amg (la.bramg) CLI runs must not need it."""
     code = (
         "import sys\n"
         "sys.modules['tpufem'] = None\n"
@@ -189,6 +223,10 @@ def test_runs_with_tpufem_unimportable():
         " '--ndofs', '6000', '-use_flat', '1', '--device', 'cpu'])\n"
         "e = main(['--problem_type', 'elasticity', '--ndofs', '3000',"
         " '--device', 'cpu'])\n"
+        "e2 = main(['--problem_type', 'elasticity', '--order', '2',"
+        " '--ndofs', '3000', '--device', 'cpu'])\n"
+        "assert type(e2.problem.solver_function.A).__name__ =="
+        " 'StructuredOperator' and e2.true_rel <= 1e-8\n"
         "g = main(['--ndofs', '3000', '-pc_type', 'amg', '--dtype',"
         " 'float64', '--device', 'cpu'])\n"
         "assert type(g.problem.solver_function.pc).__name__ == 'BrickAMG'\n"

@@ -62,6 +62,18 @@ class FlatLaunch(ctypes.Structure):
                              "halo", "nnz", "nvar", "lanes")])
 
 
+class PermApplyLaunch(ctypes.Structure):
+    """What a blocked per-perm apply needs beside x, y and the stream
+    (csrc/perm_apply.cu:PermApplyLaunch), filled once per operator."""
+
+    _fields_ = ([(k, ctypes.c_void_p)
+                 for k in ("W", "entries", "outputs", "sources", "kinds",
+                           "mask")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "n", "ns", "nout", "Nx", "Ny", "Nz",
+                             "max_entries", "max_blocks")])
+
+
 class StencilLaunch(ctypes.Structure):
     """What a P1 stencil launch (scalar or three-component) needs beside
     x, y and the stream (csrc/stencil_p1.cu:StencilLaunch), filled once
@@ -143,6 +155,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ci
         fn = getattr(lib, f"tpufem_dia_zones_{suffix}")
         # DiaZonesLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
+        fn.restype = ci
+        fn = getattr(lib, f"tpufem_perm_apply_{suffix}")
+        # PermApplyLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
     # device, blocks, grid barriers, stream: the whole-CG kernel's grid

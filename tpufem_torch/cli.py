@@ -3,25 +3,25 @@
 Takes tpufem's flags (``parse_args`` is a copy of tpufem's) plus
 ``--device`` (default ``cuda``; there is no fallback to the CPU), builds
 the cube mesh, runs the Poisson (P1-P3), matrix-free CG Poisson (P1-P3)
-or P1 elasticity problem on one device, prints the reproducibility summary, the ZZZ
-timing table, the Krylov iterations, the solution norm and, for
-``poisson`` and ``elasticity``, the certified true residual.
+or elasticity (P1-P3) problem on one device, prints the reproducibility
+summary, the ZZZ timing table, the Krylov iterations, the solution norm
+and, for ``poisson`` and ``elasticity``, the certified true residual.
 ``-log_view`` writes a ``torch.profiler`` trace of the solve, as tpufem
 writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 
 ``-pc_type amg`` runs lattice-brick AMG (la.bramg) for P1 Poisson and
 elasticity, as does tpufem's fallback where GMG cannot coarsen the
 lattice.  Not ported yet (each raises NotImplementedError naming its
-ROADMAP item): P2/P3 elasticity, the unstructured mesh, tpufem's generic
-SA-AMG (``-amg_brick off``, and ``-pc_type amg`` at orders above 1),
-more than one shard, --output and --memory_profiling.
+ROADMAP item): the unstructured mesh, tpufem's generic SA-AMG
+(``-amg_brick off``, and ``-pc_type amg`` at orders above 1), more than
+one shard, --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda [--order 2|3]
       python -m tpufem_torch --problem_type cgpoisson --order 3 \\
           --ndofs 500000 --scaling_type strong --device cuda [-use_flat 1]
       python -m tpufem_torch --problem_type elasticity --ndofs 500000 \\
-          --scaling_type strong --device cuda [-pc_type amg]
+          --scaling_type strong --device cuda [-pc_type amg | --order 2|3]
 """
 
 from __future__ import annotations
@@ -154,8 +154,6 @@ def resolve_device(name: str) -> torch.device:
 def _check_scope(cfg: Config) -> None:
     cg = cfg.problem_type == "cgpoisson"
     unported = [
-        (cfg.problem_type == "elasticity" and cfg.order != 1,
-         f"--problem_type elasticity --order {cfg.order}: ROADMAP M12 P2"),
         (cg and cfg.mesh_type != "cube",
          f"--problem_type cgpoisson --mesh_type {cfg.mesh_type} (the "
          "matrix-free gather/scatter action): ROADMAP M9"),

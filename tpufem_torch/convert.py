@@ -2,7 +2,8 @@
 
 Every function takes tpufem's state as numpy arrays (never jax objects):
 a tpufem ``DiaOperator`` built with ``device=False`` (scalar, or planar
-bs = 3), a ``GMG``'s or a ``BrickAMG``'s per-level arrays and a
+bs = 3), a ``StructuredOperator``'s element matrices and mask (scalar,
+or blocked bs = 3), a ``GMG``'s or a ``BrickAMG``'s per-level arrays and a
 ``FlatOperator``'s tables read back with ``np.asarray``.  The tests use them to
 run both packages on identical weights; on a card the port builds the
 same arrays itself (no jax there), and the tests check that its builders
@@ -18,7 +19,10 @@ import torch
 
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.fem.flat_op import FlatGeom, FlatOperator
-from tpufem_torch.fem.structured_op import GridLayout
+from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
+                                            dof_slice_plan, grid_layout,
+                                            to_planar)
+from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.la.bramg import BrickAMG, _BLevel
 from tpufem_torch.la.gmg import GLevel, GMG
 
@@ -54,13 +58,35 @@ def dia_from_numpy(plan: Tuple, weights: Sequence[np.ndarray],
     return op._finalize(device)
 
 
+def structured_from_numpy(Ap: np.ndarray, bc_mask: np.ndarray,
+                          dims: Tuple[int, int, int], order: int,
+                          device: torch.device,
+                          planar: bool = False) -> StructuredOperator:
+    """A port StructuredOperator on ``device`` from a tpufem
+    StructuredOperator's element matrices ``Ap`` [6, n bs, n bs] (in its
+    working dtype; bs = 3 when blocked) and Dirichlet ``bc_mask`` (in
+    tpufem's layout, interleaved for bs = 3) on the lattice ``dims`` (Nx,
+    Ny, Nz) at ``order``; ``planar`` carries a blocked operator into the
+    component-planar layout the port's device bs = 3 operators run in."""
+    layout = grid_layout(BoxTetMesh(*dims), order)
+    bs = Ap.shape[1] // len(dof_slice_plan(order)[0])
+    mask = np.array(bc_mask, dtype=bool)
+    planar = planar and bs > 1
+    if planar:
+        mask = to_planar(mask, bs)
+    return StructuredOperator.from_arrays(np.ascontiguousarray(Ap), mask,
+                                          layout, device, bs=bs,
+                                          planar=planar)
+
+
 def gmg_from_numpy(ops: Sequence[DiaOperator], dinv: Sequence[np.ndarray],
                    lmax: Sequence[float], coarse_inv: np.ndarray,
                    coarse_bc_mask: np.ndarray, dims: Tuple,
                    device: torch.device, smoother_degree: int = 2,
                    bs: int = 1, planar: bool = False, order: int = 1) -> GMG:
     """A port GMG on ``device`` from the level operators (port objects,
-    e.g. from ``dia_from_numpy``) and tpufem's per-level ``dinv`` and
+    e.g. from ``dia_from_numpy`` or ``structured_from_numpy``; planar for
+    bs = 3) and tpufem's per-level ``dinv`` and
     ``lmax``, ``coarse_inv``, ``coarse_bc_mask``, per-level ``dims`` and
     its ``bs``, ``planar`` and fine ``order`` (order k > 1: level 0 is
     the order-k operator, with its own dinv and lmax, above the P1

@@ -30,7 +30,8 @@ into one buffer with a term table grouped by output (fem.dia_zones), and
 (fem.dia_zones.dia_zones_apply); ``cgpoisson`` runs the same matrix as a
 fem.strip_op.StripOperator by default.
 
-Elasticity (bs = 3, P1 only; P2/P3 is ROADMAP M12 P2): each [3, 3] block
+Elasticity (bs = 3; on a device P1 only, P2/P3 elasticity runs the
+blocked StructuredOperator, as tpufem's): each [3, 3] block
 expands into 9 scalar zone terms (tpufem's zone plan, entries
 ``(ko, so, ki, si, d, r, s)``), and the device stacks them as [3, D, 3,
 R, Y, X] for the three-component form of the kernel
@@ -55,7 +56,8 @@ from tpufem_torch.fem.stencil import (prepare_stencil, prepare_stencil_bs3,
                                       stencil_apply, stencil_apply_bs3)
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             dof_slice_plan, grid_layout,
-                                            np_dtype, perm_element_matrices)
+                                            np_dtype, perm_element_matrices,
+                                            to_interleaved, to_planar)
 from tpufem_torch.mesh.structured import BoxTetMesh
 
 _SHELL = 2  # per-axis shell margin: truncation (1) + BC adjacency (1)
@@ -87,25 +89,9 @@ def _clamp_index(Lr: int, Ls: int, m: int) -> np.ndarray:
     return q
 
 
-def _block_size(problem: str, order: int) -> int:
-    """bs of ``problem``; refuses what is not ported (the blocked P2/P3
-    elasticity operator)."""
-    if problem != "elasticity":
-        return 1
-    if order != 1:
-        raise NotImplementedError(
-            f"P{order} elasticity (the blocked StructuredOperator and the "
-            "p-transfers): ROADMAP M12 P2")
-    return 3
-
-
-def _to_planar(v: np.ndarray, bs: int) -> np.ndarray:
-    """Node-interleaved [n * bs] -> component-planar [bs * n]."""
-    return np.ascontiguousarray(v.reshape(-1, bs).T).reshape(-1)
-
-
-def _to_interleaved(v: np.ndarray, bs: int) -> np.ndarray:
-    return np.ascontiguousarray(v.reshape(bs, -1).T).reshape(-1)
+def _block_size(problem: str) -> int:
+    """bs of ``problem``."""
+    return 3 if problem == "elasticity" else 1
 
 
 @dataclasses.dataclass
@@ -173,7 +159,6 @@ class DiaOperator:
         records the BC mask without eliminating rows/cols in the weights.
         ``device=None`` keeps the operator on the host (numpy twins
         only).  ``planar``: the component-planar layout (bs = 3)."""
-        _block_size(problem, order)
         npdtype = np_dtype(dtype)
         if mode == "auto":
             mode = ("const" if order == 1
@@ -192,7 +177,7 @@ class DiaOperator:
         (tpufem/fem/dia_op.py:205, 216-218)."""
         self.planar = planar and self.bs > 1
         if self.planar:
-            self.bc_mask_np = _to_planar(self.bc_mask_np, self.bs)
+            self.bc_mask_np = to_planar(self.bc_mask_np, self.bs)
         return self
 
     @classmethod
@@ -203,7 +188,6 @@ class DiaOperator:
                   ) -> Optional["DiaOperator"]:
         """Const-mode build (no dense fallback) or None: the scalar P2/P3
         path; callers fall back to StructuredOperator."""
-        _block_size(problem, order)
         op = cls._build_const(mesh, order, problem, bc_dofs,
                               np_dtype(dtype), bake_bc)
         return None if op is None else op._finalize(device)
@@ -221,6 +205,10 @@ class DiaOperator:
                 "an interleaved bs = 3 operator on a device: the port runs "
                 "elasticity planar (tpufem's interleaved form serves its "
                 "SA-AMG, ROADMAP M14)")
+        if self.bs > 1 and self.multi_kind:
+            raise NotImplementedError(
+                "a blocked P2/P3 DiaOperator on a device: the blocked P2/P3 "
+                "operator is the StructuredOperator (build_operator)")
         self.bc_mask = torch.from_numpy(self.bc_mask_np).to(device)
         if self.multi_kind:
             dtype = (torch.float32 if np.asarray(self.weights[0]).dtype
@@ -239,7 +227,7 @@ class DiaOperator:
         lay = grid_layout(mesh, order)
         splan = dof_slice_plan(order)
         Ap = perm_element_matrices(mesh, order, problem, h_override=h_override)
-        bs = _block_size(problem, order)
+        bs = _block_size(problem)
         Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
         n = len(splan[0])
         kinds = lay.kinds
@@ -308,7 +296,7 @@ class DiaOperator:
         not shell-representable (the caller falls back)."""
         M = _SHELL
         lay = grid_layout(mesh, order)
-        bs = _block_size(problem, order)
+        bs = _block_size(problem)
         if bs > 1 and len(lay.kinds) != 1:
             return None  # the blocked const form is P1 only
         Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
@@ -538,7 +526,7 @@ class DiaOperator:
                 Wn = Wn[..., None]
             outs[ko][z0:z1, y0:y1, x0:x1, so, :] += Wn
         d = np.concatenate([o.reshape(-1, bs) for o in outs]).reshape(-1)
-        return _to_planar(d, bs) if self.planar else d
+        return to_planar(d, bs) if self.planar else d
 
     def to_scipy(self):
         """The operator as a scipy CSR matrix (float64, the interleaved
@@ -631,8 +619,8 @@ class DiaOperator:
         interleaved twin, tpufem/fem/dia_op.py:709-717)."""
         bs = self.bs
         if self.planar:
-            return _to_planar(self._apply_interleaved_np(
-                _to_interleaved(x, bs)), bs)
+            return to_planar(self._apply_interleaved_np(
+                to_interleaved(x, bs)), bs)
         return self._apply_interleaved_np(x)
 
     def _apply_interleaved_np(self, x: np.ndarray) -> np.ndarray:
@@ -667,16 +655,21 @@ def build_operator(mesh: BoxTetMesh, order: int, problem: str,
       component-planar layout);
     - P2/P3 scalar: the const-table DIA across all typed dof grids, or
       the per-perm StructuredOperator when the lattice is too small for
-      the shell reconstruction.  P2/P3 elasticity raises (ROADMAP M12 P2).
+      the shell reconstruction;
+    - P2/P3 elasticity: the blocked (bs = 3) StructuredOperator (tpufem
+      has no blocked const DIA form), ``planar`` as at P1.
     """
     if order == 1:
         return DiaOperator.build(mesh, order, problem, bc_dofs=bc_dofs,
                                  dtype=dtype, device=device, bake_bc=bake_bc,
                                  planar=planar)
+    if problem == "elasticity":
+        return StructuredOperator.build(mesh, order, problem, bc_dofs=bc_dofs,
+                                        dtype=dtype, device=device,
+                                        planar=planar)
     if planar:
-        raise ValueError("planar layout is implemented for the P1 "
-                         "DiaOperator forms only")
-    _block_size(problem, order)
+        raise ValueError("planar layout is implemented for bs = 3 "
+                         "operators only")
     if order in (2, 3):
         op = DiaOperator.try_const(mesh, order, problem, bc_dofs=bc_dofs,
                                    dtype=dtype, bake_bc=bake_bc,

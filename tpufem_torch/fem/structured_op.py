@@ -10,7 +10,8 @@ face types for P3).  The stencil operators (fem.dia_op, fem.strip_op)
 are built from these two facts; ``StructuredOperator`` applies the
 element matrices directly (shifted slices, one [n, n] @ [n, Q] product
 per perm), which serves the P2/P3 RHS and lattices too small for the
-const stencil form.
+const stencil form, and, blocked (bs = 3), is the P2/P3 elasticity
+operator (one launch of the perm_apply kernel an apply).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 
 from tpufem_torch.fem.assemble import (_elasticity_stiffness_np,
                                        _poisson_stiffness_np)
+from tpufem_torch.fem.perm_apply import (PermPack, pack_perm, per_perm_apply,
+                                         perm_apply, prepare_perm_apply)
 from tpufem_torch.fem.reference import ReferenceTet
 from tpufem_torch.mesh.structured import (CELL_VERTEX_OFFSETS, LOCAL_EDGES,
                                           LOCAL_FACES, _EDGE_TYPE_OF,
@@ -66,10 +69,6 @@ class GridLayout:
         comp = tuple(x.shape[1:])
         return [x[base: base + X * Y * Z * s].reshape((Z, Y, X, s) + comp)
                 for base, (X, Y, Z), s in self.kinds]
-
-    def join(self, grids: List[torch.Tensor]) -> torch.Tensor:
-        comp = tuple(grids[0].shape[4:])
-        return torch.cat([g.reshape((-1,) + comp) for g in grids], dim=0)
 
 
 def grid_layout(mesh: BoxTetMesh, order: int) -> GridLayout:
@@ -176,76 +175,121 @@ def dof_gids_for_cells(mesh: BoxTetMesh, order: int, cubes: np.ndarray,
     return out
 
 
+def to_planar(v: np.ndarray, bs: int) -> np.ndarray:
+    """Node-interleaved [n * bs] -> component-planar [bs * n]."""
+    return np.ascontiguousarray(v.reshape(-1, bs).T).reshape(-1)
+
+
+def to_interleaved(v: np.ndarray, bs: int) -> np.ndarray:
+    """Component-planar [bs * n] -> node-interleaved [n * bs]."""
+    return np.ascontiguousarray(v.reshape(bs, -1).T).reshape(-1)
+
+
 @dataclasses.dataclass
 class StructuredOperator:
-    """Constant-stencil matrix-free scalar operator on a BoxTetMesh
-    (tpufem/fem/structured_op.py:214-400; bs = 1 only, the blocked
-    elasticity form is ROADMAP M12 P2).
+    """Constant-stencil matrix-free operator on a BoxTetMesh
+    (tpufem/fem/structured_op.py:214-400): scalar (bs = 1), or the blocked
+    P2/P3 elasticity operator (bs = 3).
 
-    ``Ap`` [6, n, n] holds the per-perm element matrices in the working
-    dtype (numpy); ``A_dev`` the same on the operator's device;
-    ``bc_mask`` the flat Dirichlet mask (a bool tensor on the device, or
-    numpy for a host-only operator).  ``apply`` is the BC-eliminated
+    ``Ap`` [6, n bs, n bs] holds the per-perm element matrices in the
+    working dtype (numpy; bs = 3 dofs interleaved); ``bc_mask`` the flat
+    Dirichlet mask (a bool tensor on the device, or numpy for a host-only
+    operator) in the operator's layout.  ``apply`` is the BC-eliminated
     operator y = where(bc, x, A(where(bc, 0, x))), ``apply_bc_rows_zero``
     the cgpoisson convention (reference cgpoisson_problem.cpp:207).
+
+    bs = 1 keeps ``A_dev``, the matrices on the device, and applies them
+    with ``torch.matmul``.  bs = 3 on a device runs in the component-planar
+    layout (``planar``, vector index ``c * ns + i``): ``pack`` holds the
+    operator as the perm_apply kernel takes it, and ``apply`` is ONE
+    launch of it (fem.perm_apply; its plain version on the CPU).  A
+    host-only bs = 3 operator is interleaved unless built ``planar``; its
+    numpy twins (``apply_np``, ``diagonal_np``) run tpufem's interleaved
+    arithmetic in either layout.
     """
 
     Ap: np.ndarray
     bc_mask: object
     layout: GridLayout
     A_dev: Optional[torch.Tensor] = None
+    bs: int = 1
+    planar: bool = False
+    pack: Optional[PermPack] = None
 
     @classmethod
     def build(cls, mesh: BoxTetMesh, order: int, problem: str = "poisson",
               bc_dofs: Optional[np.ndarray] = None,
               dtype: torch.dtype = torch.float32,
               device: Optional[torch.device] = None,
-              h_override=None) -> "StructuredOperator":
-        """``device=None`` keeps the operator on the host (numpy twins)."""
-        if problem == "elasticity":
-            raise NotImplementedError(
-                "the blocked (bs = 3) StructuredOperator of P2/P3 elasticity: "
-                "ROADMAP M12 P2")
+              h_override=None, planar: bool = False) -> "StructuredOperator":
+        """``device=None`` keeps the operator on the host (numpy twins).
+        ``problem="elasticity"`` builds the blocked operator, which takes a
+        device only ``planar``; ``bc_dofs`` are interleaved dofs."""
+        bs = 3 if problem == "elasticity" else 1
+        planar = planar and bs > 1
         layout = grid_layout(mesh, order)
         Ap = perm_element_matrices(mesh, order, problem,
                                    h_override=h_override)
-        mask = np.zeros(layout.ndofs, dtype=bool)
+        mask = np.zeros(layout.ndofs * bs, dtype=bool)
         if bc_dofs is not None:
             mask[bc_dofs] = True
-        Ap_cast = np.ascontiguousarray(Ap.astype(np_dtype(dtype)))
+        if planar:
+            mask = to_planar(mask, bs)
+        Ap = np.ascontiguousarray(Ap.astype(np_dtype(dtype)))
+        return cls.from_arrays(Ap, mask, layout, device, bs=bs, planar=planar)
+
+    @classmethod
+    def from_arrays(cls, Ap: np.ndarray, mask: np.ndarray,
+                    layout: GridLayout, device: Optional[torch.device],
+                    bs: int = 1, planar: bool = False
+                    ) -> "StructuredOperator":
+        """The operator of the element matrices ``Ap`` (in the working
+        dtype) and the Dirichlet ``mask`` (in the operator's layout) on
+        ``device`` (None: host-only)."""
         if device is None:
-            return cls(Ap_cast, mask, layout)
-        return cls(Ap_cast, torch.from_numpy(mask).to(device), layout,
-                   torch.from_numpy(Ap_cast).to(device))
+            return cls(Ap, mask, layout, bs=bs, planar=planar)
+        if bs == 1:
+            return cls(Ap, torch.from_numpy(mask).to(device), layout,
+                       torch.from_numpy(Ap).to(device))
+        if not planar:
+            raise NotImplementedError(
+                "an interleaved bs = 3 operator on a device: the port runs "
+                "elasticity planar (tpufem's interleaved form serves its "
+                "SA-AMG, ROADMAP M14)")
+        dtype = torch.float32 if Ap.dtype == np.float32 else torch.float64
+        pack = pack_perm(Ap, dof_slice_plan(layout.order), layout.kinds,
+                         (layout.Nx, layout.Ny, layout.Nz), mask, dtype,
+                         device)
+        return cls(Ap, pack.mask, layout, bs=bs, planar=True, pack=pack)
 
     # -- device action -----------------------------------------------------------
     def apply_raw(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A_unconstrained @ x: per perm, the n shifted dof-grid slices
-        are stacked to [n, Q], multiplied by the constant [n, n] element
-        matrix (``torch.matmul``; float32 at full precision, tpufem keeps
-        this product outside its Pallas kernels too), and added back at
-        the n shifted slices."""
+        """y = A_unconstrained @ x of a scalar operator on its device
+        (fem.perm_apply.per_perm_apply: a ``torch.matmul`` with each
+        perm's [n, n] element matrix; tpufem keeps this product outside
+        its Pallas kernels too)."""
         if self.A_dev is None:
-            raise RuntimeError("host-only operator: build it with a device")
+            raise RuntimeError("a host-only or blocked operator: apply_raw "
+                               "is the scalar device action")
         lay = self.layout
-        plan = dof_slice_plan(lay.order)
-        Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
-        grids = lay.split(x.reshape(-1, 1))  # [Z, Y, X, slots, 1]
-        out = [torch.zeros_like(g) for g in grids]
-        for p in range(6):
-            cols = torch.stack([
-                grids[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot, 0]
-                for (kind, (dx, dy, dz), slot) in plan[p]])
-            y = torch.matmul(self.A_dev[p], cols.reshape(cols.shape[0], -1))
-            y = y.reshape(cols.shape)
-            for l, (kind, (dx, dy, dz), slot) in enumerate(plan[p]):
-                out[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot, 0] += y[l]
-        return lay.join(out).reshape(-1)
+        return per_perm_apply(x, self.A_dev, dof_slice_plan(lay.order),
+                              [(b, X, Y, Z, s) for b, (X, Y, Z), s
+                               in lay.kinds], (lay.Nx, lay.Ny, lay.Nz))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """BC-eliminated operator (zeroed rows/cols, unit diagonal)."""
+        """BC-eliminated operator (zeroed rows/cols, unit diagonal); bs = 3:
+        one perm_apply launch on a planar x."""
+        if self.pack is not None:
+            if self.pack.weights.device.type == "cuda":
+                return self._perm_apply(x)
+            return perm_apply(x, self.pack)
         y = self.apply_raw(torch.where(self.bc_mask, 0.0, x))
         return torch.where(self.bc_mask, x, y)
+
+    @functools.cached_property
+    def _perm_apply(self):
+        """The operator's prepared perm_apply launch (pack on a card)."""
+        return prepare_perm_apply(self.pack)
 
     def apply_bc_rows_zero(self, x: torch.Tensor) -> torch.Tensor:
         """cgpoisson convention: zero BC rows only
@@ -253,68 +297,88 @@ class StructuredOperator:
         return torch.where(self.bc_mask, 0.0, self.apply_raw(x))
 
     def diagonal(self) -> torch.Tensor:
-        """The operator diagonal on its device, in the working dtype (BC
-        rows get 1), for Jacobi/Chebyshev: each perm's element-matrix
-        diagonal added at the n shifted slices, tpufem's order
-        (tpufem/fem/structured_op.py:382-400)."""
-        if self.A_dev is None:
+        """The operator diagonal on its device, in the working dtype and the
+        operator's layout (BC rows get 1), for Jacobi/Chebyshev: each perm's
+        element-matrix diagonal added at the n shifted slices, tpufem's
+        order (tpufem/fem/structured_op.py:382-400)."""
+        A = self.A_dev if self.pack is None else self.pack.Ap
+        if A is None:
             raise RuntimeError("host-only operator: build it with a device")
-        lay = self.layout
+        lay, bs = self.layout, self.bs
         plan = dof_slice_plan(lay.order)
         Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
-        grids = [torch.zeros((k[1][2], k[1][1], k[1][0], k[2]),
-                             dtype=self.A_dev.dtype, device=self.A_dev.device)
+        grids = [torch.zeros((bs, k[1][2], k[1][1], k[1][0], k[2]),
+                             dtype=A.dtype, device=A.device)
                  for k in lay.kinds]
         for p in range(6):
+            d = torch.diagonal(A[p]).reshape(-1, bs, 1, 1, 1)
             for l, (kind, (dx, dy, dz), slot) in enumerate(plan[p]):
-                grids[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += \
-                    self.A_dev[p, l, l]
-        flat = torch.cat([g.reshape(-1) for g in grids])
-        return torch.where(self.bc_mask, 1.0, flat)
+                grids[kind][:, dz: dz + Nz, dy: dy + Ny, dx: dx + Nx,
+                            slot] += d[l]
+        flat = torch.cat([g.reshape(bs, -1) for g in grids], dim=1)
+        if not self.planar:
+            flat = flat.T
+        return torch.where(self.bc_mask, 1.0, flat.reshape(-1))
 
-    # -- host (numpy float64) twins ---------------------------------------------
+    # -- host (numpy float64) twins, tpufem's interleaved arithmetic --------
     def apply_raw_np(self, x: np.ndarray) -> np.ndarray:
-        """Pure-numpy float64 apply, tpufem's arithmetic (host RHS)."""
+        """Pure-numpy float64 apply on an interleaved x (host RHS, lmax,
+        certification), tpufem's arithmetic."""
         lay = self.layout
         plan = dof_slice_plan(lay.order)
         Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
+        bs = self.bs
         Ap = np.asarray(self.Ap, dtype=np.float64)
-        grids = lay.split(x.reshape(-1, 1))
+        grids = lay.split(x.reshape(-1, bs))  # [Z, Y, X, slots, bs]
         outs = [np.zeros_like(g) for g in grids]
         n = len(plan[0])
         for p in range(6):
             cols = [grids[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot]
                     for (kind, (dx, dy, dz), slot) in plan[p]]
-            u = np.stack(cols, axis=-2).reshape(-1, n)
-            y = (u @ Ap[p].T).reshape(Nz, Ny, Nx, n, 1)
+            u = np.stack(cols, axis=-2).reshape(-1, n * bs)
+            y = (u @ Ap[p].T).reshape(Nz, Ny, Nx, n, bs)
             for l, (kind, (dx, dy, dz), slot) in enumerate(plan[p]):
                 outs[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += \
                     y[..., l, :]
         return np.concatenate([o.reshape(-1) for o in outs])
 
     def apply_np(self, x: np.ndarray) -> np.ndarray:
-        """Host float64 twin of ``apply`` (BC-eliminated)."""
-        bc = np.asarray(self.bc_mask_np)
+        """Host float64 twin of ``apply`` (BC-eliminated), in the
+        operator's layout (planar through the interleaved twin)."""
+        if self.planar:
+            return to_planar(self._apply_interleaved_np(
+                to_interleaved(x, self.bs)), self.bs)
+        return self._apply_interleaved_np(x)
+
+    def _apply_interleaved_np(self, x: np.ndarray) -> np.ndarray:
+        bc = self.bc_mask_np
+        if self.planar:
+            bc = to_interleaved(bc, self.bs)
         return np.where(bc, x, self.apply_raw_np(np.where(bc, 0.0, x)))
 
     def diagonal_np(self) -> np.ndarray:
-        """Host float64 operator diagonal (BC rows get 1), from the element
-        matrices in the working dtype, tpufem's arithmetic
-        (tpufem/fem/structured_op.py:363-380)."""
+        """Host float64 operator diagonal (BC rows get 1) in the operator's
+        layout, from the element matrices in the working dtype, tpufem's
+        arithmetic (tpufem/fem/structured_op.py:363-380)."""
         lay = self.layout
         plan = dof_slice_plan(lay.order)
         Nx, Ny, Nz = lay.Nx, lay.Ny, lay.Nz
+        bs = self.bs
         Ap = np.asarray(self.Ap, dtype=np.float64)
-        outs = [np.zeros((k[1][2], k[1][1], k[1][0], k[2])) for k in lay.kinds]
+        outs = [np.zeros((k[1][2], k[1][1], k[1][0], k[2], bs))
+                for k in lay.kinds]
         for p in range(6):
             dA = np.diagonal(Ap[p])
             for l, (kind, (dx, dy, dz), slot) in enumerate(plan[p]):
-                outs[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += dA[l]
+                outs[kind][dz: dz + Nz, dy: dy + Ny, dx: dx + Nx, slot] += \
+                    dA[l * bs: (l + 1) * bs]
         flat = np.concatenate([o.reshape(-1) for o in outs])
-        return np.where(np.asarray(self.bc_mask_np), 1.0, flat)
+        if self.planar:
+            flat = to_planar(flat, bs)
+        return np.where(self.bc_mask_np, 1.0, flat)
 
     @property
     def bc_mask_np(self) -> np.ndarray:
-        """The Dirichlet mask on the host."""
+        """The Dirichlet mask on the host, in the operator's layout."""
         m = self.bc_mask
         return m.cpu().numpy() if isinstance(m, torch.Tensor) else m

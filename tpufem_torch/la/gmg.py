@@ -1,6 +1,6 @@
 """Structured geometric multigrid (counterpart of tpufem/la/gmg.py:
 ``prolong_h``/``restrict_h`` :74-116, ``prolong_p``/``restrict_p``
-:118-193, ``GMG.setup`` :236-339, scalar P1-P3 and planar bs = 3 P1,
+:118-193, ``GMG.setup`` :236-339, scalar and planar bs = 3, P1-P3,
 ``vcycle`` :341-404, ``gmg_viable``, ``surrogate_lmax``, ``_host_lmax``).
 
 Nested Kuhn lattices give an exact geometric hierarchy: P1 prolongation
@@ -12,16 +12,18 @@ lattice, and the coarsest level is solved by a dense inverse.  An order
 k > 1 problem has one more level on top: the order-k operator of
 ``build_operator`` on the same lattice (the multi-kind DIA, one launch
 of the zone kernel an apply, or the per-perm StructuredOperator on small
-lattices), reached from the P1 level by the p-transfers: point
-evaluation of the linear field at the P_k nodes and its adjoint.
+lattices; for elasticity the blocked StructuredOperator, one launch of
+the perm_apply kernel), reached from the P1 level by the p-transfers:
+point evaluation of the linear field at the P_k nodes and its adjoint.
 
 Elasticity runs in the component-planar layout (``planar``): the level
-operators are planar bs = 3 DiaOperators, the transfers act on the
-three component grids as a leading batch dimension, the level walk
+operators are planar bs = 3 operators, the transfers (h and p) act on
+the three component grids as a leading batch dimension, the level walk
 counts bs * nodes dofs, and the dense coarse inverse is permuted to
-planar order.
+planar order.  tpufem runs order-k elasticity interleaved; the planar
+V-cycle computes the same values.
 
-Differences from tpufem: the coarsest operator is the coarse
+Unlike tpufem, the coarsest operator is the coarse
 DiaOperator's ``to_scipy()`` matrix (tpufem assembles it from element
 tensors; the two are equal, tests/test_dia_op.py pins it); vectors are
 [Z, Y, X] grids ([3, Z, Y, X] planar) without tpufem's trailing
@@ -116,47 +118,64 @@ def restrict_h(f: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def _join_batched(grids: List[torch.Tensor]) -> torch.Tensor:
+    """[..., Z, Y, X, slots] grids of a layout -> [..., ndofs] flat."""
+    lead = grids[0].shape[:-4]
+    return torch.cat([g.reshape(lead + (-1,)) for g in grids], dim=-1)
+
+
+def _split_batched(r: torch.Tensor, layout: GridLayout) -> List[torch.Tensor]:
+    """[..., ndofs] flat -> the layout's [..., Z, Y, X, slots] grids."""
+    lead = tuple(r.shape[:-1])
+    return [r[..., b: b + X * Y * Z * s].reshape(lead + (Z, Y, X, s))
+            for b, (X, Y, Z), s in layout.kinds]
+
+
 def prolong_p(v: torch.Tensor, layout: GridLayout) -> torch.Tensor:
-    """P1 -> P_k on the same lattice: the P1 vertex grid v [Z+1, Y+1,
-    X+1] evaluated at the P_k nodes of ``layout`` (vertex copy; an edge
-    node at parameter t gets (1 - t) va + t vb; a face centroid the
-    average of its 3 vertices), as a flat P_k vector."""
+    """P1 -> P_k on the same lattice: the P1 vertex grid v [..., Z+1,
+    Y+1, X+1] evaluated at the P_k nodes of ``layout`` (vertex copy; an
+    edge node at parameter t gets (1 - t) va + t vb; a face centroid the
+    average of its 3 vertices), as a flat [..., ndofs] P_k vector;
+    leading axes are a batch (the planar components)."""
     k = layout.order
     grids = [v[..., None]]
     for (_, (X, Y, Z), _), d in zip(layout.kinds[1:8], EDGE_TYPES):
-        va = v[:Z, :Y, :X]
-        vb = v[d[2]: d[2] + Z, d[1]: d[1] + Y, d[0]: d[0] + X]
+        va = v[..., :Z, :Y, :X]
+        vb = v[..., d[2]: d[2] + Z, d[1]: d[1] + Y, d[0]: d[0] + X]
         grids.append(torch.stack([(1 - t) * va + t * vb for t in
                                   map(float, _edge_interior_params(
-                                      k, "gll_warped"))], dim=3))
+                                      k, "gll_warped"))], dim=-1))
     if k >= 3:
         for (_, (X, Y, Z), _), (o1, o2) in zip(layout.kinds[8:], FACE_TYPES):
-            v0 = v[:Z, :Y, :X]
-            v1 = v[o1[2]: o1[2] + Z, o1[1]: o1[1] + Y, o1[0]: o1[0] + X]
-            v2 = v[o2[2]: o2[2] + Z, o2[1]: o2[1] + Y, o2[0]: o2[0] + X]
+            v0 = v[..., :Z, :Y, :X]
+            v1 = v[..., o1[2]: o1[2] + Z, o1[1]: o1[1] + Y, o1[0]: o1[0] + X]
+            v2 = v[..., o2[2]: o2[2] + Z, o2[1]: o2[1] + Y, o2[0]: o2[0] + X]
             grids.append(((v0 + v1 + v2) / 3.0)[..., None])
-    return layout.join(grids)
+    return _join_batched(grids)
 
 
 def restrict_p(r: torch.Tensor, layout: GridLayout) -> torch.Tensor:
-    """Adjoint of prolong_p: a flat P_k residual -> the P1 vertex grid
-    [Z+1, Y+1, X+1], summed in tpufem's order."""
+    """Adjoint of prolong_p: a flat [..., ndofs] P_k residual -> the P1
+    vertex grid [..., Z+1, Y+1, X+1], summed in tpufem's order."""
     k = layout.order
-    grids = layout.split(r)  # [Z, Y, X, slots]
+    grids = _split_batched(r, layout)  # [..., Z, Y, X, slots]
     out = grids[0][..., 0].clone()
     tparams = [float(t) for t in _edge_interior_params(k, "gll_warped")]
     for g, d in zip(grids[1:8], EDGE_TYPES):
-        Z, Y, X = g.shape[:3]
+        Z, Y, X = g.shape[-4:-1]
         for s, t in enumerate(tparams):
-            out[:Z, :Y, :X] += (1 - t) * g[..., s]
-            out[d[2]: d[2] + Z, d[1]: d[1] + Y, d[0]: d[0] + X] += t * g[..., s]
+            out[..., :Z, :Y, :X] += (1 - t) * g[..., s]
+            out[..., d[2]: d[2] + Z, d[1]: d[1] + Y,
+                d[0]: d[0] + X] += t * g[..., s]
     if k >= 3:
         for g, (o1, o2) in zip(grids[8:], FACE_TYPES):
-            Z, Y, X = g.shape[:3]
+            Z, Y, X = g.shape[-4:-1]
             third = g[..., 0] / 3.0
-            out[:Z, :Y, :X] += third
-            out[o1[2]: o1[2] + Z, o1[1]: o1[1] + Y, o1[0]: o1[0] + X] += third
-            out[o2[2]: o2[2] + Z, o2[1]: o2[1] + Y, o2[0]: o2[0] + X] += third
+            out[..., :Z, :Y, :X] += third
+            out[..., o1[2]: o1[2] + Z, o1[1]: o1[1] + Y,
+                o1[0]: o1[0] + X] += third
+            out[..., o2[2]: o2[2] + Z, o2[1]: o2[1] + Y,
+                o2[0]: o2[0] + X] += third
     return out
 
 
@@ -175,8 +194,8 @@ class GLevel:
 @dataclasses.dataclass
 class GMG:
     """Geometric multigrid preconditioner for BoxTetMesh problems (scalar
-    P1-P3, or planar bs = 3 P1); level 0 is the finest, of order
-    ``order``, the others P1."""
+    or planar bs = 3, P1-P3); level 0 is the finest, of order ``order``,
+    the others P1."""
 
     levels: List[GLevel]
     coarse_inv: torch.Tensor
@@ -201,18 +220,16 @@ class GMG:
               dtype: torch.dtype = torch.float32,
               coarse_limit: int = 1000, smoother_degree: int = 2,
               max_levels: int = 12, planar: bool = False) -> "GMG":
-        """``problem`` "poisson" (order 1-3) or "elasticity" (bs = 3, P1;
-        ``planar`` runs it in the component-planar layout).  Order k > 1:
+        """``problem`` "poisson" or "elasticity" (bs = 3, in the
+        component-planar layout: ``planar``), order 1-3.  Order k > 1:
         the levels are [the order-k operator, P1 on the same lattice, the
         P1 halvings], each order smoothing on its own surrogate lmax
-        (tpufem/la/gmg.py:250-308)."""
+        (tpufem/la/gmg.py:250-308).  tpufem runs order-k elasticity
+        interleaved (its planar GMG is P1-only, :246-248); the port runs
+        every level planar, which computes the same V-cycle."""
         if problem not in ("poisson", "elasticity"):
             raise NotImplementedError(f"GMG for {problem}")
         bs = 3 if problem == "elasticity" else 1
-        if bs > 1 and order != 1:
-            raise NotImplementedError(
-                f"GMG for P{order} elasticity (the blocked "
-                "StructuredOperator): ROADMAP M12 P2")
         if bs > 1 and not planar:
             raise NotImplementedError(
                 "the interleaved bs = 3 GMG (the port runs elasticity in "
@@ -292,7 +309,8 @@ class GMG:
         rr = rr.masked_fill(mask, 0.0)
         p_transfer = self.order > 1 and i == 0
         if p_transfer:
-            rc = restrict_p(rr, self.levels[0].op.layout)
+            rc = restrict_p(rr.reshape(self.bs, -1),
+                            self.levels[0].op.layout)
         else:
             rc = restrict_h(self._grid(rr, i))
         rc = rc.reshape(-1).masked_fill(cmask, 0.0)
@@ -338,7 +356,8 @@ def surrogate_lmax(mesh: BoxTetMesh, order: int, problem: str,
     tpufem's: the seeded start vector of the power iteration depends on
     the layout.  At order k > 1 the surrogate lattice is often too small
     for the const DIA form (P2 500k: 4x5x6), and its operator is the
-    per-perm StructuredOperator."""
+    per-perm StructuredOperator, as it always is for elasticity (the
+    blocked one, interleaved)."""
     g = math.gcd(math.gcd(mesh.Nx, mesh.Ny), mesh.Nz)
     sdims = (mesh.Nx // g, mesh.Ny // g, mesh.Nz // g)
     scale = max(1, 8 // max(sdims))

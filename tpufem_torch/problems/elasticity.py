@@ -1,27 +1,31 @@
 """Vector-valued (bs = 3) linear elasticity on the structured cube mesh
-(counterpart of tpufem/problems/elasticity.py, P1 structured path).
+(counterpart of tpufem/problems/elasticity.py:43-218, structured path).
 
-P1 vector Lagrange space; the clamped y = 0 face; the rotational body
-force; the BC-eliminated blocked stiffness as a bs = 3 DIA stencil; the
-rigid-body near-nullspace; CG preconditioned by geometric multigrid,
-lattice-brick AMG with the near-nullspace (``-pc_type amg``, and where
-GMG cannot coarsen the lattice), Jacobi or nothing, certified against a
-float64 host twin as Poisson's solve is.
+P1-P3 vector Lagrange space; the clamped y = 0 face; the rotational body
+force; the BC-eliminated blocked stiffness (P1: a bs = 3 DIA stencil;
+P2/P3: the blocked per-perm StructuredOperator); the rigid-body
+near-nullspace; CG preconditioned by geometric multigrid (at order k > 1
+with the p-transfer to P1), lattice-brick AMG with the near-nullspace
+(``-pc_type amg`` at P1, and where GMG cannot coarsen the lattice),
+Jacobi or nothing, certified against a float64 host twin as Poisson's
+solve is.
 
 The solve runs in tpufem's component-planar layout (vector index
 ``c * n + i``), in which the operator is ONE launch of the
-three-component stencil kernel; b, u and x keep the reference's
-node-interleaved layout (``3 * i + c``) and the solver converts once per
-solve.  The float32 RHS is three scalar P1 mass-stencil applies of the
-body force, evaluated on the device from coordinates; float64 runs
-assemble it on the host.
+three-component stencil kernel (P1) or of the perm_apply kernel (P2/P3);
+b, u and x keep the reference's node-interleaved layout (``3 * i + c``)
+and the solver converts once per solve.  The float32 RHS is three scalar
+mass applies of the body force (P1: the mass stencil, the force
+evaluated on the device from coordinates; P2/P3: the per-perm mass
+operator on the host-interpolated force); float64 runs assemble it on
+the host.
 
 Every preconditioner the port runs takes the planar layout.  tpufem
-keeps it planar too but for its GMG fallback, where it runs brick-AMG on
-the interleaved layout; the V-cycle computes the same values in either
-layout, so the port runs that fallback planar.  ``-amg_brick off``
-(tpufem's generic SA-AMG on the interleaved CSR) is ROADMAP M14; P2/P3
-elasticity is ROADMAP M12 P2.
+keeps it planar at P1 but for its GMG fallback, where it runs brick-AMG
+on the interleaved layout, and runs order-k GMG interleaved; the V-cycle
+computes the same values in either layout, so the port runs both
+planar.  ``-amg_brick off`` and ``-pc_type amg`` at order k (tpufem's
+generic SA-AMG on the interleaved CSR) are ROADMAP M14.
 """
 
 from __future__ import annotations
@@ -62,6 +66,21 @@ def assemble_elasticity_rhs_structured_dev(space: FunctionSpace,
                         bc.value)
 
 
+def assemble_elasticity_rhs_pk_dev(space: FunctionSpace, bc: DirichletBC,
+                                   mass: StructuredOperator) -> torch.Tensor:
+    """Device RHS at order k > 1 (interleaved): three applies of the scalar
+    P_k mass operator ``mass``, one per component of the body force
+    interpolated on the host, and the BC values set
+    (tpufem/problems/elasticity.py:90-107)."""
+    dtype, device = mass.A_dev.dtype, mass.A_dev.device
+    f = space.interpolate(common.elasticity_f).reshape(-1, 3)
+    fd = torch.from_numpy(f.astype(np_dtype(dtype))).to(device)
+    cols = [mass.apply_raw(fd[:, r].contiguous()) for r in range(3)]
+    b = torch.stack(cols, dim=-1).reshape(-1)
+    return b.index_fill(0, torch.from_numpy(bc.flat_dofs()).to(device),
+                        bc.value)
+
+
 def assemble_elasticity_rhs_np(space: FunctionSpace) -> np.ndarray:
     """Host float64 RHS (interleaved, no BC values): the per-perm mass
     apply of each interpolated component (tpufem/problems/elasticity.py:
@@ -75,10 +94,6 @@ def assemble_elasticity_rhs_np(space: FunctionSpace) -> np.ndarray:
 
 def problem(mesh: BoxTetMesh, order: int, cfg: Config,
             device: torch.device) -> common.Problem:
-    if order != 1:
-        raise NotImplementedError(
-            f"--order {order} elasticity (the blocked StructuredOperator and "
-            "the p-transfers): ROADMAP M12 P2")
     dtype, acc_dtype = common.resolve_dtype(cfg)
 
     with Timer("ZZZ FunctionSpace"):
@@ -94,10 +109,14 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
 
     mass = None
     with Timer("ZZZ Assemble vector", device):
-        if dtype == torch.float32:
+        if dtype == torch.float32 and order == 1:
             mass = DiaOperator.build(mesh, 1, "mass", dtype=dtype,
                                      device=device)
             b = assemble_elasticity_rhs_structured_dev(space, bc, mass)
+        elif dtype == torch.float32:
+            mass = StructuredOperator.build(mesh, order, "mass", dtype=dtype,
+                                            device=device)
+            b = assemble_elasticity_rhs_pk_dev(space, bc, mass)
         else:
             b_np = assemble_elasticity_rhs_np(space)
             b_np[bc.flat_dofs()] = bc.value

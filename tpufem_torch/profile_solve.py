@@ -16,6 +16,8 @@ time.
         --ndofs 500000 --scaling_type strong -pc_type amg  # brick-AMG
     python -m tpufem_torch.profile_solve -- --problem_type poisson \\
         --order 3 --ndofs 500000 --scaling_type strong     # P2/P3 GMG
+    python -m tpufem_torch.profile_solve -- --problem_type elasticity \\
+        --order 2 --ndofs 500000 --scaling_type strong     # P2/P3 elasticity
     python -m tpufem_torch.profile_solve --solves 10 -- --ndofs 15000 \\
         --dtype float32 --device cpu                    # CPU: no device rows
 
@@ -42,7 +44,7 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 # the port's CUDA kernels, by the name of their device function
 PORT_KERNELS = ("stencil_p1_kernel", "strip_apply_kernel", "strip_cg_kernel",
                 "flat_interior_kernel", "brick_flat_kernel",
-                "dia_zones_kernel")
+                "dia_zones_kernel", "perm_apply_kernel")
 
 
 def busy_us(intervals) -> float:
