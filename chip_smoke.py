@@ -109,6 +109,25 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    ``torch.sparse.mm`` of the planar CSR; and tpufem's float64 P2 (10,647
    dofs) and P3 (9,633) runs on the card (ELASTICITY_PK_GOLD, rel 1e-9).
 
+14. SA-AMG (tpufem's generic smoothed aggregation, la.amg): the spoke
+   mesh's Poisson P1 through the CLI at tpufem's two bench sizes
+   (``--mesh_type unstructured --ndofs 150000|500000 --scaling_type
+   strong --dtype float32 -ksp_max_it 120``: 149,871 / 499,964 dofs,
+   tpufem's level sizes, the 120-iteration cap, certified true residual
+   <= 1e-8 in at most 3 refinement passes, printed beside tpufem's 2 / 2)
+   and the cube's SA-AMG at 500k, f32 (Poisson P1 ``-amg_brick off``,
+   Poisson P2 ``-pc_type amg``, elasticity P1 ``-amg_brick off``: levels
+   as tpufem's, iterations within one of tpufem's float32 CPU runs,
+   SAAMG_REF, certified), each with the CSR and dense kernels' launches
+   counted from zero around its run, warm solves, launches per CG
+   iteration and the warm solve's device-busy share; the CSR kernel
+   against its plain version on the path's matrices (the spoke 500k
+   fine operator in float32, float64 and bf16, its P and P^T, a sparse
+   coarse level, the cube's P0 and P0^T) and the bf16 dense kernel on
+   the spoke 500k dense level, with times, the host cost, the bound and
+   torch.sparse.mm / torch.matmul beside them; tpufem's four float64
+   SA-AMG runs (SAAMG_GOLDS: iterations exact, norms to rel 1e-9).
+
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository around it, the script fails before
@@ -264,6 +283,50 @@ ELASTICITY_PK_LEVELS = {2: ([468195, 61875, 8619, 1323], 240),
 # float64): order -> (ndofs, iterations, norm)
 ELASTICITY_PK_GOLD = {2: (10647, 19, 2.2017755354284647e-05),
                       3: (9633, 33, 2.098447872071006e-05)}
+# SA-AMG (phase 14).  tpufem's spoke bench rows (bench.py:601-658;
+# BENCH.json round 5, on a TPU: only ndofs, the 120-iteration cap, the
+# refinement passes and the certified residual are targets), with the
+# level sizes of tpufem's own setup on the CPU, from
+#   python scripts/saamg_reference.py --mesh_type unstructured \
+#       --ndofs N --scaling_type strong --dtype float32 --levels_only
+# key -> (--ndofs, ndofs, SA-AMG levels, passes, true_rel)
+SPOKE_ARGS = ["--problem_type", "poisson", "--mesh_type", "unstructured",
+              "--scaling_type", "strong", "--dtype", "float32",
+              "-ksp_rtol", "1e-8", "-ksp_max_it", "120", "--device", "cuda"]
+SPOKE_ROWS = {
+    "poisson_spoke": (150000, 149871, [149871, 3328, 84], 2, 2.16e-12),
+    "poisson_spoke_500k": (500000, 499964, [499964, 9512, 199], 2, 5.624e-11)}
+# the cube's SA-AMG at 500k, f32: tpufem's own CPU runs (jax 0.9.0, x64 off,
+# rtol 1e-8, certified), from
+#   python scripts/saamg_reference.py [--problem_type elasticity] \
+#       [--order 2] --ndofs 500000 --scaling_type strong --dtype float32 \
+#       -- -pc_type amg [-amg_brick off]
+# key -> (options, ndofs, levels, iterations, norm, true_rel, passes)
+SAAMG_BASE = ["--ndofs", "500000", "--scaling_type", "strong", "--dtype",
+              "float32", "-ksp_rtol", "1e-8", "-pc_type", "amg", "--device",
+              "cuda"]
+SAAMG_REF = {
+    "poisson_p1_amg_brick_off": (
+        ["--problem_type", "poisson", "-amg_brick", "off"], 510705,
+        [510705, 10023, 164], 22, 151.70169067382812, 2.498e-12, 2),
+    "poisson_p2_amg": (
+        ["--problem_type", "poisson", "--order", "2"], 510705,
+        [510705, 3364, 44], 35, 151.78231811523438, 3.684e-09, 1),
+    "elasticity_p1_amg_brick_off": (
+        ["--problem_type", "elasticity", "-amg_brick", "off"], 468195,
+        [468195, 18840, 348], 29, 0.00014582138101104647, 9.954e-12, 2),
+}
+# tpufem's float64 SA-AMG runs on the CPU (--dtype float64, weak scaling):
+# argv -> (iterations, norm)
+SAAMG_GOLDS = (
+    (["--problem_type", "poisson", "--ndofs", "15000", "-pc_type", "amg",
+      "-amg_brick", "off"], 13, 26.53502030570293),
+    (["--problem_type", "poisson", "--order", "2", "--ndofs", "15000",
+      "-pc_type", "amg"], 21, 26.65797245999097),
+    (["--problem_type", "elasticity", "--ndofs", "10000", "-pc_type", "amg",
+      "-amg_brick", "off"], 17, 2.181054945892062e-05),
+    (["--problem_type", "poisson", "--mesh_type", "unstructured", "--ndofs",
+      "20000"], 58, 738.3125824626104))
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1696,6 +1759,327 @@ def elasticity_pk_phase(cli, gpu: str):
     return launches, rows, worst
 
 
+def busy_share(fn):
+    """(device-busy share, wall s) of one call of ``fn``: the union of the
+    CUDA kernel and copy intervals the profiler records, over the host
+    clock around the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpufem_torch.profile_solve import busy_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return busy_us(spans) / 1e6 / wall, wall
+
+
+def saamg_run(cli, key, argv, gpu, ndofs, levels, ref_it=None,
+              ref_norm=None):
+    """One SA-AMG run through the CLI, f32: the build and first certified
+    solve with the CSR and dense kernels' counts set to zero just before
+    and read just after; five warm uncertified solves (their launches
+    per CG iteration, ms per iteration); the device-busy share of one
+    more.  Spoke rows run to the 120-iteration cap (``ref_it`` None);
+    cube rows are held within one iteration of tpufem's f32 CPU run.
+    Returns (the run's csr_spmv and dense_gemv launches, the problem)."""
+    import torch
+    from tpufem_torch.fem.csr_spmv import csr_spmv
+    from tpufem_torch.fem.dense_gemv import DenseMat, dense_gemv_bf16
+    from tpufem_torch.la.amg import SAAMG
+    from tpufem_torch.timing import REGISTRY
+    REGISTRY.reset()
+    csr_spmv.launches = dense_gemv_bf16.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    n_csr, n_dense = csr_spmv.launches, dense_gemv_bf16.launches
+    prob = res.problem
+    solver = prob.solver_function
+    pc = solver.pc
+    check(isinstance(pc, SAAMG), f"{key}: the solve is not SA-AMG")
+    check(prob.space.ndofs == ndofs,
+          f"{key}: {prob.space.ndofs} dofs, tpufem's has {ndofs}")
+    check(pc.level_sizes == levels,
+          f"{key}: levels {pc.level_sizes}, tpufem's {levels}")
+    dense = any(isinstance(lv.A, DenseMat) for lv in pc.levels)
+    check(n_csr > 0 and (n_dense > 0 or not dense),
+          f"{key}: launches csr_spmv {n_csr}, dense_gemv_bf16 {n_dense}")
+    check(res.x.shape == (ndofs,) and bool(torch.isfinite(res.x).all()),
+          f"{key}: the solution is not a finite vector of ndofs")
+    if ref_it is None:
+        check(res.iterations == 120, f"{key}: {res.iterations} iterations, "
+              "not the 120-iteration cap")
+    else:
+        check(abs(res.iterations - ref_it) <= 1,
+              f"{key}: {res.iterations} iterations, tpufem {ref_it}")
+    check(res.true_rel is not None and res.true_rel <= 1e-8
+          and res.refine_passes <= 3,
+          f"{key}: true_rel {res.true_rel}, {res.refine_passes} passes")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in pc.last_phase_s.items())
+    print(f"{key}: {ndofs} dofs, route {solver.route}, levels "
+          f"{pc.level_sizes}, {res.iterations} iterations"
+          + (f" (tpufem {ref_it})" if ref_it is not None else "")
+          + f", norm {res.norm!r}"
+          + (f" (tpufem {ref_norm!r}, rel "
+             f"{abs(res.norm - ref_norm) / ref_norm:.2e})"
+             if ref_norm is not None else "")
+          + f", {res.refine_passes} refinement pass(es) (+"
+          f"{res.refine_iterations} its), true_rel {res.true_rel!r}; mesh "
+          f"{REGISTRY.get('ZZZ Create Mesh'):.3f} s, assemble matrix "
+          f"{REGISTRY.get('ZZZ Assemble matrix'):.3f} s, first solve "
+          f"{REGISTRY.get('ZZZ Solve'):.3f} s = PC setup "
+          f"{solver.pc_setup_s:.3f} s ({phases} s) + iterations + certify "
+          f"{solver.certify_s:.3f} s; whole CLI run {first_s:.3f} s; "
+          f"launches in the run: csr_spmv {n_csr}, dense_gemv_bf16 "
+          f"{n_dense}  [{gpu}]", flush=True)
+    runs = []
+    csr_spmv.launches = dense_gemv_bf16.launches = 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, its, _ = solver.run(prob.u, prob.b)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    check(its == res.iterations, f"{key}: warm solve took {its} iterations")
+    per_it = (csr_spmv.launches / (5 * its),
+              dense_gemv_bf16.launches / (5 * its))
+    share, wall = busy_share(lambda: solver.run(prob.u, prob.b))
+    solve_s = statistics.median(runs)
+    print(f"{key} warm CG+SA-AMG solve (uncertified): median {solve_s:.4f} s "
+          f"of 5 (min {min(runs):.4f}, max {max(runs):.4f}), "
+          f"{solve_s / its * 1e3:.3f} ms/iteration; launches per CG "
+          f"iteration: csr_spmv {per_it[0]:.2f}, dense_gemv_bf16 "
+          f"{per_it[1]:.2f}; profiled warm solve {wall:.4f} s, device busy "
+          f"{100 * share:.1f}%  [{gpu}]", flush=True)
+    return n_csr, n_dense, res
+
+
+def csr_work(A):
+    """(bytes, flops) a CSR product needs: values, indices and indptr
+    read once, x read once, y written once; 2 nnz flops."""
+    import torch
+    item_v = A.vals.element_size()
+    item_x = torch.finfo(A.out_dtype).bits // 8
+    nbytes = A.nnz * (item_v + 4) + (A.n + 1) * 4 + (A.ncols + A.n) * item_x
+    return nbytes, 2 * A.nnz
+
+
+def csr_kernel_phase(mats, gpu: str):
+    """The CSR kernel against its plain version on the path's own
+    matrices, within csr_spmv_bound, with times, the wrapper's host
+    cost, the bound and torch.sparse.mm of the same float32 / float64
+    matrix (cuSPARSE; none computes the bf16 product).  Returns (rows,
+    worst abs error)."""
+    import torch
+    from tpufem_torch.fem.csr_spmv import (csr_spmv, csr_spmv_bound,
+                                           csr_spmv_plain)
+    rows, worst = [], 0.0
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for name, A in mats:
+        x = torch.randn(A.ncols, generator=gen, device=A.device,
+                        dtype=torch.float64).to(A.out_dtype)
+        before = csr_spmv.launches
+        y = A.matvec(x)
+        check(csr_spmv.launches == before + 1,
+              f"csr_spmv {name}: the product did not launch once")
+        check(torch.equal(csr_spmv(A, x), y),
+              f"csr_spmv {name}: two launches differ (not deterministic)")
+        yp = csr_spmv_plain(A, x)
+        bnd = csr_spmv_bound(A, x)
+        torch.cuda.synchronize()
+        err = (y - yp).abs()
+        abs_err = float(err.max())
+        check(bool(torch.isfinite(y).all()) and bool((err <= bnd).all()),
+              f"csr_spmv {name}: kernel disagrees with the plain version "
+              f"(max abs err {abs_err:.3e}, worst share of the bound "
+              f"{float((err / bnd.clamp_min(1e-300)).max()):.3e})")
+        worst = max(worst, abs_err)
+        ms = median_ms(lambda: A.matvec(x))
+        dev = device_ms(lambda: A.matvec(x))
+        host = host_ms(lambda: A.matvec(x))
+        plain_ms = median_ms(lambda: csr_spmv_plain(A, x), reps=5, samples=5)
+        lib_ms = lib_err = None
+        if A.vals.dtype != torch.bfloat16:
+            L = torch.sparse_csr_tensor(A.indptr.long(), A.indices.long(),
+                                        A.vals, size=(A.n, A.ncols))
+            lib_ms, lib_err = library_ms(L, x, yp)
+            del L
+        nbytes, flops = csr_work(A)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        rows.append(dict(name=name, dtype=str(A.vals.dtype).split(".")[1],
+                         n=A.n, ncols=A.ncols, nnz=A.nnz, G=A.G,
+                         max_abs_err=abs_err, ms=ms, device_ms=dev,
+                         host_ms=host, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         call_minus_device_ms=(None if dev is None
+                                               else ms - dev)))
+        print(f"csr_spmv {name:<34} {rows[-1]['dtype']:<8} {A.n}x{A.ncols}, "
+              f"{A.nnz} entries, G {A.G} | max |kernel - plain| "
+              f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.sparse.mm {fmt_ms(lib_ms)}"
+              + (f" (off the plain version by {lib_err:.3e})"
+                 if lib_err is not None else "")
+              + f" | device {fmt_ms(dev)} | host cost {host:.4f} ms per "
+              f"queued call | bound {b_ms:.4f} ms ({b_by}, "
+              f"{nbytes / 1e6:.2f} MB)  [{gpu}]", flush=True)
+    return rows, worst
+
+
+def dense_kernel_phase(levels, gpu: str):
+    """The bf16 dense kernel against its plain version on the path's
+    dense levels, within dense_gemv_bound, with times, the bound, and
+    torch.matmul of the bf16 operands (bf16 out: one more rounding) and
+    torch.mv of the level widened to float32 beside it."""
+    import torch
+    from tpufem_torch.fem.dense_gemv import (dense_gemv_bf16,
+                                             dense_gemv_bf16_plain,
+                                             dense_gemv_bound)
+    rows, worst = [], 0.0
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for name, D in levels:
+        n = D.n
+        x = torch.randn(n, generator=gen, device=D.M.device)
+        before = dense_gemv_bf16.launches
+        y = D.matvec(x)
+        check(dense_gemv_bf16.launches == before + 1,
+              f"dense_gemv_bf16 {name}: the product did not launch once")
+        check(torch.equal(dense_gemv_bf16(D, x), y),
+              f"dense_gemv_bf16 {name}: two launches differ")
+        yp = dense_gemv_bf16_plain(D, x)
+        bnd = dense_gemv_bound(D, x)
+        torch.cuda.synchronize()
+        err = (y - yp).abs()
+        abs_err = float(err.max())
+        check(bool(torch.isfinite(y).all()) and bool((err <= bnd).all()),
+              f"dense_gemv_bf16 {name}: kernel disagrees with the plain "
+              f"version (max abs err {abs_err:.3e})")
+        worst = max(worst, abs_err)
+        ms = median_ms(lambda: D.matvec(x))
+        dev = device_ms(lambda: D.matvec(x))
+        host = host_ms(lambda: D.matvec(x))
+        plain_ms = median_ms(lambda: dense_gemv_bf16_plain(D, x), reps=5,
+                             samples=5)
+        Mb, xb = D.M[:, :n], x.to(torch.bfloat16)
+        bf16_ms = median_ms(lambda: torch.matmul(Mb, xb))
+        bf16_err = float((torch.matmul(Mb, xb).float() - yp).abs().max())
+        Mf = Mb.float()
+        mv_ms = median_ms(lambda: torch.mv(Mf, x))
+        del Mf
+        nbytes = D.nbytes + 8 * n
+        b_ms, b_by = bound_ms(nbytes, 2 * n * n)
+        rows.append(dict(name=name, n=n, max_abs_err=abs_err, ms=ms,
+                         device_ms=dev, host_ms=host, plain_ms=plain_ms,
+                         library_ms=bf16_ms, mv_f32_ms=mv_ms,
+                         bf16_matmul_err=bf16_err, bound_ms=b_ms,
+                         bound_by=b_by,
+                         call_minus_device_ms=(None if dev is None
+                                               else ms - dev)))
+        print(f"dense_gemv_bf16 {name}: {n} rows | max |kernel - plain| "
+              f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.matmul(bf16, bf16) {bf16_ms:.4f} ms "
+              f"(bf16 out, off the plain version by {bf16_err:.3e}), "
+              f"torch.mv(f32) {mv_ms:.4f} ms | device {fmt_ms(dev)} | host "
+              f"cost {host:.4f} ms | bound {b_ms:.4f} ms ({b_by}, "
+              f"{nbytes / 1e6:.2f} MB)  [{gpu}]", flush=True)
+    return rows, worst
+
+
+def saamg_phase(cli, gpu: str):
+    """Phase 14: the spoke mesh's Poisson P1 at tpufem's two bench sizes
+    and the cube's SA-AMG at 500k, f32, certified, through the CLI; the
+    CSR kernel on the path's matrices (the spoke fine operator in f32,
+    f64 and bf16, its P and P^T, sparse coarse levels, the cube's P0 and
+    P0^T, a sparse coarse level: the spoke 150k level 1 under
+    -amg_dense_level_limit 1000) and the dense kernel on the spoke 500k
+    dense level; tpufem's f64 SA-AMG goldens.  Returns (csr launches, dense launches, csr rows,
+    dense rows, worst csr error, worst dense error)."""
+    import torch
+    from tpufem_torch.fem.csr_spmv import CsrMatrix
+    from tpufem_torch.fem.dense_gemv import DenseMat
+    from tpufem_torch.timing import REGISTRY
+    n_csr = n_dense = 0
+    mats, dense_levels = [], []
+    for key, (nd_arg, ndofs, levels, passes, true_rel) in SPOKE_ROWS.items():
+        c, d, res = saamg_run(cli, key, SPOKE_ARGS + ["--ndofs", str(nd_arg)],
+                              gpu, ndofs, levels)
+        n_csr, n_dense = n_csr + c, n_dense + d
+        print(f"{key}: refinement passes {res.refine_passes} (tpufem's TPU "
+              f"row {passes}), true_rel {res.true_rel!r} (tpufem's "
+              f"{true_rel})  [{gpu}]", flush=True)
+        solver = res.problem.solver_function
+        if key == "poisson_spoke":
+            # every coarse level of the bench rows is dense; a sparse one,
+            # as SA-AMG keeps it above the densify guard, from the same
+            # fine matrix with -amg_dense_level_limit 1000
+            from tpufem_torch.config import SolverOptions
+            from tpufem_torch.la.amg import SAAMG
+            opts = SolverOptions(amg_dense_level_limit=1000)
+            sparse = SAAMG.setup(solver.csr, 1, opts, solver.device,
+                                 dtype=torch.float32, bc_mask=solver.bc_mask)
+            lv1 = sparse.levels[1].A
+            check(isinstance(lv1, CsrMatrix), "spoke 150k: level 1 with "
+                  "-amg_dense_level_limit 1000 is not a CSR matrix")
+            mats.append(("spoke 150k level 1 (sparse)", lv1))
+            del sparse
+        if key.endswith("500k"):
+            op = solver.op
+            mats += [("spoke 500k fine", op),
+                     ("spoke 500k fine", op.astype(torch.float64)),
+                     ("spoke 500k fine", op.astype(torch.bfloat16)),
+                     ("spoke 500k P", solver.pc.levels[0].P),
+                     ("spoke 500k P^T", solver.pc.levels[0].PT)]
+            for i, lv in enumerate(solver.pc.levels[1:], 1):
+                if isinstance(lv.A, DenseMat):
+                    dense_levels.append((f"spoke 500k level {i}", lv.A))
+                elif isinstance(lv.A, CsrMatrix):
+                    mats.append((f"spoke 500k level {i}", lv.A))
+        del res
+        torch.cuda.empty_cache()
+    for key, (opts, ndofs, levels, its, norm, true_rel, passes) in \
+            SAAMG_REF.items():
+        c, d, res = saamg_run(cli, key, SAAMG_BASE + opts, gpu, ndofs,
+                              levels, its, norm)
+        n_csr, n_dense = n_csr + c, n_dense + d
+        print(f"{key}: refinement passes {res.refine_passes} (tpufem "
+              f"{passes}), true_rel {res.true_rel!r} (tpufem {true_rel})"
+              f"  [{gpu}]", flush=True)
+        pc = res.problem.solver_function.pc
+        if key == "poisson_p1_amg_brick_off":
+            mats += [("cube P1 500k P0", pc.levels[0].P0),
+                     ("cube P1 500k P0^T", pc.levels[0].P0T)]
+        for i, lv in enumerate(pc.levels[1:], 1):
+            if isinstance(lv.A, CsrMatrix):
+                mats.append((f"{key} level {i}", lv.A))
+        del res, pc
+        torch.cuda.empty_cache()
+    csr_rows, csr_worst = csr_kernel_phase(mats, gpu)
+    dense_rows, dense_worst = dense_kernel_phase(dense_levels, gpu)
+    check(bool(dense_rows), "phase 14 ran no dense bf16 level")
+    del mats, dense_levels
+    torch.cuda.empty_cache()
+    for argv, gold_it, gold_norm in SAAMG_GOLDS:
+        REGISTRY.reset()
+        res = cli.main(argv + ["--dtype", "float64", "--device", "cuda"])
+        rel = abs(res.norm - gold_norm) / gold_norm
+        print(f"SA-AMG float64 {' '.join(argv)}: {res.iterations} "
+              f"iterations, norm {res.norm!r} (tpufem {gold_norm!r}, rel "
+              f"{rel:.2e}), levels "
+              f"{res.problem.solver_function.pc.level_sizes}  [{gpu}]",
+              flush=True)
+        check(res.iterations == gold_it, f"{' '.join(argv)}: "
+              f"{res.iterations} iterations, tpufem {gold_it}")
+        check(rel <= 1e-9, f"{' '.join(argv)}: norm off by rel {rel:.2e}")
+        del res
+    torch.cuda.empty_cache()
+    return n_csr, n_dense, csr_rows, dense_rows, csr_worst, dense_worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1940,6 +2324,16 @@ def main() -> int:
     print(f"phase 13: {time.perf_counter() - t13:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
 
+    # -- 14. SA-AMG: the spoke mesh and the cube (csr_spmv, dense_gemv) ------
+    t14 = time.perf_counter()
+    (csr_launches, dense_launches, csr_rows, dense_rows, csr_worst,
+     dense_worst) = saamg_phase(cli, gpu)
+    csr = [r for r in csr_rows if r["name"] == "spoke 500k fine"
+           and r["dtype"] == "float32"][0]
+    dense = dense_rows[0]
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -2049,6 +2443,34 @@ def main() -> int:
                                       "library_ms", "bound_ms",
                                       "per_perm_bound_ms", "err_of_bound")}
                    for r in pa_rows]},
+        {"name": "csr_spmv", "route": "cuda",
+         "source": "tpufem_torch/csrc/csr_spmv.cu",
+         "replaces": "none (XLA ELLMatrix.matvec, tpufem/fem/assemble.py:117,"
+                     " and WindowedMatrix.matvec, "
+                     "tpufem/fem/window_op.py:101: SA-AMG's sparse "
+                     "operators)",
+         "launches": csr_launches, "max_abs_err": csr_worst,
+         "ms": csr["ms"], "plain_ms": csr["plain_ms"],
+         "bound_ms": csr["bound_ms"], "bound_by": csr["bound_by"],
+         "library_ms": csr["library_ms"], "device_ms": csr["device_ms"],
+         "host_ms": csr["host_ms"],
+         "call_minus_device_ms": csr["call_minus_device_ms"],
+         "matrices": [{k: r[k] for k in ("name", "dtype", "n", "ncols", "nnz",
+                                         "G", "ms", "device_ms", "host_ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "max_abs_err")}
+                      for r in csr_rows]},
+        {"name": "dense_gemv_bf16", "route": "cuda",
+         "source": "tpufem_torch/csrc/dense_gemv.cu",
+         "replaces": "none (XLA DenseMat.matvec in bf16, "
+                     "tpufem/la/amg.py:417)",
+         "launches": dense_launches, "max_abs_err": dense_worst,
+         "ms": dense["ms"], "plain_ms": dense["plain_ms"],
+         "bound_ms": dense["bound_ms"], "bound_by": dense["bound_by"],
+         "library_ms": dense["library_ms"], "device_ms": dense["device_ms"],
+         "host_ms": dense["host_ms"], "mv_f32_ms": dense["mv_f32_ms"],
+         "call_minus_device_ms": dense["call_minus_device_ms"],
+         "levels": dense_rows},
     ]
     check("tpufem" not in sys.modules and "jax" not in sys.modules,
           "tpufem or jax was imported")

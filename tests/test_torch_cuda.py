@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the P1 stencil and its three-component form,
 the strip apply K3, the whole-CG kernel K4, the flat interior K5,
-brick_flat, the multi-kind zone kernel and the blocked per-perm apply)
-against their plain PyTorch versions, on the card.
+brick_flat, the multi-kind zone kernel, the blocked per-perm apply, the
+CSR product and the bf16 dense level's product) against their plain
+PyTorch versions, on the card.
 Marked ``cuda``: without a CUDA device every test skips.
 
 This file imports no jax, so it also runs on a machine without jax; the
@@ -861,3 +862,116 @@ def test_elasticity_pk_goldens_on_the_card(device, order, iterations, norm):
     assert res.iterations == iterations
     assert abs(res.norm - norm) <= 1e-9 * norm
     assert perm_apply.launches == 5 * res.iterations
+
+
+def _random_csr(n, m, density, seed, wide_rows=0):
+    """A random n x m CSR matrix; ``wide_rows`` rows get every column (a
+    hub row, as the spoke mesh's)."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    M = sp.random(n, m, density=density, random_state=seed, format="lil")
+    for r in range(wide_rows):
+        M[r, :] = rng.standard_normal(m)
+    M = M.tocsr()
+    M.data = rng.standard_normal(M.nnz)
+    return M
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (5000, 5000, 0.003, 0), (4000, 300, 0.013, 0), (300, 4000, 0.05, 0),
+    (7, 9, 0.4, 0), (2000, 2000, 0.002, 3), (1, 33, 1.0, 0)],
+    ids=["square", "P", "PT", "tiny", "hub", "one_row"])
+def test_csr_spmv_kernel_matches_plain(device, shape, dtype):
+    """The CSR kernel against its plain version within csr_spmv_bound,
+    every lane count the shapes pick (1 to 32), one launch a product."""
+    from tpufem_torch.fem.csr_spmv import (CsrMatrix, csr_spmv,
+                                           csr_spmv_bound, csr_spmv_plain)
+    n, m, dens, wide = shape
+    M = _random_csr(n, m, dens, 2, wide)
+    A = CsrMatrix.from_scipy(M, getattr(torch, dtype), device)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(m)).to(
+        device, A.out_dtype)
+    before = csr_spmv.launches
+    y = A.matvec(x)
+    assert csr_spmv.launches == before + 1
+    yp = csr_spmv_plain(A, x)
+    torch.cuda.synchronize()
+    assert y.dtype == A.out_dtype and bool(torch.isfinite(y).all())
+    assert bool(((y - yp).abs() <= csr_spmv_bound(A, x)).all())
+    assert torch.equal(csr_spmv(A, x), y)  # deterministic: the same bits
+
+
+def test_csr_spmv_on_a_side_stream_and_refusals(device):
+    from tpufem_torch import _build
+    from tpufem_torch.fem.csr_spmv import CsrMatrix, csr_spmv
+    A = CsrMatrix.from_scipy(_random_csr(300, 200, 0.05, 1), torch.float32,
+                             device)
+    x = torch.randn(200, device=device)
+    y0 = csr_spmv(A, x)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        y = A.matvec(x)
+    side.synchronize()
+    assert torch.equal(y, y0)
+    with pytest.raises(ValueError):
+        A.matvec(x.double())
+    with pytest.raises(ValueError):
+        A.matvec(x[1:])
+    with pytest.raises(ValueError):
+        A.matvec(torch.zeros(400, device=device)[::2])
+    with pytest.raises(ValueError):
+        csr_spmv(A, x.cpu())
+    lib = _build.load().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for G, n in ((3, A.n), (64, A.n), (4, 0)):
+        bad = _build.CsrLaunch(indptr=A.indptr.data_ptr(),
+                               indices=A.indices.data_ptr(),
+                               vals=A.vals.data_ptr(), device=0, n=n,
+                               ncols=A.ncols, G=G)
+        rc = lib.tpufem_csr_spmv_f32(ctypes.addressof(bad), x.data_ptr(),
+                                     y.data_ptr(), stream)
+        assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 333, 4096])
+def test_dense_gemv_bf16_kernel_matches_plain(device, n):
+    """The bf16 level's product against its plain version within
+    dense_gemv_bound (ragged and aligned widths), float32 out."""
+    import scipy.sparse as sp
+    from tpufem_torch.fem.dense_gemv import (DenseMat, dense_gemv_bf16,
+                                             dense_gemv_bf16_plain,
+                                             dense_gemv_bound)
+    rng = np.random.default_rng(n)
+    S = sp.csr_matrix(rng.standard_normal((n, n)) * (rng.random((n, n)) < .3))
+    D = DenseMat.from_csr(S.indptr, S.indices, S.data, n, torch.bfloat16,
+                          device)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    before = dense_gemv_bf16.launches
+    y = D.matvec(x)
+    assert dense_gemv_bf16.launches == before + 1 and y.dtype == torch.float32
+    torch.cuda.synchronize()
+    err = (y - dense_gemv_bf16_plain(D, x)).abs()
+    assert bool((err <= dense_gemv_bound(D, x)).all())
+    assert torch.equal(dense_gemv_bf16(D, x), y)
+    with pytest.raises(ValueError):
+        D.matvec(x.double())
+
+
+@pytest.mark.parametrize("argv,iterations,norm", [
+    (["--ndofs", "15000", "-pc_type", "amg", "-amg_brick", "off"], 13,
+     26.53502030570293),
+    (["--mesh_type", "unstructured", "--ndofs", "20000"], 58,
+     738.3125824626104)], ids=["cube", "spoke"])
+def test_saamg_goldens_on_the_card(device, argv, iterations, norm):
+    """tpufem's float64 SA-AMG runs through the CSR kernel (the factored
+    P0 / P0^T on the cube; the fine operator, P, P^T on the spoke)."""
+    from tpufem_torch import cli
+    from tpufem_torch.fem.csr_spmv import csr_spmv
+    csr_spmv.launches = 0
+    res = cli.main(argv + ["--dtype", "float64", "--device", "cuda"])
+    assert res.iterations == iterations
+    assert abs(res.norm - norm) <= 1e-9 * norm
+    assert csr_spmv.launches >= 2 * res.iterations

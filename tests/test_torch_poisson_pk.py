@@ -89,10 +89,13 @@ def test_other_preconditioners_run_at_order_k(pc):
 
 def test_amg_at_order_k_raises_naming_m14():
     """brick-AMG is P1 (tpufem/la/bramg.py:739-745); tpufem's order-k
-    -pc_type amg is its SA-AMG, not ported."""
-    with pytest.raises(NotImplementedError, match="order 2.*ROADMAP M14"):
-        cli.main(POISSON + ["--order", "2", "--ndofs", "3000",
-                            "-pc_type", "amg"])
+    -pc_type amg is its SA-AMG, ported since (ROADMAP M14): it runs, on
+    the factored fine level of the P2 operator."""
+    res = cli.main(POISSON + ["--order", "2", "--ndofs", "3000",
+                              "--dtype", "float64", "-pc_type", "amg"])
+    solver = res.problem.solver_function
+    assert solver.pc_type == "amg" and solver.route == "factored"
+    assert 0 < res.iterations < 60 and res.true_rel <= 1e-8
 
 
 def test_use_strip0_p2_matches_tpufem_dia(one_timed_solve):

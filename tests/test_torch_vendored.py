@@ -22,10 +22,12 @@ from tpufem.fem.structured_op import StructuredOperator as TpuStructured
 from tpufem.fem.structured_op import \
     perm_element_matrices as tpu_perm_element_matrices
 from tpufem.la import nullspace as tpu_nullspace
+from tpufem.mesh import refine as tpu_refine
+from tpufem.mesh import spoke as tpu_spoke
 from tpufem.mesh import structured as tpu_structured
 from tpufem.problems import common as tpu_common
 
-from tpufem_torch import cli
+from tpufem_torch import cli, native
 from tpufem_torch.fem import assemble
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.reference import ReferenceTet, _edge_interior_params
@@ -33,7 +35,7 @@ from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.structured_op import (StructuredOperator,
                                             perm_element_matrices)
 from tpufem_torch.la import nullspace
-from tpufem_torch.mesh import structured
+from tpufem_torch.mesh import refine, spoke, structured
 from tpufem_torch.problems import common
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -240,3 +242,67 @@ def test_runs_with_tpufem_unimportable():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "JAX_LOADED False" in out.stdout
+
+
+def test_saamg_runs_with_tpufem_unimportable():
+    """The SA-AMG runs (-amg_brick off on the cube, la.amg; the spoke mesh
+    with its native build) with ``tpufem`` unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['tpufem'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from tpufem_torch.cli import main\n"
+        "s = main(['--ndofs', '3000', '-pc_type', 'amg', '-amg_brick', 'off',"
+        " '--dtype', 'float64', '--device', 'cpu'])\n"
+        "assert type(s.problem.solver_function.pc).__name__ == 'SAAMG'\n"
+        "u = main(['--mesh_type', 'unstructured', '--ndofs', '3000',"
+        " '--dtype', 'float64', '--device', 'cpu'])\n"
+        "assert u.problem.solver_function.route == 'rcm'\n"
+        "assert s.true_rel <= 1e-8 and u.true_rel <= 1e-8\n"
+        "print('JAX_LOADED', any(m == 'jax' or m.startswith('jax.')"
+        " for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX_LOADED False" in out.stdout
+
+
+def test_native_source_is_tpufem_byte_for_byte():
+    """tpufem_torch/native/fastsetup.cpp is tpufem's source, and the
+    library builds from it into a directory keyed by its hash."""
+    mine = os.path.join(REPO, "tpufem_torch", "native", "fastsetup.cpp")
+    ref = os.path.join(REPO, "tpufem", "native", "fastsetup.cpp")
+    with open(mine, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    assert native.have_native()
+    assert native.library_path().exists()
+    assert native.library_path().parent.parent.name == "native"
+
+
+def test_spoke_constants_and_geometry_bitwise():
+    for name in ("N_SPOKES", "R_INNER", "R_OUTER", "H_INNER", "H_OUTER",
+                 "L_SPUR", "L0", "DTH", "TAPER"):
+        assert getattr(spoke, name) == getattr(tpu_spoke, name), name
+    for got, want in zip(spoke.build_spoke_geometry(),
+                         tpu_spoke.build_spoke_geometry()):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_refinement_bitwise(route, monkeypatch):
+    """uniform_refine equals tpufem's, and refine_marked_edges gives
+    tpufem's bits on both of the port's routes (they are bit-identical,
+    tpufem/native/__init__.py:196)."""
+    verts, cells = spoke.build_spoke_geometry()
+    v1, c1 = refine.uniform_refine(verts, cells)
+    rv1, rc1 = tpu_refine.uniform_refine(verts, cells)
+    assert np.array_equal(v1, rv1) and np.array_equal(c1, rc1)
+    topo = spoke.TetTopology(v1, c1)
+    marked = topo.edge_vertices(np.arange(0, topo.num_edges_global, 7))
+    if route == "numpy":
+        monkeypatch.setattr(native, "_get", lambda: None)
+    got = refine.refine_marked_edges(v1, c1, marked)
+    want = tpu_refine.refine_marked_edges(v1, c1, marked)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)

@@ -40,6 +40,22 @@ class BrickFlatLaunch(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ("device", "az", "ay", "W", "nf")])
 
 
+class CsrLaunch(ctypes.Structure):
+    """What a CSR product needs beside x, y and the stream
+    (csrc/csr_spmv.cu:CsrLaunch), filled once per matrix."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("indptr", "indices", "vals")]
+                + [(k, ctypes.c_int) for k in ("device", "n", "ncols", "G")])
+
+
+class DenseLaunch(ctypes.Structure):
+    """What a bfloat16 dense level's product needs beside x, y and the
+    stream (csrc/dense_gemv.cu:DenseLaunch), filled once per level."""
+
+    _fields_ = [("M", ctypes.c_void_p)] + [(k, ctypes.c_int)
+                                           for k in ("device", "n", "ld")]
+
+
 class DiaZonesLaunch(ctypes.Structure):
     """What a multi-kind DIA apply needs beside x, y and the stream
     (csrc/dia_zones.cu:DiaZonesLaunch), filled once per operator."""
@@ -159,6 +175,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ci
         fn = getattr(lib, f"tpufem_perm_apply_{suffix}")
         # PermApplyLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
+        fn.restype = ci
+    for name in ("tpufem_csr_spmv_f32", "tpufem_csr_spmv_f64",
+                 "tpufem_csr_spmv_bf16", "tpufem_dense_gemv_bf16"):
+        fn = getattr(lib, name)
+        # CsrLaunch* or DenseLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
     # device, blocks, grid barriers, stream: the whole-CG kernel's grid

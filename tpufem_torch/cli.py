@@ -11,10 +11,13 @@ writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 
 ``-pc_type amg`` runs lattice-brick AMG (la.bramg) for P1 Poisson and
 elasticity, as does tpufem's fallback where GMG cannot coarsen the
-lattice.  Not ported yet (each raises NotImplementedError naming its
-ROADMAP item): the unstructured mesh, tpufem's generic SA-AMG
-(``-amg_brick off``, and ``-pc_type amg`` at orders above 1), more than
-one shard, --output and --memory_profiling.
+lattice; ``-amg_brick off``, and ``-pc_type amg`` at orders above 1, run
+tpufem's generic SA-AMG (la.amg).  ``--mesh_type unstructured`` builds
+tpufem's spoke mesh and runs Poisson P1 on it (assembled CSR, SA-AMG,
+the constant nullspace deflated).  Not ported yet (each raises
+NotImplementedError naming its ROADMAP item): elasticity, P2/P3 and the
+matrix-free cgpoisson on the unstructured mesh, more than one shard,
+--output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda [--order 2|3]
@@ -22,6 +25,8 @@ Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --ndofs 500000 --scaling_type strong --device cuda [-use_flat 1]
       python -m tpufem_torch --problem_type elasticity --ndofs 500000 \\
           --scaling_type strong --device cuda [-pc_type amg | --order 2|3]
+      python -m tpufem_torch --problem_type poisson --mesh_type \\
+          unstructured --ndofs 150000 --scaling_type strong --device cuda
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from tpufem_torch import __version__
 from tpufem_torch.config import Config, SolverOptions
 from tpufem_torch.la.vector import norm
 from tpufem_torch.logutil import init_logging, int64_to_human
+from tpufem_torch.mesh.spoke import create_spoke_mesh
 from tpufem_torch.mesh.structured import (BoxTetMesh,
                                           compute_box_size_structured)
 from tpufem_torch.problems import cgpoisson, common, elasticity, poisson
@@ -153,11 +159,16 @@ def resolve_device(name: str) -> torch.device:
 
 def _check_scope(cfg: Config) -> None:
     cg = cfg.problem_type == "cgpoisson"
+    spoke = cfg.mesh_type != "cube"
     unported = [
-        (cg and cfg.mesh_type != "cube",
+        (cg and spoke,
          f"--problem_type cgpoisson --mesh_type {cfg.mesh_type} (the "
          "matrix-free gather/scatter action): ROADMAP M9"),
-        (cfg.mesh_type != "cube", f"--mesh_type {cfg.mesh_type}: ROADMAP M14, M15"),
+        (spoke and cfg.problem_type == "elasticity",
+         f"--problem_type elasticity --mesh_type {cfg.mesh_type} (block "
+         "CSR, SA-AMG with the rigid-body modes): ROADMAP M15b"),
+        (spoke and cfg.order != 1,
+         f"--order {cfg.order} --mesh_type {cfg.mesh_type}: ROADMAP M15c"),
         (cfg.num_shards > 1, f"--num_shards {cfg.num_shards}: ROADMAP M16"),
         (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
         (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),
@@ -199,16 +210,22 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
         with Timer("ZZZ Build kernels"):
             _build.load()
 
+    strong = cfg.scaling_type == "strong"
     with Timer("ZZZ Create Mesh"):
-        nx, ny, nz, r = compute_box_size_structured(
-            cfg.ndofs, cfg.scaling_type == "strong", cfg.dofs_per_node,
-            cfg.order, 1)
-        mesh = BoxTetMesh(nx, ny, nz)
-        print(f"UnitCube ({nx >> r}x{ny >> r}x{nz >> r}) to be "
-              f"refined {r} times", flush=True)
+        if cfg.mesh_type == "cube":
+            nx, ny, nz, r = compute_box_size_structured(
+                cfg.ndofs, strong, cfg.dofs_per_node, cfg.order, 1)
+            mesh = BoxTetMesh(nx, ny, nz)
+            print(f"UnitCube ({nx >> r}x{ny >> r}x{nz >> r}) to be "
+                  f"refined {r} times", flush=True)
+        else:
+            mesh = create_spoke_mesh(cfg.ndofs, strong, cfg.dofs_per_node, 1)
 
     with Timer("ZZZ Create facets and facet->cell connectivity"):
-        mesh.boundary_facet_cells(mesh.boundary_faces())
+        if cfg.mesh_type == "cube":
+            mesh.boundary_facet_cells(mesh.boundary_faces())
+        else:
+            common.facet_to_cell(mesh.cell_faces(), mesh.boundary_faces())
 
     problems = {"poisson": poisson.problem, "cgpoisson": cgpoisson.problem,
                 "elasticity": elasticity.problem}

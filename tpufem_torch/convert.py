@@ -3,8 +3,9 @@
 Every function takes tpufem's state as numpy arrays (never jax objects):
 a tpufem ``DiaOperator`` built with ``device=False`` (scalar, or planar
 bs = 3), a ``StructuredOperator``'s element matrices and mask (scalar,
-or blocked bs = 3), a ``GMG``'s or a ``BrickAMG``'s per-level arrays and a
-``FlatOperator``'s tables read back with ``np.asarray``.  The tests use them to
+or blocked bs = 3), a ``GMG``'s, a ``BrickAMG``'s or an ``SAAMG``'s
+per-level arrays and a ``FlatOperator``'s tables read back with
+``np.asarray``.  The tests use them to
 run both packages on identical weights; on a card the port builds the
 same arrays itself (no jax there), and the tests check that its builders
 agree with tpufem's.
@@ -17,12 +18,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpufem_torch.fem.csr_spmv import CsrMatrix
+from tpufem_torch.fem.dense_gemv import DenseMat
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.fem.flat_op import FlatGeom, FlatOperator
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             dof_slice_plan, grid_layout,
                                             to_planar)
 from tpufem_torch.mesh.structured import BoxTetMesh
+from tpufem_torch.la.amg import SAAMG
 from tpufem_torch.la.bramg import BrickAMG, _BLevel
 from tpufem_torch.la.gmg import GLevel, GMG
 
@@ -147,3 +151,73 @@ def flat_from_numpy(W0, AZT, slot_of, TY, TX, BYZ, BZX, BYX, CC, fmask,
            for k, v in tables.items()},
         geom=FlatGeom(*geom), channels=tuple(tuple(c) for c in channels),
         layout=layout)
+
+
+def ell_to_csr(cols: np.ndarray, vals: np.ndarray, ncols: int,
+               ov_rows: Optional[np.ndarray] = None,
+               ov_cols: Optional[np.ndarray] = None,
+               ov_vals: Optional[np.ndarray] = None):
+    """A tpufem ``ELLMatrix`` (scalar: padded [n, K] ``cols`` / ``vals``
+    and the COO spill tail) as a scipy CSR matrix; the padding entries
+    (value 0) are dropped."""
+    import scipy.sparse as sp
+    n, K = cols.shape
+    rows = np.repeat(np.arange(n), K)
+    c, v = cols.reshape(-1).astype(np.int64), vals.reshape(-1)
+    if ov_rows is not None:
+        rows = np.concatenate([rows, ov_rows.astype(np.int64)])
+        c = np.concatenate([c, ov_cols.astype(np.int64)])
+        v = np.concatenate([v, ov_vals])
+    keep = v != 0
+    M = sp.coo_matrix((v[keep], (rows[keep], c[keep])),
+                      shape=(n, ncols)).tocsr()
+    M.sort_indices()
+    return M
+
+
+def saamg_from_numpy(levels: Sequence[dict], coarse_inv: np.ndarray,
+                     smoother_degree: int, level_sizes: Sequence[int],
+                     device: torch.device) -> SAAMG:
+    """A port SA-AMG hierarchy from a tpufem ``SAAMG``'s arrays.  Each
+    level is a dict of ``dinv``, ``lmax`` and either ``fw`` / ``fcols`` /
+    ``omega_dinv`` (the factored fine level) or ``P`` / ``PT``, each an
+    ELL tuple (cols, vals, ov_rows, ov_cols, ov_vals); its ``A`` is None,
+    an ELL tuple or ``("dense", M)`` (tpufem's ``DenseMat``: bfloat16
+    values for float32 solves, read back as float32)."""
+    from tpufem_torch.la.amg import SALevel, factored_transfers
+    dtype = torch.float32 if coarse_inv.dtype == np.float32 else torch.float64
+
+    def csr(t, ncols):
+        return CsrMatrix.from_scipy(ell_to_csr(*t[:2], ncols, *t[2:]),
+                                    dtype, device)
+
+    out = []
+    for i, lv in enumerate(levels):
+        n, nc = int(level_sizes[i]), int(level_sizes[i + 1])
+        A = lv.get("A")
+        if A is not None and isinstance(A[0], str):
+            M = np.array(A[1])
+            if dtype == torch.float32:  # tpufem stores the level bf16
+                Mp = torch.zeros(n, -(-n // 8) * 8, dtype=torch.bfloat16)
+                Mp[:, :n] = torch.from_numpy(M.astype(np.float32)).to(
+                    torch.bfloat16)
+                A = DenseMat(Mp.to(device), n)
+            else:
+                A = DenseMat(torch.from_numpy(M).to(device), n)
+        elif A is not None:
+            A = csr(A, n)
+        dinv = torch.from_numpy(np.array(lv["dinv"])).to(device)
+        if lv.get("fw") is not None:
+            P0, P0T = factored_transfers(np.asarray(lv["fcols"]),
+                                         np.asarray(lv["fw"]), nc, dtype,
+                                         device)
+            out.append(SALevel(A=A, P=None, PT=None, dinv=dinv,
+                               lmax=float(lv["lmax"]), P0=P0, P0T=P0T,
+                               omega_dinv=torch.from_numpy(np.array(
+                                   lv["omega_dinv"])).to(device)))
+        else:
+            out.append(SALevel(A=A, P=csr(lv["P"], nc), PT=csr(lv["PT"], n),
+                               dinv=dinv, lmax=float(lv["lmax"])))
+    return SAAMG(levels=out, coarse_inv=torch.from_numpy(
+        np.array(coarse_inv)).to(device), smoother_degree=smoother_degree,
+        level_sizes=list(level_sizes))

@@ -1,17 +1,24 @@
-"""Host float64 cell geometry and the Poisson and elasticity element
+"""Host float64 cell geometry, the Poisson and elasticity element
 stiffness (numpy; counterpart of tpufem/fem/assemble.py:280-347 and
-tpufem/fem/kernels.py:73-77, 180-200).
+tpufem/fem/kernels.py:73-77, 180-200), and the assembled operator of the
+unstructured path (tpufem/fem/assemble.py:38-75, 350-426).
 
 The structured path needs the element matrices of the six Kuhn tet
-shapes only, so assembly is this closed-form geometry on the host.
+shapes only, so its assembly is this closed-form geometry on the host.
+The unstructured path assembles tpufem's BC-eliminated CSR on the host
+(the native pass where the library loads) and ships it to the device as
+a ``CsrMatrix`` (fem.csr_spmv), where tpufem builds a padded ELL.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
+import torch
 
+from tpufem_torch import native
 from tpufem_torch.fem.reference import ReferenceTet
 
 
@@ -96,3 +103,134 @@ def _elasticity_stiffness_np(coords: np.ndarray, order: int) -> np.ndarray:
          + lam * np.einsum("car,cbs->cabrs", Jinv, Jinv))
     C = C * adet[:, None, None, None, None]
     return (C.reshape(-1, 81) @ TT).reshape(-1, 3 * n, 3 * n)
+
+
+def detJ_np(coords: np.ndarray) -> np.ndarray:
+    """Host float64 |detJ| [C] alone (the RHS volume term's measure)."""
+    return np.abs(_cell_jacobians(coords)[4])
+
+
+# ---------------------------------------------------------------------------
+# Assembled operators (the unstructured path): tpufem's host CSR build,
+# then a device CsrMatrix in place of its padded ELL
+# ---------------------------------------------------------------------------
+
+
+def coo_to_csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+               n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dedupe-summed CSR from COO triplets, ``vals`` [nnz] or
+    [nnz, bs, bs]: (indptr, indices, data) (tpufem/fem/assemble.py:38-75).
+    Scalar entries take the native pass or a numpy fallback of the same
+    semantics (exact-zero sums dropped, float64 data); block entries
+    keep every block."""
+    scalar = vals.ndim == 1
+    if scalar:
+        got = native.coo_to_csr_dedup(rows, cols, vals, n)
+        if got is not None:
+            indptr, ucols, data = got
+            return indptr, ucols.astype(np.int64), data
+        vals = vals.astype(np.float64)
+    key = rows.astype(np.int64) * n + cols.astype(np.int64)
+    order = native.argsort_u64(key)
+    key = key[order]
+    vals = vals[order]
+    boundaries = np.concatenate([[0], np.nonzero(np.diff(key))[0] + 1])
+    ukey = key[boundaries]
+    data = np.add.reduceat(vals, boundaries, axis=0)
+    urows = (ukey // n).astype(np.int64)
+    ucols = (ukey % n).astype(np.int64)
+    if scalar:  # as the native route: drop exact-zero sums
+        keep = data != 0.0
+        data, urows, ucols = data[keep], urows[keep], ucols[keep]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, urows + 1, 1)
+    indptr = np.cumsum(indptr)
+    return indptr, ucols, data
+
+
+def assemble_csr_np(space, bc, problem: str, chunk: int = 1 << 18
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The stiffness operator as host CSR triplets (indptr, indices int64,
+    data float64; block CSR [nnz, bs, bs] for bs > 1), BC rows and columns
+    zeroed and a unit diagonal on BC dofs (tpufem/fem/assemble.py:350-426,
+    the same arrays)."""
+    coords_all = space.mesh.cell_coords()
+    cell_dofs = space.cell_dofs
+    C = coords_all.shape[0]
+    n = space.ndofs_per_cell
+    bs = space.bs
+
+    if problem == "poisson":
+        kern = lambda c: _poisson_stiffness_np(c, space.order)
+    elif problem == "elasticity":
+        kern = lambda c: _elasticity_stiffness_np(c, space.order)
+    else:
+        raise ValueError(problem)
+
+    N = space.ndofs_scalar
+    indptr = indices = data = None
+    if bs == 1 and native.have_native():
+        # element tensors in one array, triplets and dedup in one native pass
+        A_all = np.empty((C, n, n), dtype=np.float64)
+        for start in range(0, C, chunk):
+            end = min(start + chunk, C)
+            A_all[start:end] = kern(coords_all[start:end])
+        got = native.cells_to_csr(cell_dofs, A_all, N)
+        if got is not None:
+            indptr, icols, data = got
+            indices = icols.astype(np.int64)
+        del A_all
+    if indptr is None:
+        rows_parts, cols_parts, vals_parts = [], [], []
+        for start in range(0, C, chunk):
+            end = min(start + chunk, C)
+            A = kern(coords_all[start:end])  # [c, bn, bn]
+            cd = cell_dofs[start:end]
+            r = np.repeat(cd, n, axis=1)            # [c, n*n] block rows
+            cidx = np.tile(cd, (1, n))              # [c, n*n] block cols
+            if bs == 1:
+                v = A.reshape(end - start, n * n)
+            else:
+                # A is [(3i+r),(3j+s)] interleaved; regroup to [i,j,r,s]
+                v = A.reshape(end - start, n, bs, n,
+                              bs).transpose(0, 1, 3, 2, 4)
+                v = v.reshape(end - start, n * n, bs, bs)
+            rows_parts.append(r.reshape(-1))
+            cols_parts.append(cidx.reshape(-1))
+            vals_parts.append(v.reshape((-1,) + v.shape[2:]))
+        indptr, indices, data = coo_to_csr(np.concatenate(rows_parts),
+                                           np.concatenate(cols_parts),
+                                           np.concatenate(vals_parts), N)
+
+    if bc is not None and bc.flat_dofs().size > 0:
+        mask = bc.mask()
+        rows_of = np.repeat(np.arange(N), np.diff(indptr))
+        onrow = mask[rows_of]
+        oncol = mask[indices]
+        diag = rows_of == indices
+        if bs == 1:
+            data = np.where(onrow | oncol, 0.0, data)
+            data = np.where(diag & mask[rows_of], 1.0, data)
+        else:
+            data[onrow | oncol] = 0.0
+            data[diag & onrow] = np.eye(bs)
+    return indptr, indices, data
+
+
+def assemble_operator(space, bc, problem: str, dtype: torch.dtype,
+                      device: torch.device):
+    """(device CsrMatrix, host CSR triplets) of the BC-eliminated stiffness
+    operator: tpufem's ``assemble_operator`` (tpufem/fem/assemble.py:350),
+    with a CSR matrix on ``device`` where tpufem builds a capped ELL.  A
+    block CSR (bs > 1) goes to the device in its scalar expansion."""
+    from tpufem_torch.fem.csr_spmv import CsrMatrix
+    csr = assemble_csr_np(space, bc, problem)
+    indptr, indices, data = csr
+    if data.ndim == 3:
+        import scipy.sparse as sp
+        nb = indptr.shape[0] - 1
+        bs = data.shape[1]
+        M = sp.bsr_matrix((data, indices, indptr),
+                          shape=(nb * bs, nb * bs)).tocsr()
+        return CsrMatrix.from_scipy(M, dtype, device), csr
+    return CsrMatrix.from_csr(indptr, indices, data, dtype, device), csr

@@ -203,8 +203,9 @@ class DiaOperator:
         if self.bs > 1 and not self.planar:
             raise NotImplementedError(
                 "an interleaved bs = 3 operator on a device: the port runs "
-                "elasticity planar (tpufem's interleaved form serves its "
-                "SA-AMG, ROADMAP M14)")
+                "elasticity planar, its SA-AMG included (the interleaved "
+                "form is host-only: the certification twin, the lmax "
+                "surrogate and the CSR export SA-AMG coarsens)")
         if self.bs > 1 and self.multi_kind:
             raise NotImplementedError(
                 "a blocked P2/P3 DiaOperator on a device: the blocked P2/P3 "

@@ -254,8 +254,7 @@ class StructuredOperator:
         if not planar:
             raise NotImplementedError(
                 "an interleaved bs = 3 operator on a device: the port runs "
-                "elasticity planar (tpufem's interleaved form serves its "
-                "SA-AMG, ROADMAP M14)")
+                "elasticity planar (the interleaved form is host-only)")
         dtype = torch.float32 if Ap.dtype == np.float32 else torch.float64
         pack = pack_perm(Ap, dof_slice_plan(layout.order), layout.kinds,
                          (layout.Nx, layout.Ny, layout.Nz), mask, dtype,

@@ -216,7 +216,7 @@ def _power_lmax_np(plan, fields, adims, m, dinv_c, iters: int = 20) -> float:
 
 def brick_viable(mesh, order: int, options) -> bool:
     """Use BrickAMG on this problem?  Structured P1 only (higher orders
-    take tpufem's generic SA path, ROADMAP M14); opt-out via -amg_brick."""
+    take tpufem's generic SA path, la.amg); opt-out via -amg_brick."""
     if str(options.get("amg_brick", "auto")) == "off":
         return False
     return isinstance(mesh, BoxTetMesh) and order == 1

@@ -233,8 +233,7 @@ class GMG:
         if bs > 1 and not planar:
             raise NotImplementedError(
                 "the interleaved bs = 3 GMG (the port runs elasticity in "
-                "the planar layout; tpufem's interleaved layout serves its "
-                "SA-AMG, ROADMAP M14)")
+                "the planar layout)")
         planar = planar and bs > 1
 
         def level_bc(m: BoxTetMesh, k: int) -> DirichletBC:

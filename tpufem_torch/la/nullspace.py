@@ -6,7 +6,7 @@ src/elasticity_problem.cpp:36-94): six modes, three translations and
 three rotations built from dof coordinates, orthonormalized with a hard
 ``is_orthonormal`` check (the PETSc ``MatSetNearNullSpace`` analogue,
 elasticity_problem.cpp:239-241).  Only algebraic multigrid consumes them
-(brick-AMG, la.bramg; SA-AMG is ROADMAP M14); the elasticity problem
+(brick-AMG, la.bramg; SA-AMG, la.amg); the elasticity problem
 builds them whatever the preconditioner, as the reference times the
 stage ("ZZZ Create near-nullspace").
 """

@@ -1,7 +1,8 @@
 """Shared problem-construction helpers (counterpart of
 tpufem/problems/common.py): the Poisson data f, g and Dirichlet marker,
-the elasticity body force and clamped face, the problem record, and
-dtype resolution to torch dtypes."""
+the elasticity body force and clamped face, the problem record, the
+facet -> cell table of an unstructured mesh, and dtype resolution to
+torch dtypes."""
 
 from __future__ import annotations
 
@@ -25,6 +26,21 @@ class Problem:
     bc: object
     rhs_op: Optional[object] = None  # the device operator of the RHS, if any
     near_nullspace: Optional[np.ndarray] = None  # elasticity: [6, ndofs]
+
+
+def facet_to_cell(cell_faces: np.ndarray,
+                  facets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(cell index, local face index) of each boundary facet: the
+    reference's facet -> cell connectivity (src/main.cpp:148;
+    tpufem/problems/common.py:25-38).  A boundary facet belongs to one
+    cell, so any match is its owner."""
+    flat = cell_faces.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    pos = np.searchsorted(flat[order], facets)
+    hit = order[pos]
+    if not np.array_equal(flat[hit], facets):
+        raise ValueError("facet not found in cell_faces")
+    return hit // cell_faces.shape[1], hit % cell_faces.shape[1]
 
 
 def poisson_f_xy(x, y, xp=np):

@@ -7,8 +7,8 @@ P2/P3: the blocked per-perm StructuredOperator); the rigid-body
 near-nullspace; CG preconditioned by geometric multigrid (at order k > 1
 with the p-transfer to P1), lattice-brick AMG with the near-nullspace
 (``-pc_type amg`` at P1, and where GMG cannot coarsen the lattice),
-Jacobi or nothing, certified against a float64 host twin as Poisson's
-solve is.
+tpufem's generic SA-AMG (``-amg_brick off``), Jacobi or nothing,
+certified against a float64 host twin as Poisson's solve is.
 
 The solve runs in tpufem's component-planar layout (vector index
 ``c * n + i``), in which the operator is ONE launch of the
@@ -21,11 +21,13 @@ operator on the host-interpolated force); float64 runs assemble it on
 the host.
 
 Every preconditioner the port runs takes the planar layout.  tpufem
-keeps it planar at P1 but for its GMG fallback, where it runs brick-AMG
+keeps it planar at P1 but for its GMG fallback and its SA-AMG, which run
 on the interleaved layout, and runs order-k GMG interleaved; the V-cycle
-computes the same values in either layout, so the port runs both
-planar.  ``-amg_brick off`` and ``-pc_type amg`` at order k (tpufem's
-generic SA-AMG on the interleaved CSR) are ROADMAP M14.
+computes the same values in either layout, so the port runs them all
+planar (SA-AMG: the hierarchy of the interleaved CSR export, its fine
+level permuted to planar).  ``-pc_type amg`` at order k fails in tpufem
+(its SA-AMG exports no CSR of the blocked StructuredOperator), and the
+port raises there too.
 """
 
 from __future__ import annotations

@@ -18,6 +18,11 @@ time.
         --order 3 --ndofs 500000 --scaling_type strong     # P2/P3 GMG
     python -m tpufem_torch.profile_solve -- --problem_type elasticity \\
         --order 2 --ndofs 500000 --scaling_type strong     # P2/P3 elasticity
+    python -m tpufem_torch.profile_solve -- --problem_type poisson \\
+        --mesh_type unstructured --ndofs 150000 --scaling_type strong \\
+        -ksp_max_it 120                                   # spoke, SA-AMG
+    python -m tpufem_torch.profile_solve -- --ndofs 500000 \\
+        --scaling_type strong -pc_type amg -amg_brick off  # cube SA-AMG
     python -m tpufem_torch.profile_solve --solves 10 -- --ndofs 15000 \\
         --dtype float32 --device cpu                    # CPU: no device rows
 
@@ -44,7 +49,8 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 # the port's CUDA kernels, by the name of their device function
 PORT_KERNELS = ("stencil_p1_kernel", "strip_apply_kernel", "strip_cg_kernel",
                 "flat_interior_kernel", "brick_flat_kernel",
-                "dia_zones_kernel", "perm_apply_kernel")
+                "dia_zones_kernel", "perm_apply_kernel", "csr_spmv_kernel",
+                "dense_gemv_bf16_kernel")
 
 
 def busy_us(intervals) -> float:
