@@ -22,7 +22,8 @@ from tpufem_torch.config import SolverOptions
 from tpufem_torch.fem.csr_spmv import (CsrMatrix, csr_spmv, csr_spmv_bound,
                                        csr_spmv_plain, lanes_for)
 from tpufem_torch.fem.dense_gemv import (DenseMat, dense_gemv_bf16,
-                                         dense_gemv_bound)
+                                         dense_gemv_bound, dense_gemv_walk,
+                                         dense_pieces, dense_smem_bytes)
 from tpufem_torch.fem.dia_op import build_operator
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.space import FunctionSpace
@@ -331,6 +332,48 @@ def test_dense_bf16_plain_matches_tpufem_densemat(n):
     assert np.all(np.abs(y.numpy() - want) <= 2 * dense_gemv_bound(D, x).numpy())
     D64 = DenseMat.from_csr(S.indptr, S.indices, S.data, n, F64, CPU)
     assert np.array_equal(D64.M.numpy(), Md)
+
+
+# the persistent grid on an H100: 132 SMs x 2 blocks of 8 warps
+_H100_WARPS = 132 * 2 * 8
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9512, 18840, 28377])
+def test_dense_plan_covers_every_row_and_column_once(n):
+    """The dense kernel's plan: equal runs of 16-byte chunks (within one)
+    per warp, every column chunk of every row in exactly one piece, a
+    whole row to y or a tail followed by the heads of the warps after
+    it; bf16(x) within the 227 KB of shared memory up to the densify
+    guard's cap (28,377 rows: 56,768 bytes)."""
+    cpr = -(-n // 8)
+    pieces = dense_pieces(n, _H100_WARPS)
+    runs = [sum(b - a for _, a, b, _ in p) for p in pieces]
+    assert sum(runs) == n * cpr and max(runs) - min(runs) <= 1
+    seen = {}
+    for w, p in enumerate(pieces):
+        for r, a, b, where in p:
+            seen.setdefault(r, []).append((w, a, b, where))
+    assert sorted(seen) == list(range(n))
+    for r, ps in seen.items():
+        assert [a for _, a, _, _ in ps] == [0] + [b for _, _, b, _ in ps[:-1]]
+        assert ps[-1][2] == cpr
+        kinds = [where for _, _, _, where in ps]
+        assert kinds in (["y"], ["tail"] + ["head"] * (len(ps) - 1))
+    assert dense_smem_bytes(n) <= 232448
+    assert dense_smem_bytes(28377) == 56768
+
+
+@pytest.mark.parametrize("n,warps", [(7, 5), (333, 64), (1001, _H100_WARPS)])
+def test_dense_plan_walk_gives_the_plain_product(n, warps):
+    """The plan walked in plain PyTorch (whole rows, and rows split over
+    several warps summed in warp order) gives the plain product within
+    dense_gemv_bound."""
+    rng = np.random.default_rng(n)
+    S = sp.csr_matrix(rng.standard_normal((n, n)) * (rng.random((n, n)) < .3))
+    D = DenseMat.from_csr(S.indptr, S.indices, S.data, n, torch.bfloat16, CPU)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    err = (dense_gemv_walk(D, x, warps) - dense_gemv_bf16(D, x)).abs()
+    assert bool((err <= dense_gemv_bound(D, x)).all())
 
 
 # -- the V-cycle on tpufem's hierarchy ------------------------------------------

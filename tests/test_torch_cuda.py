@@ -774,24 +774,26 @@ def _perm_op(order, dims, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("order,dims", [
     (2, (2, 3, 2)), (3, (2, 3, 2)), (2, (24, 24, 32)), (3, (16, 16, 24)),
-    (3, (5, 3, 7))],
-    ids=["P2-2x3x2", "P3-2x3x2", "P2-500k", "P3-500k", "P3-odd"])
+    (3, (5, 3, 7)), (2, (5, 1, 6)), (3, (1, 6, 3)), (3, (6, 5, 1)),
+    (2, (9, 2, 13))],
+    ids=["P2-2x3x2", "P3-2x3x2", "P2-500k", "P3-500k", "P3-odd",
+         "P2-5x1x6", "P3-1x6x3", "P3-6x5x1", "P2-9x2x13"])
 def test_perm_apply_kernel_matches_plain(device, order, dims, dtype):
     """Lattices where every entry lies near the boundary (2x3x2 cubes), the
-    500k fine operators (hundreds of blocks an output, more than the
-    card's SMs; P3 f64 stages the most shared memory, 36,576 bytes a
-    block) and an odd lattice: one launch an apply, through the
+    500k fine operators (192 / 576 bricks of 8 x 2 x 2 cubes; P3 f64
+    stages the most shared memory, 139,376 bytes a block), an odd
+    lattice and lattices one cube thick or not a multiple of the brick
+    (ragged bricks): one launch an apply, through the
     operator's prepared launch and the public wrapper, within
-    perm_apply_bound of the plain version; Dirichlet rows return x
-    exactly."""
+    perm_apply_bound of the plain version, the same bits twice;
+    Dirichlet rows return x exactly."""
     from tpufem_torch.fem.perm_apply import (perm_apply, perm_apply_bound,
                                              perm_apply_plain)
     op = _perm_op(order, dims, dtype, device)
     pack = op.pack
     assert pack.mask.any()
-    if dims[0] > 8:  # blocks with work, over all outputs
-        pts = np.prod(pack.kinds[pack.outputs[:, 0], 1:4], axis=1)
-        assert ((pts * pack.outputs[:, 4] + 255) // 256).sum() > 132
+    if dims[0] >= 16:  # the 500k operators: more bricks than SMs
+        assert np.prod(pack.bricks) > 132
     x = torch.from_numpy(np.random.default_rng(order).standard_normal(
         3 * pack.ns)).to(device, dtype)
     before = perm_apply.launches
@@ -802,6 +804,7 @@ def test_perm_apply_kernel_matches_plain(device, order, dims, dtype):
     assert bool(((y - yp).abs() <= perm_apply_bound(x, pack)).all())
     assert torch.equal(y[pack.mask], x[pack.mask])
     assert torch.equal(perm_apply(x, pack), y)
+    assert torch.equal(op.apply(x), y)
     assert bool(torch.isfinite(y).all())
 
 
@@ -834,14 +837,21 @@ def test_perm_apply_on_a_side_stream_and_refusals(device):
     lib = _build.load().lib
     Nx, Ny, Nz = pack.dims
     stream = torch.cuda.current_stream().cuda_stream
-    for n, max_entries in ((7, pack.max_entries), (pack.n, 1000)):
+    bx, by, bz = pack.bricks
+    Y = torch.empty(6 * 3 * pack.n * pack.y_cubes, device=device)
+    for n, nchan, nout in ((7, len(pack.chans), len(pack.outputs)),
+                           (pack.n, 2000, len(pack.outputs)),
+                           (pack.n, len(pack.chans), 0)):
         bad = _build.PermApplyLaunch(
-            W=pack.weights.data_ptr(), entries=pack.dev_entries.data_ptr(),
+            W=pack.weights.data_ptr(), Y=Y.data_ptr(),
+            entries=pack.dev_entries.data_ptr(),
             outputs=pack.dev_outputs.data_ptr(),
             sources=pack.dev_sources.data_ptr(),
-            kinds=pack.dev_kinds.data_ptr(), mask=pack.mask.data_ptr(),
-            device=0, n=n, ns=pack.ns, nout=len(pack.outputs), Nx=Nx, Ny=Ny,
-            Nz=Nz, max_entries=max_entries, max_blocks=pack.max_blocks)
+            kinds=pack.dev_kinds.data_ptr(), chans=pack.dev_chans.data_ptr(),
+            mask=pack.mask.data_ptr(), bc=pack.dev_bc_bricks.data_ptr(),
+            device=0, n=n, ns=pack.ns, nout=nout,
+            nchan=nchan, Nx=Nx, Ny=Ny, Nz=Nz, bx=bx, by=by, bz=bz,
+            max_points=pack.max_points)
         rc = lib.tpufem_perm_apply_f32(ctypes.addressof(bad), x.data_ptr(),
                                        y.data_ptr(), stream)
         assert rc != 0 and lib.tpufem_cuda_error_string(rc)
@@ -936,18 +946,33 @@ def test_csr_spmv_on_a_side_stream_and_refusals(device):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("n", [1, 7, 8, 333, 4096])
+@pytest.mark.parametrize("n", [1, 7, 8, 333, 4096, 9512, 18840, 25001])
 def test_dense_gemv_bf16_kernel_matches_plain(device, n):
     """The bf16 level's product against its plain version within
-    dense_gemv_bound (ragged and aligned widths), float32 out."""
+    dense_gemv_bound (ragged and aligned widths; the spoke 500k level's
+    9,512 rows, elasticity P1's 18,840 and a width whose bf16(x) takes
+    more than 48 KB of shared memory), float32 out, the same bits on
+    two launches."""
     import scipy.sparse as sp
     from tpufem_torch.fem.dense_gemv import (DenseMat, dense_gemv_bf16,
                                              dense_gemv_bf16_plain,
-                                             dense_gemv_bound)
+                                             dense_gemv_bound,
+                                             dense_smem_bytes)
     rng = np.random.default_rng(n)
-    S = sp.csr_matrix(rng.standard_normal((n, n)) * (rng.random((n, n)) < .3))
-    D = DenseMat.from_csr(S.indptr, S.indices, S.data, n, torch.bfloat16,
-                          device)
+    if n <= 4096:
+        S = sp.csr_matrix(rng.standard_normal((n, n))
+                          * (rng.random((n, n)) < .3))
+        D = DenseMat.from_csr(S.indptr, S.indices, S.data, n, torch.bfloat16,
+                              device)
+    else:  # made on the card: the host would hold n^2 float64
+        gen = torch.Generator(device=device).manual_seed(n)
+        M = torch.zeros(n, -(-n // 8) * 8, dtype=torch.bfloat16,
+                        device=device)
+        M[:, :n] = torch.randn(n, n, generator=gen, device=device).to(
+            torch.bfloat16)
+        D = DenseMat(M, n)
+    if n > 24576:
+        assert dense_smem_bytes(n) > 48 * 1024
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
     before = dense_gemv_bf16.launches
     y = D.matvec(x)

@@ -28,10 +28,12 @@ from tpufem.problems import common as tpu_common
 from tpufem_torch import convert
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator
 from tpufem_torch.fem.dirichlet import DirichletBC
-from tpufem_torch.fem.perm_apply import perm_apply, perm_apply_plain
+from tpufem_torch.fem.perm_apply import (pack_perm, perm_apply,
+                                         perm_apply_bound, perm_apply_plain)
 from tpufem_torch.fem.space import FunctionSpace
-from tpufem_torch.fem.structured_op import (StructuredOperator, to_planar,
-                                            to_interleaved)
+from tpufem_torch.fem.structured_op import (StructuredOperator,
+                                            dof_slice_plan, grid_layout,
+                                            to_interleaved, to_planar)
 from tpufem_torch.la import gmg
 from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.problems import common
@@ -78,53 +80,82 @@ def test_planar_apply_matches_tpufem(order, dims, with_bc):
 
 
 def _kernel_walk(x: np.ndarray, pack) -> np.ndarray:
-    """csrc/perm_apply.cu's loops on the pack's tables, in numpy over all
-    the points of an output at once: lane g of G sums the entries g, g +
-    G, ... (the cube test, the source descriptors, the weights W[e, li,
-    b, a], the mask on sources), the lanes' totals summed by the shuffle
-    tree, the mask on outputs."""
+    """csrc/perm_apply.cu's two kernels on the pack's tables, in numpy.
+    The first, per brick of 8 x 2 x 2 cubes: the masked tile [C, 3, 3, 9,
+    3] (zero outside each channel's grid), and Y[p, :, c] = W[p]^T u(p, c)
+    with u gathered through the tile offsets of ``sources``; the second,
+    per output point: the Y of its entries where the cube lies in the
+    lattice, in plan order, and the mask on outputs.  Every output value
+    is written once."""
     W = pack.weights.numpy()
     mask = pack.mask.numpy()
     ns, n = pack.ns, pack.n
     Nx, Ny, Nz = pack.dims
+    bx, by, bz = pack.bricks
+    NxP, NyP = 8 * bx, 2 * by
+    Y = np.full((6, 3 * n, pack.y_cubes), np.nan)
+    tz, ty, tx = np.meshgrid(np.arange(3), np.arange(3), np.arange(9),
+                             indexing="ij")
+    cz, cy, cx = [a.reshape(-1) for a in np.meshgrid(
+        np.arange(2), np.arange(2), np.arange(8), indexing="ij")]
+    for brick in range(bx * by * bz):
+        x0, y0, z0 = (8 * (brick % bx), 2 * ((brick // bx) % by),
+                      2 * (brick // (bx * by)))
+        tile = np.zeros((len(pack.chans), 3, 3, 9, 3))  # [ch, z, y, x, b]
+        gz, gy, gx = z0 + tz, y0 + ty, x0 + tx
+        for ch, (base, X, Yd, Z, slots) in enumerate(pack.chans):
+            ok = (gx < X) & (gy < Yd) & (gz < Z)
+            for b in range(3):
+                j = np.where(ok, b * ns + base + ((gz * Yd + gy) * X + gx)
+                             * slots, 0)
+                # a brick not flagged reads no mask: none may lie there
+                assert pack.bc_bricks[brick] or not (ok & mask[j]).any()
+                tile[ch, ..., b] = np.where(ok & ~mask[j], x[j], 0.0)
+        flat = tile.reshape(-1)
+        tpos = 3 * ((cz * 3 + cy) * 9 + cx)  # the brick's 32 cubes
+        col = ((z0 + cz) * NyP + y0 + cy) * NxP + x0 + cx
+        for p in range(6):
+            U = np.stack([flat[tpos + pack.sources[p * n + li] + b]
+                          for li in range(n) for b in range(3)])
+            Y[p][:, col] = W[p].T @ U
     y = np.full_like(x, np.nan)
-    for ko, so, first, count, lanes in pack.outputs:
-        base, Xo, Yo, Zo, slots = pack.kinds[ko]
+    writes = np.zeros(x.size, dtype=int)
+    for ko, so, first, count in pack.outputs:
+        obase, Xo, Yo, Zo, oslots = pack.kinds[ko]
         q = np.arange(Xo * Yo * Zo)
         qx, qy, qz = q % Xo, (q // Xo) % Yo, q // (Xo * Yo)
-        acc = np.zeros((lanes, 3, q.size))
-        for e in range(first, first + count):
-            code = int(pack.entries[e])
-            cx, cy, cz = qx - (code & 1), qy - ((code >> 1) & 1), \
-                qz - ((code >> 2) & 1)
-            ok = ((cx >= 0) & (cx < Nx) & (cy >= 0) & (cy < Ny)
-                  & (cz >= 0) & (cz < Nz))
-            t = np.zeros((3, q.size))
-            for li in range(n):
-                s0, s1, s2, s3 = pack.sources[(code >> 3) * n + li]
-                j = np.where(ok, s0 + cz * s1 + cy * s2 + cx * s3, 0)
-                for b in range(3):
-                    v = np.where(mask[j + b * ns], 0.0, x[j + b * ns])
-                    t += W[e, li, b][:, None] * v[None]
-            acc[(e - first) % lanes] += np.where(ok, t, 0.0)
-        off = lanes // 2
-        while off:
-            acc[:off] += acc[off: 2 * off]
-            off //= 2
+        acc = np.zeros((3, q.size))
+        for code in pack.entries[first: first + count]:
+            c = (qx - (code & 1), qy - ((code >> 1) & 1),
+                 qz - ((code >> 2) & 1))
+            ok = ((c[0] >= 0) & (c[0] < Nx) & (c[1] >= 0) & (c[1] < Ny)
+                  & (c[2] >= 0) & (c[2] < Nz))
+            at = np.where(ok, (c[2] * NyP + c[1]) * NxP + c[0], 0)
+            p, lo = code >> 8, (code >> 3) & 31
+            acc += np.where(ok, Y[p, 3 * lo: 3 * lo + 3][:, at], 0.0)
         for a in range(3):
-            at = a * ns + base + q * slots + so
-            y[at] = np.where(mask[at], x[at], acc[0, a])
+            ja = a * ns + obase + q * oslots + so
+            y[ja] = np.where(mask[ja], x[ja], acc[a])
+            writes[ja] += 1
+    assert np.all(writes == 1)
     return y
 
 
-@pytest.mark.parametrize("order,dims", [(2, (2, 3, 2)), (3, (3, 2, 4))],
-                         ids=["P2", "P3"])
-def test_kernel_tables_give_the_plain_apply(order, dims):
-    """The kernel's tables, walked as the kernel walks them, cover every
-    output once and give the plain version's apply (float64)."""
+@pytest.mark.parametrize("order,dims,with_bc", [
+    (2, (2, 3, 2), True), (3, (3, 2, 4), True), (2, (2, 3, 2), False),
+    (3, (3, 2, 4), False), (2, (5, 1, 6), True), (3, (5, 1, 6), True),
+    (2, (6, 5, 1), False), (3, (1, 6, 3), False), (3, (6, 5, 1), True)],
+    ids=["P2", "P3", "P2-no-bc", "P3-no-bc", "P2-5x1x6", "P3-5x1x6",
+         "P2-6x5x1-no-bc", "P3-1x6x3-no-bc", "P3-6x5x1"])
+def test_kernel_tables_give_the_plain_apply(order, dims, with_bc):
+    """The kernel's tables, walked brick by brick as the kernel walks them,
+    cover every output once and give the plain version's apply within
+    perm_apply_bound (float64); lattices one cube thick and not a multiple
+    of the 4-position brick leave ragged bricks."""
     op = StructuredOperator.build(BoxTetMesh(*dims), order, "elasticity",
-                                  bc_dofs=_bc(dims, order), dtype=F64,
-                                  device=CPU, planar=True)
+                                  bc_dofs=_bc(dims, order) if with_bc
+                                  else None, dtype=F64, device=CPU,
+                                  planar=True)
     pack = op.pack
     assert len(pack.entries) == 6 * pack.n and pack.max_entries == 24
     assert sorted((int(k), int(s)) for k, s in pack.outputs[:, :2]) == [
@@ -132,12 +163,43 @@ def test_kernel_tables_give_the_plain_apply(order, dims):
         for s in range(slots)]
     assert list(pack.outputs[:, 3]) == sorted(pack.outputs[:, 3],
                                               reverse=True)
-    # 4 lanes share a point of the 24-entry vertex output, 1 elsewhere
-    assert [(int(c), int(g)) for c, g in pack.outputs[:2, 3:]] == [
-        (24, 4), (6, 1)]
+    # the 24-entry vertex output first; entries in plan order by output
+    assert int(pack.outputs[0, 3]) == 24 and int(pack.outputs[1, 3]) == 6
+    for ko, so, first, count in pack.outputs:
+        for code in pack.entries[first: first + count]:
+            p, lo = code >> 8, (code >> 3) & 31
+            kind, off, slot = pack.plan[p][lo]
+            assert (kind, slot) == (ko, so)
+            assert code & 7 == off[0] | off[1] << 1 | off[2] << 2
+    assert len(pack.chans) == {2: 8, 3: 27}[order]
     x = np.random.default_rng(5).standard_normal(3 * pack.ns)
-    want = perm_apply_plain(torch.from_numpy(x), pack).numpy()
-    assert _rel(_kernel_walk(x, pack), want) <= 1e-14
+    xt = torch.from_numpy(x)
+    want = perm_apply_plain(xt, pack).numpy()
+    got = _kernel_walk(x, pack)
+    assert np.all(np.abs(got - want) <= perm_apply_bound(xt, pack).numpy())
+    if dims in ((2, 3, 2), (3, 2, 4)) and with_bc:
+        assert _rel(got, want) <= 1e-14
+
+
+@pytest.mark.parametrize("order,dims,blocks", [
+    (2, (24, 24, 32), (3, 12, 16)), (3, (16, 16, 24), (2, 8, 12))])
+def test_kernel_bricks_and_shared_memory_at_500k(order, dims, blocks):
+    """The 500k fine operators: bricks of 8 x 2 x 2 cubes, more blocks
+    than the card's 132 SMs, and a block's shared memory (the source
+    table, the tile and the matrices of its perms) within the
+    227 KB, P3 float64 the most (139,376 bytes)."""
+    n = {2: 10, 3: 20}[order]
+    lay = grid_layout(BoxTetMesh(*dims), order)
+    pack = pack_perm(np.zeros((6, 3 * n, 3 * n)), dof_slice_plan(order),
+                     lay.kinds, dims, np.zeros(3 * lay.ndofs, dtype=bool),
+                     F64)
+    assert pack.bricks == blocks and np.prod(blocks) > 132
+    assert pack.y_cubes == np.prod(blocks) * 32 >= np.prod(dims)
+    assert pack.smem_bytes(8) <= 232448
+    if order == 3:
+        # 480 + 52,488 bytes, to 16, and the matrices of 3 perms
+        assert pack.smem_bytes(8) == 52976 + 3 * 60 * 60 * 8 == 139376
+        assert pack.smem_bytes(4) == 26736 + 3 * 60 * 60 * 4
 
 
 def test_perm_apply_wrapper_refusals():

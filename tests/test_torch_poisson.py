@@ -90,6 +90,54 @@ def test_profile_solve_on_cpu():
     assert profile_solve.busy_us([(5, 6), (0, 2), (1, 3), (1.5, 2.5)]) == 4
 
 
+def _spans(reps, launches, name="perm_apply_cube_kernel<float, 20>", t=0.0):
+    """A profile's device spans: per call an L2 flush (100 us) and
+    ``launches`` launches of ``name``, 30 us each, back to back."""
+    out = []
+    for _ in range(reps):
+        out.append(("void at::native::reduce_kernel<512, 1>", t, t + 100.0))
+        t += 100.0
+        for _ in range(launches):
+            out.append((f"void (anonymous namespace)::{name}(...)", t,
+                        t + 30.0))
+            t += 30.0
+    return out
+
+
+@pytest.mark.parametrize("reps,launches", [(20, 1), (3, 2)])
+def test_kernel_device_ms_counts_the_kernels_own_spans(reps, launches):
+    """Per call: the kernel's own spans only (not the flush's), reps x
+    launches of them."""
+    from tpufem_torch.profile_solve import kernel_device_ms
+    spans = _spans(reps, launches)
+    assert kernel_device_ms(spans, "perm_apply_cube_kernel", reps,
+                            launches) == pytest.approx(0.030 * launches)
+
+
+def test_kernel_device_ms_refuses_a_missing_or_extra_span():
+    from tpufem_torch.profile_solve import kernel_device_ms
+    spans = _spans(20, 1)
+    with pytest.raises(ValueError, match="19 spans"):
+        kernel_device_ms(spans[:-1], "perm_apply_cube_kernel", 20)
+    with pytest.raises(ValueError, match="expected 40"):
+        kernel_device_ms(spans, "perm_apply_cube_kernel", 20, launches=2)
+    with pytest.raises(ValueError, match="0 spans"):
+        kernel_device_ms(spans, "dense_gemv_bf16", 20)
+
+
+def test_kernel_device_ms_overlapping_spans_count_once():
+    """Two launches of a call that overlap (other streams) count as the
+    union of their intervals; both kernels of a two-kernel call match."""
+    from tpufem_torch.profile_solve import kernel_device_ms
+    spans = [("dense_gemv_bf16_kernel", 0.0, 50.0),
+             ("dense_gemv_bf16_combine", 40.0, 60.0),
+             ("dense_gemv_bf16_kernel", 100.0, 150.0),
+             ("dense_gemv_bf16_combine", 150.0, 152.0),
+             ("reduce_kernel", 55.0, 100.0)]
+    assert kernel_device_ms(spans, "dense_gemv_bf16", 2,
+                            launches=2) == pytest.approx(0.056)
+
+
 def test_import_and_solve_leave_jax_out():
     code = ("import sys\n"
             "from tpufem_torch.cli import main\n"

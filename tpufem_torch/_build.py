@@ -52,8 +52,8 @@ class DenseLaunch(ctypes.Structure):
     """What a bfloat16 dense level's product needs beside x, y and the
     stream (csrc/dense_gemv.cu:DenseLaunch), filled once per level."""
 
-    _fields_ = [("M", ctypes.c_void_p)] + [(k, ctypes.c_int)
-                                           for k in ("device", "n", "ld")]
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("M", "partials")]
+                + [(k, ctypes.c_int) for k in ("device", "n", "ld", "blocks")])
 
 
 class DiaZonesLaunch(ctypes.Structure):
@@ -83,11 +83,11 @@ class PermApplyLaunch(ctypes.Structure):
     (csrc/perm_apply.cu:PermApplyLaunch), filled once per operator."""
 
     _fields_ = ([(k, ctypes.c_void_p)
-                 for k in ("W", "entries", "outputs", "sources", "kinds",
-                           "mask")]
+                 for k in ("W", "Y", "entries", "outputs", "sources",
+                           "kinds", "chans", "mask", "bc")]
                 + [(k, ctypes.c_int)
-                   for k in ("device", "n", "ns", "nout", "Nx", "Ny", "Nz",
-                             "max_entries", "max_blocks")])
+                   for k in ("device", "n", "ns", "nout", "nchan", "Nx", "Ny",
+                             "Nz", "bx", "by", "bz", "max_points")])
 
 
 class StencilLaunch(ctypes.Structure):
@@ -183,6 +183,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         # CsrLaunch* or DenseLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
+    # device, ld -> blocks of the dense kernel's persistent grid, or -error
+    lib.tpufem_dense_gemv_grid.argtypes = [ci, ci]
+    lib.tpufem_dense_gemv_grid.restype = ci
     # device, blocks, grid barriers, stream: the whole-CG kernel's grid
     # through the barriers alone
     lib.tpufem_strip_cg_sync_floor.argtypes = [ci, ci, ci, vp]

@@ -17,20 +17,81 @@ counted in ``dense_gemv_bf16.launches``) or raises.  The kernel and the
 plain version sum in different orders; they agree within
 ``dense_gemv_bound``.  The bfloat16 storage is [n, ld] with ld = n
 rounded up to 8, so every row starts on a 16-byte boundary.
+
+The kernel's launch plan is arithmetic, mirrored here: ``dense_pieces``
+cuts the 16-byte chunks of M (8 columns each, row-major) into one run
+per warp of the persistent grid and says which row pieces go straight to
+y and which to the partial sums that the second step adds in warp order;
+``dense_gemv_walk`` walks that plan in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 
+_WARPS = 8                  # csrc/dense_gemv.cu:kWarps, warps a block
+SMEM_LIMIT = 232448         # shared memory a block may take on sm_90
+
+
 def _ld(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def dense_smem_bytes(n: int) -> int:
+    """Shared memory a block of the kernel takes: bf16(x), ld values."""
+    return 2 * _ld(n)
+
+
+def dense_pieces(n: int, warps: int) -> List[List[Tuple[int, int, int,
+                                                        str]]]:
+    """The kernel's plan (csrc/dense_gemv.cu): per warp of ``warps``, its
+    row pieces (row, first chunk, end chunk, where) in the order it sums
+    them; chunks are 16-byte runs of 8 columns, counted within the row,
+    and ``where`` is "y" (the whole row), "head" (a later piece of the
+    run's first row) or "tail" (the first piece of the run's last row,
+    finished by the heads after it)."""
+    cpr = _ld(n) // 8
+    total = n * cpr
+    out = []
+    for w in range(warps):
+        c0, c1 = total * w // warps, total * (w + 1) // warps
+        pieces = []
+        for r in range(c0 // cpr, (c1 - 1) // cpr + 1 if c1 > c0 else 0):
+            a, b = max(c0, r * cpr) - r * cpr, min(c1, (r + 1) * cpr) - r * cpr
+            where = ("y" if (a, b) == (0, cpr) else "head" if a > 0
+                     else "tail")
+            pieces.append((r, a, b, where))
+        out.append(pieces)
+    return out
+
+
+def dense_gemv_walk(D: "DenseMat", x: torch.Tensor,
+                    warps: int) -> torch.Tensor:
+    """The kernel's plan walked in plain PyTorch (float32, its orders of
+    summation aside): each piece summed, the whole rows to y, every split
+    row's tail and heads added in warp order."""
+    xb = torch.zeros(D.M.shape[1])
+    xb[:D.n] = x.to(torch.bfloat16).float()
+    y = torch.full((D.n,), float("nan"))
+    heads, tails = {}, {}
+    for w, pieces in enumerate(dense_pieces(D.n, warps)):
+        for r, a, b, where in pieces:
+            s = (D.M[r, 8 * a: 8 * b].float() * xb[8 * a: 8 * b]).sum()
+            if where == "y":
+                y[r] = s
+            elif where == "head":
+                heads.setdefault(r, []).append((w, s))
+            else:
+                tails[r] = s
+    for r, s in tails.items():
+        y[r] = s + sum(v for _, v in sorted(heads.pop(r, [])))
+    return y
 
 
 @dataclasses.dataclass
@@ -102,15 +163,23 @@ def dense_gemv_bound(D: DenseMat, x: torch.Tensor) -> torch.Tensor:
 
 def prepare_dense_gemv(D: DenseMat) -> Callable[[torch.Tensor], torch.Tensor]:
     """A launcher ``x -> y`` of the kernel on the CUDA bfloat16 level ``D``,
-    its pointer and dims fixed once.  Counts its launches in
-    ``dense_gemv_bf16.launches``."""
+    its pointer, dims, persistent grid and partial-sum scratch fixed once.
+    Counts its launches in ``dense_gemv_bf16.launches``."""
     from tpufem_torch import _build
     lib = _build.load().lib
-    n, device = D.n, D.M.device
-    args = _build.DenseLaunch(M=D.M.data_ptr(), device=device.index, n=n,
-                              ld=D.M.shape[1])
-    addr = ctypes.addressof(args)
+    n, device, ld = D.n, D.M.device, D.M.shape[1]
     what = f"dense_gemv_bf16 of a {n}-row level"
+    if dense_smem_bytes(n) > SMEM_LIMIT:
+        raise ValueError(f"{what}: bf16(x) takes {dense_smem_bytes(n)} bytes "
+                         f"of shared memory, past {SMEM_LIMIT}")
+    blocks = lib.tpufem_dense_gemv_grid(device.index, ld)
+    if blocks < 1:
+        _build.raise_on(lib, -blocks, what)
+    partials = torch.empty(2 * blocks * _WARPS, dtype=torch.float32,
+                           device=device)
+    args = _build.DenseLaunch(M=D.M.data_ptr(), partials=partials.data_ptr(),
+                              device=device.index, n=n, ld=ld, blocks=blocks)
+    addr = ctypes.addressof(args)
     raw_stream = _build.raw_stream_getter()
     fn, index = lib.tpufem_dense_gemv_bf16, device.index
 
@@ -127,7 +196,8 @@ def prepare_dense_gemv(D: DenseMat) -> Callable[[torch.Tensor], torch.Tensor]:
         dense_gemv_bf16.launches += 1
         return y
 
-    launch.keep = (args, D.M)  # what ``addr`` points into
+    launch.keep = (args, D.M, partials)  # what ``addr`` points into
+    launch.warps = blocks * _WARPS
     return launch
 
 

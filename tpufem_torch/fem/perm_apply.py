@@ -22,33 +22,41 @@ component-planar layout the port solves in.
 ``PermPack`` holds the operator as the kernel takes it, with int32
 tables kept on the host and on the operator's device:
 
-- ``weights`` [E, n, 3, 3]: entry e = (p, lo)'s rows of Ap[p], as
-  W[e, li, b, a] = Ap[p][3 lo + a][3 li + b], entries grouped by output;
-- ``entries`` [E]: p << 3 | off_lo (the cube offset's x, y, z bits);
-- ``outputs`` [O, 5]: (kind, slot, first entry, entry count, lanes G)
-  for every (kind, slot) of the layout, heaviest first (the kernel's
-  block order); G lanes share an output point, each summing every G-th
-  entry (``_lanes``: about 6 entries a lane, so the vertex output's 24
-  entries cost a thread what an edge output's 6 do);
-- ``sources`` [6 n, 4]: per (p, li), the scalar source index of cube c
-  as ``s0 + cz * s1 + cy * s2 + cx * s3``;
+- ``weights`` [6, 3n, 3n]: W[p, k, r] = Ap[p][r][k], a column of Ap a
+  row, so that a thread's 6 rows of a column lie side by side;
+- ``entries`` [E]: p << 8 | lo << 3 | off_lo (the cube offset's x, y, z
+  bits), grouped by output in plan order;
+- ``outputs`` [O, 4]: (kind, slot, first entry, entry count) for every
+  (kind, slot) of the layout, heaviest first;
+- ``chans`` [C, 5]: per channel, a (kind, slot) pair, (base + slot, X,
+  Y, Z, slots): where its values sit in a planar component;
+- ``sources`` [6 n]: per (p, li), 3 (ch * 81 + the tile offset of
+  off_li): where the source of a cube sits in a brick's tile, relative
+  to the cube's own position;
 - ``kinds`` [K, 5]: the layout's (base, X, Y, Z, slots).
 
-P2 has 60 entries over 8 outputs (4-24 each), P3 120 over 27 (2-24).
+The first kernel's block owns a brick of 8 x 2 x 2 cubes (``bricks``),
+stages the masked source values of its cubes, [C, 3, 3, 9, 3] (a halo of
+one position on the high side; the mask is read only in the bricks that
+``bc_bricks`` flags), and writes Y[p, :, c] = Ap[p] u(p, c) for them, 6
+(P2) or 3 (P3) perms a block, into a scratch [6, 3n, ``y_cubes``]; the
+second adds the Y of each output point's entries.  P2 has 60 entries
+over 8 outputs (4-24 each) and 8 channels, P3 120 over 27 (2-24) and 27.
 
 ``perm_apply`` takes the plain version only for tensors that lie on the
-CPU; for a CUDA tensor it launches the kernel of csrc/perm_apply.cu (one
-launch an apply, the mask fused, counted in ``perm_apply.launches``) or
-raises.  ``prepare_perm_apply`` fixes what does not change between the
-applies of one operator and returns the launcher ``x -> y`` that a
+CPU; for a CUDA tensor it launches the kernels of csrc/perm_apply.cu
+(the cube products, then the output sums: one launch of the wrapper an
+apply, the mask fused, counted in ``perm_apply.launches``) or raises.
+``prepare_perm_apply`` fixes what does not change between the applies
+of one operator and returns the launcher ``x -> y`` that a
 StructuredOperator keeps.
 
 The plain version is tpufem's arithmetic (one [3n, 3n] x [3n, Q]
 product per perm, the n results added at their slices in perm and plan
-order); the kernel sums each output point's entries in plan order, each
-entry's 3n products in a fused multiply-add chain.  Both are within (3n
-+ E_o) eps sum |terms| of the exact sum, so they agree to twice that
-(``perm_apply_bound``), not bit for bit.
+order); the kernel takes each Y value as a fused multiply-add chain of
+its 3n products and sums each output point's entries in plan order.
+Both are within (3n + E_o) eps sum |terms| of the exact sum, so they
+agree to twice that (``perm_apply_bound``), not bit for bit.
 """
 
 from __future__ import annotations
@@ -60,19 +68,17 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-_THREADS = 256            # csrc/perm_apply.cu:kThreads
-_SMEM_LIMIT = 48 * 1024   # static shared memory a block may take
 _NLOCAL = (10, 20)        # scalar dofs of a P2 / P3 cell the kernel takes
-_MAX_LANES = 8            # lanes sharing an output point: a power of 2
+_BRICK = (8, 2, 2)        # csrc/perm_apply.cu:kCX, kCY, kCZ: cubes a block
+_TILE = tuple(b + 1 for b in _BRICK)      # positions: a high-side halo
+_TILE_VOL = int(np.prod(_TILE))           # csrc/perm_apply.cu:kTileVol
+_SMEM_LIMIT = 232448      # shared memory a block may take on sm_90
+_PERMS = {10: 6, 20: 3}   # csrc/perm_apply.cu:Tiling::kPerms, perms a block
 
 
-def _lanes(count: int) -> int:
-    """Lanes G that share an output point of ``count`` entries: the largest
-    power of two up to _MAX_LANES that leaves each lane 6 or more."""
-    g = 1
-    while 2 * g <= _MAX_LANES and count >= 12 * g:
-        g *= 2
-    return g
+def _tile_offset(off) -> int:
+    dx, dy, dz = off
+    return (dz * _TILE[1] + dy) * _TILE[0] + dx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +86,10 @@ class PermPack:
     """A blocked per-perm operator as the kernel and its plain version take
     it (module docstring).  ``Ap``, ``weights``, ``mask`` and the ``dev_*``
     tables lie on the operator's device; ``entries``, ``outputs``,
-    ``sources`` and ``kinds`` are the host copies."""
+    ``sources``, ``kinds`` and ``chans`` are the host copies."""
 
     Ap: torch.Tensor        # [6, 3n, 3n]
-    weights: torch.Tensor   # [E, n, 3, 3]
+    weights: torch.Tensor   # [6, 3n, 3n]: Ap transposed
     mask: torch.Tensor      # [3 ns] bool, planar
     plan: Tuple             # dof_slice_plan(order)
     dims: Tuple[int, int, int]  # cubes (Nx, Ny, Nz)
@@ -91,10 +97,14 @@ class PermPack:
     outputs: np.ndarray
     sources: np.ndarray
     kinds: np.ndarray
+    chans: np.ndarray
+    bc_bricks: np.ndarray
     dev_entries: torch.Tensor
     dev_outputs: torch.Tensor
     dev_sources: torch.Tensor
     dev_kinds: torch.Tensor
+    dev_chans: torch.Tensor
+    dev_bc_bricks: torch.Tensor
 
     @property
     def n(self) -> int:
@@ -112,20 +122,56 @@ class PermPack:
         return int(self.outputs[:, 3].max())
 
     @property
-    def max_blocks(self) -> int:
-        """Blocks of the largest output: its points x lanes over a block's
-        threads."""
-        pts = np.prod(self.kinds[self.outputs[:, 0], 1:4].astype(np.int64),
-                      axis=1)
-        return int(((pts * self.outputs[:, 4] + _THREADS - 1)
-                     // _THREADS).max())
+    def max_points(self) -> int:
+        """Points of the largest output grid."""
+        return int(np.prod(self.kinds[self.outputs[:, 0], 1:4],
+                           axis=1).max())
 
-    def smem_bytes(self) -> int:
-        """Shared memory a block stages: the source table, and the weights
-        and entry codes of the heaviest output."""
-        item = self.weights.element_size()
-        return (6 * self.n * 16
-                + self.max_entries * (9 * self.n * item + 4))
+    @property
+    def bricks(self) -> Tuple[int, int, int]:
+        """Bricks of 8 x 2 x 2 cubes along x, y, z (the last ones may hang
+        past the lattice)."""
+        return _bricks(self.dims)
+
+    @property
+    def y_cubes(self) -> int:
+        """Cubes of the scratch Y: the bricks' cubes."""
+        return int(np.prod(self.bricks) * np.prod(_BRICK))
+
+    def smem_bytes(self, item: Optional[int] = None) -> int:
+        """Shared memory a block of the first kernel takes: the source
+        table and the tile [C, 3, 3, 9, 3] (to 16 bytes), and the element
+        matrices of its perms, of ``item``-byte values (the pack's own)."""
+        item = item or self.weights.element_size()
+        head = -(-(6 * self.n * 4 + len(self.chans) * 3 * _TILE_VOL * item)
+                 // 16) * 16
+        return head + _PERMS[self.n] * (3 * self.n) ** 2 * item
+
+
+def _bricks(dims) -> Tuple[int, int, int]:
+    return tuple(-(-d // b) for d, b in zip(dims, _BRICK))
+
+
+def _bc_bricks(mask: np.ndarray, chans: Sequence, ns: int,
+               dims) -> np.ndarray:
+    """Per brick, 1 where its tile holds a Dirichlet dof of the planar
+    ``mask``: the kernel reads the mask only there."""
+    bx, by, bz = _bricks(dims)
+    flag = np.zeros((bz, by, bx), dtype=np.uint8)
+    i = np.nonzero(mask.reshape(3, ns).any(axis=0))[0]
+    for b0, X, Y, Z, slots in chans:  # b0: the base plus the slot
+        mine = i[(i >= b0) & (i < b0 + X * Y * Z * slots)
+                 & ((i - b0) % slots == 0)]
+        pos = (mine - b0) // slots
+        g = (pos % X, (pos // X) % Y, pos // (X * Y))
+        # a tile holds positions [B k, B k + B]: g lies in brick g // B
+        # and, on the brick's low face, in (g - 1) // B too
+        for d in np.ndindex(2, 2, 2):
+            k = [(gd - dd) // B for gd, dd, B in zip(g, d, _BRICK)]
+            ok = ((k[0] >= 0) & (k[0] < bx) & (k[1] >= 0) & (k[1] < by)
+                  & (k[2] >= 0) & (k[2] < bz))
+            flag[k[2][ok], k[1][ok], k[0][ok]] = 1
+    return flag.reshape(-1)
 
 
 def pack_perm(Ap: np.ndarray, plan: Sequence, kinds: Sequence,
@@ -148,45 +194,46 @@ def pack_perm(Ap: np.ndarray, plan: Sequence, kinds: Sequence,
         raise ValueError(f"mask of {mask.shape} for {3 * ns} planar dofs")
     if 3 * ns >= 2 ** 31:
         raise ValueError(f"{3 * ns} dofs: past the kernel's int32 indices")
-    sources = []
-    for p in range(6):
-        for ki, (ix, iy, iz), si in plan[p]:
-            b, X, Y, _, s = kt[ki]
-            sX, sY, sZ = s, X * s, Y * X * s
-            sources.append((b + si + iz * sZ + iy * sY + ix * sX, sZ, sY,
-                            sX))
+    chan_of, chans = {}, []
+    for ki, (b, X, Y, Z, slots) in enumerate(kt):
+        for si in range(slots):
+            chan_of[ki, si] = len(chans)
+            chans.append((b + si, X, Y, Z, slots))
+    sources = [3 * (chan_of[ki, si] * _TILE_VOL + _tile_offset(off))
+               for p in range(6) for ki, off, si in plan[p]]
     by_out = {}
     for p in range(6):
         for lo, (ko, off, so) in enumerate(plan[p]):
-            code = (p << 3) | off[0] | (off[1] << 1) | (off[2] << 2)
-            by_out.setdefault((ko, so), []).append((code, p, lo))
-    A = Ap.reshape(6, n, 3, n, 3)
-    entries, outputs, rows = [], [], []
+            code = ((p << 8) | (lo << 3) | off[0] | (off[1] << 1)
+                    | (off[2] << 2))
+            by_out.setdefault((ko, so), []).append(code)
+    entries, outputs = [], []
     for ko, (_, _, _, _, slots) in enumerate(kt):
         for so in range(slots):
             es = by_out.pop((ko, so), [])
-            outputs.append((ko, so, len(entries), len(es), _lanes(len(es))))
-            for code, p, lo in es:
-                entries.append(code)
-                # W[e, li, b, a] = Ap[p][3 lo + a][3 li + b]
-                rows.append(A[p, lo].transpose(1, 2, 0))
+            outputs.append((ko, so, len(entries), len(es)))
+            entries += es
     outputs.sort(key=lambda o: -o[3])  # stable: heaviest first
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     e = np.array(entries, dtype=np.int32)
-    o = np.array(outputs, dtype=np.int32).reshape(-1, 5)
-    s = np.array(sources, dtype=np.int32).reshape(-1, 4)
+    o = np.array(outputs, dtype=np.int32).reshape(-1, 4)
+    s = np.array(sources, dtype=np.int32)
     k = kt.astype(np.int32)
+    c = np.array(chans, dtype=np.int32).reshape(-1, 5)
+    bc = _bc_bricks(mask, chans, ns, dims)
     device = device or torch.device("cpu")
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return PermPack(
-        Ap=dev(Ap.astype(np_dtype)), weights=dev(np.stack(rows).astype(
-            np_dtype)), mask=dev(mask.astype(bool)), plan=tuple(plan),
+        Ap=dev(Ap.astype(np_dtype)),
+        weights=dev(Ap.transpose(0, 2, 1).astype(np_dtype)),
+        mask=dev(mask.astype(bool)), plan=tuple(plan),
         dims=tuple(int(v) for v in dims), entries=e, outputs=o, sources=s,
-        kinds=k, dev_entries=dev(e), dev_outputs=dev(o), dev_sources=dev(s),
-        dev_kinds=dev(k))
+        kinds=k, chans=c, bc_bricks=bc, dev_entries=dev(e),
+        dev_outputs=dev(o), dev_sources=dev(s), dev_kinds=dev(k),
+        dev_chans=dev(c), dev_bc_bricks=dev(bc))
 
 
 def _check(x: torch.Tensor, pack: PermPack) -> None:
@@ -267,14 +314,18 @@ def prepare_perm_apply(pack: PermPack) -> Callable[[torch.Tensor],
     fn = (lib.tpufem_perm_apply_f32 if w.dtype == torch.float32
           else lib.tpufem_perm_apply_f64)
     Nx, Ny, Nz = pack.dims
+    bx, by, bz = pack.bricks
+    Y = torch.empty(6 * 3 * pack.n * pack.y_cubes, dtype=w.dtype,
+                    device=w.device)
     args = _build.PermApplyLaunch(
-        W=w.data_ptr(), entries=pack.dev_entries.data_ptr(),
+        W=w.data_ptr(), Y=Y.data_ptr(), entries=pack.dev_entries.data_ptr(),
         outputs=pack.dev_outputs.data_ptr(),
         sources=pack.dev_sources.data_ptr(),
-        kinds=pack.dev_kinds.data_ptr(), mask=pack.mask.data_ptr(),
-        device=w.device.index, n=pack.n, ns=pack.ns,
-        nout=len(pack.outputs), Nx=Nx, Ny=Ny, Nz=Nz,
-        max_entries=pack.max_entries, max_blocks=pack.max_blocks)
+        kinds=pack.dev_kinds.data_ptr(), chans=pack.dev_chans.data_ptr(),
+        mask=pack.mask.data_ptr(), bc=pack.dev_bc_bricks.data_ptr(),
+        device=w.device.index, n=pack.n,
+        ns=pack.ns, nout=len(pack.outputs), nchan=len(pack.chans), Nx=Nx,
+        Ny=Ny, Nz=Nz, bx=bx, by=by, bz=bz, max_points=pack.max_points)
     addr = ctypes.addressof(args)
     nd = 3 * pack.ns
     what = (f"perm_apply on {Nx}x{Ny}x{Nz} cubes, {len(pack.outputs)} "
@@ -295,7 +346,7 @@ def prepare_perm_apply(pack: PermPack) -> Callable[[torch.Tensor],
         perm_apply.launches += 1
         return y
 
-    launch.keep = (args, pack)  # what ``addr`` points into
+    launch.keep = (args, pack, Y)  # what ``addr`` points into
     return launch
 
 

@@ -49,8 +49,9 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 # the port's CUDA kernels, by the name of their device function
 PORT_KERNELS = ("stencil_p1_kernel", "strip_apply_kernel", "strip_cg_kernel",
                 "flat_interior_kernel", "brick_flat_kernel",
-                "dia_zones_kernel", "perm_apply_kernel", "csr_spmv_kernel",
-                "dense_gemv_bf16_kernel")
+                "dia_zones_kernel", "perm_apply_cube_kernel",
+                "perm_apply_sum_kernel", "csr_spmv_kernel",
+                "dense_gemv_bf16_kernel", "dense_gemv_bf16_combine")
 
 
 def busy_us(intervals) -> float:
@@ -65,6 +66,25 @@ def busy_us(intervals) -> float:
         busy += e - max(s, end)
         end = e
     return busy
+
+
+def kernel_device_ms(spans, kernel: str, reps: int,
+                     launches: int = 1) -> float:
+    """Device ms per call of a port kernel, from a profile of ``reps``
+    calls that launch it ``launches`` times each: ``spans`` are the
+    profiler's device (name, start us, end us) intervals, of which those
+    whose name holds ``kernel`` count.  Their union over ``reps``: other
+    kernels in the window (an L2 flush, the caller's own) do not count,
+    and a kernel overlapping itself counts once.  A count of the kernel's
+    spans other than reps x launches raises ValueError: the profiler
+    missed or split launches, and the union would not be the kernel's
+    time."""
+    own = [(s, e) for name, s, e in spans if kernel in name]
+    if len(own) != reps * launches:
+        raise ValueError(f"the profiler recorded {len(own)} spans of "
+                         f"{kernel!r} over {reps} calls of {launches} "
+                         f"launch(es): expected {reps * launches}")
+    return busy_us(own) / reps / 1e3
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
