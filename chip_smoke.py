@@ -544,11 +544,13 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
         apply, plain, prepare = (st.stencil_apply, st.stencil_apply_plain,
                                  st.prepare_stencil)
         tols = ((torch.float32, TOL_F32), (torch.float64, TOL_F64))
+        kernel = "stencil_p1_kernel"
     else:
         apply, plain, prepare = (st.stencil_apply_bs3,
                                  st.stencil_apply_bs3_plain,
                                  st.prepare_stencil_bs3)
         tols = ((torch.float32, TOL_BS3_F32), (torch.float64, TOL_BS3_F64))
+        kernel = "stencil_p1_bs3_kernel"
 
     solver = problem.solver_function
     ops = [("CG matrix", solver.A)]
@@ -600,8 +602,11 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
             plain_ms = median_ms(lambda: plain(x, *args), reps=10, samples=5)
             host = host_ms(lambda: prepared(x))
             b_ms, b_by = bound_ms(*stencil_work(fields, dims, comps))
-            dev, note = device_ms(lambda: prepared(x), "stencil_p1_kernel",
-                                  b_ms, f"{name} {dtype}")
+            # the three-component CG matrix at 65x49x49: 12.8 MB of inputs
+            dev, note = device_ms(lambda: prepared(x), kernel, b_ms,
+                                  f"{name} {dtype}",
+                                  must_hold=comps == 3
+                                  and name.startswith("CG matrix 65x"))
             lib_ms, lib_err = (library_ms(lib, x, yp)
                                if name.startswith("CG matrix") else
                                (None, None))
@@ -1449,8 +1454,11 @@ def dia_zones_phase(ops, gpu: str):
             host = host_ms(lambda: launch(x))
             nbytes, flops = dia_zones_work(pack)
             b_ms, b_by = bound_ms(nbytes, flops)
+            # the 500k fine operators: 26 / 13 MB of inputs, far past what
+            # an L2 flush leaves, so a reading under the bound is a fault
             dev, note = device_ms(lambda: launch(x), "dia_zones_kernel", b_ms,
-                                  f"dia_zones {name} {dtype}")
+                                  f"dia_zones {name} {dtype}",
+                                  must_hold=" 500k " in f" {name} ")
             k3 = ""
             k3_ms = k3_dev = None
             if with_k3 and dtype == torch.float32:

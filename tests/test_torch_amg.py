@@ -77,6 +77,19 @@ def _no_native(monkeypatch):
     monkeypatch.setattr(native, "_get", lambda: None)
 
 
+def _same_native(monkeypatch):
+    """tpufem's loader on the port's library of the same pinned source
+    (tests/test_torch_vendored.py), so both packages take one aggregation
+    route whichever process built tpufem's own library first: native
+    where g++ builds it, numpy on both where it does not."""
+    monkeypatch.setattr(tpu_native, "_get", native._get)
+
+
+@pytest.fixture
+def same_native(monkeypatch):
+    _same_native(monkeypatch)
+
+
 # -- host copies, bit for bit -------------------------------------------------
 @pytest.mark.parametrize("theta", [0.0, 0.08])
 @pytest.mark.parametrize("problem", ["poisson", "elasticity"])
@@ -93,7 +106,8 @@ def test_strength_graph_bitwise(problem, theta):
 def test_aggregation_and_matching_bitwise(route, monkeypatch):
     """Both routes against tpufem's on the same route.  The native pass
     is compared with tpufem's where tpufem's library loads, and with its
-    pinned output (321 aggregates, a digest) where it does not."""
+    pinned output (321 aggregates, a digest) too."""
+    _same_native(monkeypatch)
     if route == "numpy":
         _no_native(monkeypatch)
     A, _, _ = _cube((9, 10, 11))
@@ -103,9 +117,8 @@ def test_aggregation_and_matching_bitwise(route, monkeypatch):
         assert native.have_native()
         assert (nagg, int((agg * np.arange(agg.size)).sum() % 1000003)) \
             == (321, 228336)
-    if route == "numpy" or tpu_native.have_native():
-        ragg, rnagg = tpu_amg.aggregate_nodes(S, seed=0)
-        assert nagg == rnagg and np.array_equal(agg, ragg)
+    ragg, rnagg = tpu_amg.aggregate_nodes(S, seed=0)
+    assert nagg == rnagg and np.array_equal(agg, ragg)
     Agg = sp.csr_matrix((np.ones(S.shape[0]), (np.arange(S.shape[0]), agg)),
                         shape=(S.shape[0], nagg))
     S2 = (Agg.T @ S @ Agg).tocsr()
@@ -115,7 +128,7 @@ def test_aggregation_and_matching_bitwise(route, monkeypatch):
 
 
 @pytest.mark.parametrize("problem", ["poisson", "elasticity"])
-def test_prolongators_bitwise(problem):
+def test_prolongators_bitwise(problem, same_native):
     A, mask, nns = _cube((4, 5, 6), problem)
     bs = 3 if problem == "elasticity" else 1
     B = np.ones((A.shape[0], 1)) if nns is None else nns.T.copy()
@@ -200,11 +213,10 @@ def _setup_inputs(name):
     return A, bs, mask, nns, opts, flags
 
 
-@pytest.mark.parametrize("name", list(SETUPS))
-def test_setup_matches_tpufem(name):
-    """The whole host hierarchy (float64): level sizes, lmax, dinv, the
-    transfers, the level operators (dense and CSR) and the coarse
-    pseudo-inverse, bit for bit."""
+def _assert_setup_matches(name):
+    """The whole host hierarchy (float64) of ``SETUPS[name]`` in both
+    packages: level sizes, lmax, dinv, the transfers, the level operators
+    (dense and CSR) and the coarse pseudo-inverse, bit for bit."""
     A, bs, mask, nns, opts, flags = _setup_inputs(name)
     csr = (A.indptr, A.indices, A.data)
     ref = tpu_amg.SAAMG.setup(csr, bs, _opts(TpuSolverOptions, **opts),
@@ -234,6 +246,25 @@ def test_setup_matches_tpufem(name):
     assert set(mine.last_phase_s) >= {"eig", "strength", "aggregate",
                                       "tentative", "smoothP", "galerkin",
                                       "device", "total"}
+
+
+@pytest.mark.parametrize("name", list(SETUPS))
+def test_setup_matches_tpufem(name, same_native):
+    """The whole host hierarchy, bit for bit (``_assert_setup_matches``),
+    both packages on one aggregation route."""
+    _assert_setup_matches(name)
+
+
+def test_setup_matches_tpufem_when_tpufem_lost_its_native_build(monkeypatch):
+    """tpufem's own library lost the build race of parallel test workers
+    (its loader then returns None for the rest of the process, and it
+    aggregates by its numpy fallback, which is equivalent to the native
+    pass but not bit-identical): with its loader on the port's library,
+    the spoke hierarchy is still the port's, bit for bit."""
+    monkeypatch.setattr(tpu_native, "_get", lambda: None)
+    _same_native(monkeypatch)
+    assert tpu_native.have_native() == native.have_native()
+    _assert_setup_matches("spoke_plain")
 
 
 def test_planar_fine_level_is_the_interleaved_one_permuted():
@@ -379,7 +410,7 @@ def test_dense_plan_walk_gives_the_plain_product(n, warps):
 # -- the V-cycle on tpufem's hierarchy ------------------------------------------
 @pytest.mark.parametrize("name", ["cube_factored", "spoke_plain",
                                   "spoke_window", "spoke_sparse_levels"])
-def test_vcycle_matches_tpufem(name):
+def test_vcycle_matches_tpufem(name, same_native):
     """tpufem's float64 hierarchy carried across: the port's V-cycle
     equals tpufem's to 1e-12, factored (the fine action passed in) and
     assembled (the fine level's own CSR, or the action passed in)."""

@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from tpufem import native as tpu_native
 from tpufem.config import Config as TpuConfig
 from tpufem.config import SolverOptions as TpuSolverOptions
 from tpufem.mesh import BoxTetMesh as TpuMesh
 from tpufem.problems import poisson as tpu_poisson
 
-from tpufem_torch import cli
+from tpufem_torch import cli, native
 from tpufem_torch.config import Config, SolverOptions
 from tpufem_torch.fem.csr_spmv import CsrMatrix
 from tpufem_torch.fem.dense_gemv import DenseMat
@@ -64,9 +65,12 @@ def test_cli_matches_tpufem_runs(name):
     assert res.true_rel <= 1e-8
 
 
-def test_poisson_gmg_fallback_matches_tpufem():
+def test_poisson_gmg_fallback_matches_tpufem(monkeypatch):
     """7x7x7 cannot be halved and -amg_brick off bars brick-AMG: both
-    packages go to SA-AMG (11 iterations, 4.6060482769816415)."""
+    packages go to SA-AMG (11 iterations, 4.6060482769816415), tpufem's
+    aggregation on the port's library of the same pinned source, so both
+    take one route whichever test process built tpufem's own first."""
+    monkeypatch.setattr(tpu_native, "_get", native._get)
     opts = dict(ksp_rtol=1e-8, amg_coarse_eq_limit=10, amg_brick="off")
     ref = tpu_poisson.problem(TpuMesh(7, 7, 7), 1, TpuConfig(
         dtype="float64", solver=TpuSolverOptions(**opts)))

@@ -544,6 +544,50 @@ def test_bs3_refusals(device):
     torch.cuda.synchronize()
 
 
+# the three-component kernel's plan on the grids its CPU walk covers
+# (tests/test_torch_elasticity.py): a partial last tile, dense fields, rows
+# wider than a block's points
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("dims,mode", [
+    ((6, 6, 8), "const"), ((12, 12, 16), "const"), ((5, 7, 6), "dense"),
+    ((40, 6, 20), "const")], ids=["9x7x7", "17x13x13", "dense", "wide"])
+def test_bs3_kernel_matches_plain_on_the_walk_grids(device, dims, mode,
+                                                    dtype, tol):
+    from tpufem_torch.fem.stencil import (prepare_stencil_bs3,
+                                          stencil_apply_bs3_plain)
+    op = _elast_op(dims, mode, dtype, device)
+    args = (op.fields, op.offsets, op.grid_dims)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        3 * op.layout.ndofs)).to(device, dtype)
+    launch = prepare_stencil_bs3(*args)
+    y = launch(x)
+    yp = stencil_apply_bs3_plain(x, *args)
+    bound = stencil_apply_bs3_plain(x.abs(), op.fields.abs(), *args[1:])
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+    assert torch.equal(launch(x), y)
+
+
+def test_bs3_on_a_side_stream_and_its_residency(device):
+    """The prepared three-component launch on a non-default stream gives
+    the default stream's bits; the float32 kernel keeps at least one block
+    of the 65x49x49 grid's stage resident on an SM."""
+    from tpufem_torch import _build
+    from tpufem_torch.fem import stencil
+    op = _elast_op((12, 12, 16), "const", torch.float32, device)
+    x = torch.randn(3 * op.layout.ndofs, device=device)
+    y0 = op.apply(x)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        y = op.apply(x)
+    side.synchronize()
+    assert torch.equal(y, y0)
+    smem = stencil.stencil_smem_bytes(4, 49, 4, comps=3)
+    assert _build.load().lib.tpufem_stencil_p1_bs3_blocks(smem) >= 1
+
+
 def test_elasticity_cli_engages_the_kernel(device):
     """The 500k float32 elasticity run: every operator apply is a
     three-component launch (17 per CG iteration), the RHS three scalar
@@ -727,6 +771,23 @@ def test_dia_zones_on_a_side_stream_and_refusals(device):
                                   torch.cuda.current_stream().cuda_stream)
     assert rc != 0 and lib.tpufem_cuda_error_string(rc)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("order,dims,mode", [
+    (2, (12, 11, 8), "const"), (3, (7, 6, 6), "const"),
+    (3, (3, 4, 5), "dense")], ids=["P2-ragged", "P3-six-planes", "P3-dense"])
+def test_dia_zones_kernel_gives_the_walks_bits(device, order, dims, mode):
+    """The kernel against its plan walked in plain PyTorch on the host
+    (fem.dia_zones.dia_zones_walk, the CPU tests' walk), float64."""
+    import dataclasses
+    from tpufem_torch.fem.dia_zones import dia_zones_apply, dia_zones_walk
+    pack = _pk_dia(order, dims, torch.float64, device, mode).zone_pack
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        pack.ndofs))
+    y = dia_zones_apply(x.to(device), pack)
+    walk, n = dia_zones_walk(x, dataclasses.replace(
+        pack, fields=pack.fields.cpu()))
+    assert n["twice"] == 0 and torch.equal(y.cpu(), walk)
 
 
 def test_order3_golden_on_the_card(device):

@@ -185,20 +185,61 @@ def test_bs3_wrapper_checks_and_never_falls_back():
 
 
 @pytest.mark.parametrize("dims,R,itemsize,run", [
-    ((65, 49, 49), 7, 4, 8), ((65, 49, 49), 7, 8, 8),
-    ((33, 25, 25), 7, 8, 7), ((9, 7, 7), 9, 8, 1), ((20, 3, 1200), 7, 8, 1)])
+    ((65, 49, 49), 7, 4, 4), ((65, 49, 49), 7, 8, 4),
+    ((33, 25, 25), 7, 8, 4), ((9, 7, 7), 9, 8, 1), ((20, 3, 1200), 7, 8, 1)])
 def test_three_component_runs_fit_the_shared_memory(dims, R, itemsize, run):
-    """A block stages the run's planes of all three source components:
-    its z runs are those of the scalar form, cut where 3x the planes
-    would not fit 227 KB."""
+    """A block of the three-component kernel stages the run's planes of
+    all three source components once for its three output components:
+    128 points of the plane and X + 1 either side, z runs of at most 4
+    mid planes, cut where the three components' planes would not fit
+    227 KB."""
     Z, Y, X = dims
     runs = stencil.stencil_runs(dims, R, itemsize, comps=3)
     assert runs[:, 1].sum() == Z and int(runs[:, 1].max()) == run
     assert stencil.stencil_smem_bytes(run, X, itemsize, 3) <= stencil._MAX_SMEM
     assert (stencil.stencil_smem_bytes(run, X, itemsize, 3)
-            == 3 * stencil.stencil_smem_bytes(run, X, itemsize))
+            == 3 * (run + 2) * (128 + 2 * (X + 1)) * itemsize)
     with pytest.raises(RuntimeError, match="shared memory"):
         stencil.stencil_runs((9, 3, 15000), 7, 8, comps=3)
+
+
+# (cells, mode, dtype): the 9x7x7 GMG level's grid, a 17x13x13 grid wider
+# than a block's 128 points (a partial last tile), two dense-mode lattices
+# (full fields, R = Z) and a grid whose rows are wider than the tile
+WALKS = {
+    "level-9x7x7": ((6, 6, 8), "const", torch.float64),
+    "level-33x25x25": ((24, 24, 32), "const", torch.float32),
+    "17x13x13-partial-tile": ((12, 12, 16), "const", torch.float32),
+    "dense-7x8x6": ((5, 7, 6), "dense", torch.float64),
+    "dense-9x5x5": ((4, 4, 8), "dense", torch.float32),
+    "wide-rows-21x7x41": ((40, 6, 20), "const", torch.float64),
+}
+
+
+@pytest.mark.parametrize("name", list(WALKS))
+def test_three_component_walk_gives_the_plain_versions_bits(name):
+    """``stencil_bs3_walk`` (the kernel's blocks, stage, masks, field rows
+    and sum order, with the product and the sum rounded apart) is the
+    plain version bit for bit; its stage is what ``stencil_smem_bytes``
+    gives the launch, and it loads each (r, d, s) weight once a run."""
+    cells, mode, dtype = WALKS[name]
+    mesh = BoxTetMesh(*cells)
+    op = DiaOperator.build(mesh, 1, "elasticity", bc_dofs=_bc(cells),
+                           dtype=dtype, mode=mode, device=CPU, planar=True)
+    dims, fields = op.grid_dims, op.fields
+    Z, Y, X = dims
+    x = torch.from_numpy(np.random.default_rng(len(name)).standard_normal(
+        3 * Z * Y * X)).to(dtype)
+    y, n = stencil.stencil_bs3_walk(x, fields, op.offsets, dims)
+    assert torch.equal(y, stencil_apply_bs3_plain(x, fields, op.offsets,
+                                                  dims))
+    runs = stencil.stencil_runs(dims, fields.shape[1], x.element_size(), 3)
+    tiles = -(-(Y * X) // stencil._TILE3)
+    assert n["blocks"] == tiles * len(runs)
+    assert n["weight_loads"] == n["blocks"] * fields.shape[0]  # 9 D
+    assert n["smem"] == stencil.stencil_smem_bytes(
+        int(runs[:, 1].max()), X, x.element_size(), 3)
+    assert (fields.shape[1] == Z) == (mode == "dense")
 
 
 def test_convert_carries_tpufem_planar_operator():

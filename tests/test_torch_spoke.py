@@ -61,6 +61,13 @@ def _no_native(monkeypatch):
     monkeypatch.setattr(native, "_get", lambda: None)
 
 
+def _same_native(monkeypatch):
+    """tpufem's loader on the port's library of the same pinned source
+    (tests/test_torch_vendored.py): both packages take one route whichever
+    test process built tpufem's own library first."""
+    monkeypatch.setattr(tpu_native, "_get", native._get)
+
+
 def _system(ndofs, tpu=False):
     make = tpu_create_spoke_mesh if tpu else create_spoke_mesh
     mesh = make(ndofs, True, 1, 1, verbose=False)
@@ -75,50 +82,49 @@ def _system(ndofs, tpu=False):
 def test_spoke_mesh_matches_tpufem(route, monkeypatch):
     """create_spoke_mesh(9000) (uniform and marked-edge refinement, the
     topology) on one route in both packages.  The native route is held to
-    tpufem's where tpufem's library loads, and to its pinned digest."""
+    tpufem's and to its pinned digest."""
+    _same_native(monkeypatch)
     if route == "numpy":
         _no_native(monkeypatch)
     mesh = create_spoke_mesh(9000, True, 1, 1, verbose=False)
     if route == "native":
         assert _digest(mesh.vertices, mesh.cells()) == "6748a21f07ead150"
-    if route == "numpy" or tpu_native.have_native():
-        ref = tpu_create_spoke_mesh(9000, True, 1, 1, verbose=False)
-        assert np.array_equal(mesh.vertices, ref.vertices)
-        assert np.array_equal(mesh.cells(), ref.cells())
-        assert np.array_equal(mesh.boundary_faces(), ref.boundary_faces())
-        assert np.array_equal(mesh.cell_faces(), ref.cell_faces())
-        assert np.array_equal(mesh.cell_edges()[0], ref.cell_edges()[0])
-        facets = mesh.boundary_faces()
-        for got, want in zip(
-                common.facet_to_cell(mesh.cell_faces(), facets),
-                tpu_common.facet_to_cell(ref.cell_faces(), facets)):
-            assert np.array_equal(got, want)
+    ref = tpu_create_spoke_mesh(9000, True, 1, 1, verbose=False)
+    assert np.array_equal(mesh.vertices, ref.vertices)
+    assert np.array_equal(mesh.cells(), ref.cells())
+    assert np.array_equal(mesh.boundary_faces(), ref.boundary_faces())
+    assert np.array_equal(mesh.cell_faces(), ref.cell_faces())
+    assert np.array_equal(mesh.cell_edges()[0], ref.cell_edges()[0])
+    facets = mesh.boundary_faces()
+    for got, want in zip(
+            common.facet_to_cell(mesh.cell_faces(), facets),
+            tpu_common.facet_to_cell(ref.cell_faces(), facets)):
+        assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("route", ["native", "numpy"])
 def test_assembled_csr_matches_tpufem(route, monkeypatch):
     """The BC-eliminated CSR triplets bit for bit (native: against
-    tpufem's where its library loads, and a pinned digest), and the
-    device CsrMatrix holds them."""
+    tpufem's and a pinned digest), and the device CsrMatrix holds them."""
+    _same_native(monkeypatch)
     if route == "numpy":
         _no_native(monkeypatch)
     mesh, space, bc = _system(3000)
     csr = assemble_csr_np(space, bc, "poisson")
     if route == "native":
         assert _digest(*csr) == "72cf1b5f48f5ef5e"
-    if route == "numpy" or tpu_native.have_native():
-        _, tspace, tbc = _system(3000, tpu=True)
-        _, ref = tpu_assemble_operator(tspace, tbc, "poisson",
-                                       dtype=np.float64)
-        for got, want in zip(csr, ref):
-            assert np.array_equal(got, want)
+    _, tspace, tbc = _system(3000, tpu=True)
+    _, ref = tpu_assemble_operator(tspace, tbc, "poisson", dtype=np.float64)
+    for got, want in zip(csr, ref):
+        assert np.array_equal(got, want)
     A, host = assemble_operator(space, bc, "poisson", torch.float64, CPU)
     assert np.array_equal(A.to_scipy().toarray(),
                           sp.csr_matrix((csr[2], csr[1], csr[0])).toarray())
     assert all(np.array_equal(a, b) for a, b in zip(host, csr))
 
 
-def test_rcm_and_rhs_match_tpufem():
+def test_rcm_and_rhs_match_tpufem(monkeypatch):
+    _same_native(monkeypatch)
     mesh, space, bc = _system(3000)
     csr = assemble_csr_np(space, bc, "poisson")
     perm, csr_w = rcm_csr(*csr)
@@ -142,9 +148,10 @@ class _Mask:
 @pytest.mark.parametrize("mode,budget", [
     ("auto", 4096), ("auto", 1), ("auto", 2), ("auto", 3), ("auto", 5),
     ("on", 1), ("off", 4096)])
-def test_window_gate_decides_as_tpufem(mode, budget):
+def test_window_gate_decides_as_tpufem(mode, budget, monkeypatch):
     """The RCM route is taken exactly where tpufem's _try_window builds a
     window form (its pre-gate, its budget clamp and tail cut)."""
+    _same_native(monkeypatch)
     mesh, space, bc = _system(3000)
     csr = assemble_csr_np(space, bc, "poisson")
     got = window_gate(csr, mode, budget, 4)

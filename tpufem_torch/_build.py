@@ -190,6 +190,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # through the barriers alone
     lib.tpufem_strip_cg_sync_floor.argtypes = [ci, ci, ci, vp]
     lib.tpufem_strip_cg_sync_floor.restype = ci
+    # shared memory of a block -> float32 three-component blocks resident
+    # on an SM, or -cuda error
+    lib.tpufem_stencil_p1_bs3_blocks.argtypes = [ci]
+    lib.tpufem_stencil_p1_bs3_blocks.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
 

@@ -43,6 +43,13 @@
 // fused multiply-add), in plan order, so the kernel gives the plain
 // version's bits.  What a launch needs beside x, y and the stream is a
 // DiaZonesLaunch packed once per operator.
+//
+// Why one point a thread still: designs that gave a thread several z
+// planes of a point, to decode a term once for them, ran slower at P2 / P3
+// 500k on an H100 (scripts/zones_bs3_times.py, PERF.md): a thread
+// with k planes leaves k times fewer threads to hide the loads' latency,
+// and a branch on a run's length between a value's load and its product
+// made each load wait for the one before.
 
 #include <cuda_runtime.h>
 

@@ -28,6 +28,10 @@ the plain version and on the operator's device for the kernel:
   slot) of the layout, heaviest first (the kernel's block order);
 - ``kinds`` [K, 5]: the layout's (base, X, Y, Z, slots).
 
+The kernel gives a block 256 consecutive points of one output's flattened
+(z, y, x) grid, the outputs heaviest first; ``dia_zones_walk`` walks that
+plan in plain PyTorch.
+
 ``dia_zones_apply`` takes the plain version only for tensors that lie on
 the CPU; for a CUDA tensor it launches the kernel of csrc/dia_zones.cu
 (one launch an apply, counted in ``dia_zones_apply.launches``) or
@@ -40,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +54,7 @@ ZONE_ROWS = 7
 _HALO = 3  # z-lo / z-hi zone planes
 _PAD = 2   # the widest (dst dim) - (src dim) + shift excursion per axis
 MAX_TERMS = 1536  # terms of one output: the kernel stages them (32 B each)
+_THREADS = 256  # points of a block (csrc/dia_zones.cu's kThreads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +183,55 @@ def dia_zones_apply_plain(x: torch.Tensor, pack: ZonePack) -> torch.Tensor:
         out = y[base: base + X * Y * Z * slots].view(Z, Y, X, slots)
         out[..., so] = 0.0 if acc is None else torch.cat(acc)
     return y
+
+
+def dia_zones_walk(x: torch.Tensor, pack: ZonePack
+                   ) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The kernel's plan walked in plain PyTorch, with its roundings and
+    its order: blocks of _THREADS consecutive points of each output's
+    flattened (z, y, x) grid (blockIdx.x) for each output in the pack's
+    order (blockIdx.y), a block wholly past its output's points skipped;
+    each point's sum over the terms in plan order, the first product
+    taken as it is and each next one added, the product and the sum
+    rounded apart, a source outside its grid read as 0 and the weight
+    read at the point's zone row (zone fields) or at the point itself
+    (full fields).  Returns (y, counts): ``y`` NaN where no block wrote,
+    and the counts of blocks that ran, blocks skipped and points written
+    twice."""
+    kinds, fields = pack.kinds, pack.fields
+    y = torch.full_like(x, float("nan"))
+    seen = torch.zeros(x.shape, dtype=torch.bool)
+    n = dict(blocks=0, skipped=0, twice=0)
+    most = max(int(X * Y * Z) for _, X, Y, Z, _ in kinds)
+    for ko, so, start, count in pack.outputs.tolist():
+        base, X, Y, Z, slots = (int(v) for v in kinds[ko])
+        for p0 in range(0, most, _THREADS):
+            if p0 >= X * Y * Z:
+                n["skipped"] += 1
+                continue
+            p = torch.arange(p0, min(p0 + _THREADS, X * Y * Z))
+            ix, iy, iz = p % X, p // X % Y, p // (X * Y)
+            row = torch.where(iz < _HALO, iz, torch.where(
+                iz >= Z - _HALO, ZONE_ROWS - (Z - iz), _HALO))
+            zoned_at = (row * Y + iy) * X + ix
+            acc = torch.zeros(len(p), dtype=x.dtype)
+            for k, (ki, si, dx, dy, dz, off, zoned, _) in enumerate(
+                    pack.terms[start: start + count].tolist()):
+                bi, Xi, Yi, Zi, sl = (int(v) for v in kinds[ki])
+                xs, ys, zs = ix + dx, iy + dy, iz + dz
+                ok = ((xs >= 0) & (xs < Xi) & (ys >= 0) & (ys < Yi)
+                      & (zs >= 0) & (zs < Zi))
+                at = bi + si + ((zs * Yi + ys) * Xi + xs) * sl
+                v = torch.where(ok, x[at.clamp(0, x.numel() - 1)],
+                                torch.zeros((), dtype=x.dtype))
+                t = fields[off + (zoned_at if zoned else p)] * v
+                acc = t if k == 0 else acc + t
+            at = base + p * slots + so
+            n["twice"] += int(seen[at].sum())
+            seen[at] = True
+            y[at] = acc
+            n["blocks"] += 1
+    return y, n
 
 
 def prepare_dia_zones(pack: ZonePack) -> Callable[[torch.Tensor],

@@ -33,7 +33,10 @@ stack,
 
 in that order, which is the term order of tpufem's planar
 ``_apply_zones`` (tpufem/fem/dia_op.py:462-546, XLA there: tpufem has no
-Pallas kernel for it).
+Pallas kernel for it).  Its kernel (csrc/stencil_p1.cu's
+``stencil_p1_bs3_kernel``) gives a block 128 points of the flat plane x a
+z run x the three output components; ``stencil_bs3_walk`` walks that
+plan in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -50,9 +53,11 @@ MAX_DIAGONALS_BS3 = 15  # the three-component form: P1's 15 diagonals
 ZONE_ROWS = 7
 _HALO = 3  # z-lo / z-hi zone planes
 # a block of the kernel: 256 points of the flat (y, x) plane over a z run
-# of at most 8 planes (csrc/stencil_p1.cu's kTile, kRun); 227 KB of shared
-# memory a block (sm_90)
+# of at most 8 planes (csrc/stencil_p1.cu's kTile, kRun); of the
+# three-component kernel 128 points x 4 planes x 3 output components
+# (kTile3, kRun3); 227 KB of shared memory a block (sm_90)
 _TILE, _RUN, _MAX_SMEM = 256, 8, 232448
+_TILE3, _RUN3 = 128, 4
 
 
 def _check(x: torch.Tensor, fields: torch.Tensor,
@@ -142,6 +147,59 @@ def stencil_apply_bs3_plain(x: torch.Tensor, fields: torch.Tensor,
     return torch.cat(acc, dim=1).reshape(-1)
 
 
+def stencil_bs3_walk(x: torch.Tensor, fields: torch.Tensor,
+                     offsets: Sequence[Tuple[int, int, int]],
+                     dims: Tuple[int, int, int]
+                     ) -> Tuple[torch.Tensor, dict]:
+    """The three-component kernel's plan walked in plain PyTorch (the
+    product and the sum rounded apart where the kernel fuses them): per
+    block (tile of _TILE3 points of the flat plane, z run of
+    ``stencil_runs``), the run's planes and one either side of the three
+    source components staged once, [3, run + 2, _TILE3 + 2 (X + 1)],
+    zeros beyond the grid; then for each output component r and point its
+    sums over d ascending and s, one weight per (r, d, s) a run read from
+    the run's field row, zero where the neighbour lies past its row's or
+    the plane's end, applied to every plane of the run from the stage.
+    Returns (y, counts): ``y`` NaN where no block wrote, and the counts of
+    blocks, staged values, weight loads and the largest stage in bytes."""
+    Z, Y, X = dims
+    PS, H = Y * X, X + 1
+    R = fields.shape[1]
+    D = len(offsets)
+    F3 = fields.reshape(3, D, 3, R, PS)
+    xg = x.reshape(3, Z * PS)
+    y = torch.full_like(x, float("nan")).reshape(3, Z, PS)
+    zero = torch.zeros((), dtype=x.dtype)
+    n = dict(blocks=0, staged=0, weight_loads=0, smem=0)
+    for z0, nz in stencil_runs(dims, R, x.element_size(), comps=3).tolist():
+        row = z0 if R == Z else (z0 if z0 < _HALO else (
+            _HALO if z0 < Z - _HALO else _HALO + 1 + z0 - (Z - _HALO)))
+        for p0 in range(0, PS, _TILE3):
+            zz = torch.arange(z0 - 1, z0 + nz + 1)[:, None]
+            q = torch.arange(p0 - H, p0 + _TILE3 + H)[None, :]
+            ok = (zz >= 0) & (zz < Z) & (q >= 0) & (q < PS)
+            stage = torch.where(ok, xg[:, (zz * PS + q).clamp(0, Z * PS - 1)],
+                                zero)  # [3, nz + 2, _TILE3 + 2 H]
+            n["staged"] += stage.numel()
+            n["smem"] = max(n["smem"], stage.numel() * x.element_size())
+            p = torch.arange(p0, min(p0 + _TILE3, PS))
+            iy, ix = p // X, p % X
+            t = p - p0
+            for r in range(3):
+                acc = torch.zeros((nz, len(p)), dtype=x.dtype)
+                for d, (dx, dy, dz) in enumerate(offsets):
+                    inside = ((iy + dy >= 0) & (iy + dy < Y)
+                              & (ix + dx >= 0) & (ix + dx < X))
+                    cols = H + t + dy * X + dx
+                    for c in range(3):
+                        w = torch.where(inside, F3[r, d, c, row, p], zero)
+                        n["weight_loads"] += 1
+                        acc = acc + w * stage[c, 1 + dz: 1 + dz + nz][:, cols]
+                y[r, z0: z0 + nz, p] = acc
+            n["blocks"] += 1
+    return y.reshape(-1), n
+
+
 def pack_offsets(offsets: Sequence[Tuple[int, int, int]]
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The D (dx, dy, dz) triples as the kernel takes them: three int8
@@ -154,9 +212,11 @@ def pack_offsets(offsets: Sequence[Tuple[int, int, int]]
 def stencil_smem_bytes(run: int, X: int, itemsize: int,
                        comps: int = 1) -> int:
     """Shared memory of a block whose z run has ``run`` planes: the run
-    and one plane either side, the block's points and X + 1 either side,
-    of each of ``comps`` source components."""
-    return (run + 2) * comps * (_TILE + 2 * (X + 1)) * itemsize
+    and one plane either side, the block's points (_TILE, or _TILE3 for
+    the three-component kernel) and X + 1 either side, of each of
+    ``comps`` source components."""
+    tile = _TILE if comps == 1 else _TILE3
+    return (run + 2) * comps * (tile + 2 * (X + 1)) * itemsize
 
 
 def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int,
@@ -167,10 +227,12 @@ def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int,
     three z-hi planes is a run, and the mid zone is cut into the fewest
     runs of at most 8 planes, of equal length but the last; where the
     staged planes of that run do not fit a block's shared memory, into
-    shorter ones."""
+    shorter ones (the three-component kernel: of at most _RUN3 planes)."""
     Z, _, X = dims
+    most = _RUN if comps == 1 else _RUN3
     if stencil_smem_bytes(1, X, itemsize, comps) > _MAX_SMEM:
-        raise RuntimeError(f"stencil_p1: three planes of {_TILE} points with "
+        raise RuntimeError(f"stencil_p1: three planes of "
+                           f"{_TILE if comps == 1 else _TILE3} points with "
                            f"a halo of {X + 1} do not fit a block's shared "
                            "memory ("
                            f"{stencil_smem_bytes(1, X, itemsize, comps)} "
@@ -178,7 +240,7 @@ def stencil_runs(dims: Tuple[int, int, int], R: int, itemsize: int,
     if R == Z:
         return np.array([(z, 1) for z in range(Z)], dtype=np.int32)
     m, mid = _HALO, Z - 2 * _HALO
-    run = -(-mid // -(-mid // _RUN))
+    run = -(-mid // -(-mid // most))
     while stencil_smem_bytes(run, X, itemsize, comps) > _MAX_SMEM:
         run -= 1
     return np.array([(z, 1) for z in range(m)]
