@@ -175,14 +175,17 @@ def test_flat_apply_refusals():
 
 def test_brick_flat_launch_struct_mirrors_the_kernel():
     """_build.BrickFlatLaunch lays out csrc/brick_flat.cu's
-    BrickFlatLaunch: the fields and plan pointers, then 5 ints."""
+    BrickFlatLaunch: the fields and plan pointers, then 9 ints (the
+    device, the dims, the field count, the tiling)."""
     import ctypes
     from tpufem_torch import _build
     L = _build.BrickFlatLaunch
     assert [n for n, _ in L._fields_] == ["F", "plan", "device", "az", "ay",
-                                          "W", "nf"]
-    assert (L.plan.offset, L.device.offset, L.nf.offset) == (8, 16, 32)
-    assert ctypes.sizeof(L) == 40
+                                          "W", "nf", "rows", "lanes", "reach",
+                                          "threads"]
+    assert (L.plan.offset, L.device.offset, L.nf.offset, L.rows.offset,
+            L.threads.offset) == (8, 16, 32, 36, 48)
+    assert ctypes.sizeof(L) == 56
 
 
 @pytest.mark.parametrize("gdims,c,m,planar", [

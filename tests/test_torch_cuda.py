@@ -616,19 +616,20 @@ def _brick_level(gdims, m, dtype, device, seed=0):
             gdims, m)
 
 
-# |kernel - plain| <= tol * sum_k |F_k x_k|: the two sum the terms in plan
-# order, each rounded alike (no fused multiply-add in the kernel)
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("gdims,m", [
-    ((21, 21, 21), 1), ((22, 27, 33), 1), ((22, 17, 17), 6),
-    ((1, 4, 5), 6), ((3, 2, 7), 1), ((2, 3, 5), 6)],
+    ((21, 21, 21), 1), ((33, 27, 22), 1), ((22, 17, 17), 6),
+    ((1, 4, 5), 6), ((3, 2, 7), 1), ((2, 3, 5), 6), ((3, 4, 25), 6),
+    ((3, 1, 5), 1), ((2, 1, 4), 6), ((2, 3, 1), 6)],
     ids=["poisson_amg_l1", "poisson_500k_l1", "elasticity_500k_l1",
-         "az1", "W7", "W30"])
-def test_brick_flat_kernel_matches_plain(device, gdims, m, dtype, tol):
-    """The level-1 grids of the AMG bench rows, one plane (az = 1) and
-    minor axes that are no multiple of 32, through the public wrapper
-    (one launch) and a prepared launch."""
+         "az1", "W7", "W30", "W150", "ay1", "ay1_m6", "W6_m6"])
+def test_brick_flat_kernel_matches_plain(device, gdims, m, dtype):
+    """The level-1 grids of the AMG bench rows, one plane (az = 1), one
+    row (ay = 1), minor axes that are no multiple of 32, one of 150
+    lanes (two lane tiles, the second of 22) and one of 6 (m = 6,
+    narrower than the halo of 11 lanes), through the public wrapper (one
+    launch) and a prepared launch: the plain version's bits (the same
+    terms in plan order, each product and sum rounded alike)."""
     from tpufem_torch.la.brick_flat import (brick_flat_apply,
                                             brick_flat_apply_plain,
                                             prepare_brick_flat)
@@ -639,16 +640,50 @@ def test_brick_flat_kernel_matches_plain(device, gdims, m, dtype, tol):
     before = brick_flat_apply.launches
     y = brick_flat_apply(x, *args)
     assert brick_flat_apply.launches == before + 1
-    yp = brick_flat_apply_plain(x, *args)
-    bound = brick_flat_apply_plain(x.abs(), args[0].abs(), *args[1:])
     torch.cuda.synchronize()
-    assert bool(((y - yp).abs() <= tol * bound).all())
+    assert torch.equal(y, brick_flat_apply_plain(x, *args))
     assert torch.equal(prepare_brick_flat(*args)(x), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gdims,m,rows,lanes,threads", [
+    ((3, 13, 11), 1, 11, 11, 128), ((3, 13, 12), 1, 5, 12, 64),
+    ((2, 5, 17), 6, 1, 40, 64), ((2, 5, 17), 6, 1, 102, 256),
+    ((4, 7, 3), 6, 7, 18, 128)],
+    ids=["rows11_of_13", "rows5_of_13", "lanes40_of_102",
+         "threads256_m6", "whole_plane_m6"])
+def test_brick_flat_kernel_tilings(device, gdims, m, rows, lanes, threads,
+                                   dtype):
+    """Tilings other than brick_flat_tiling's: a run of rows that ends
+    inside the grid (13 rows in tiles of 11 and of 5), strips of 40
+    lanes of a 102-lane row, more threads than points, a tile of a whole
+    plane: the plain version's bits, as brick_flat_walk gives them on
+    the CPU."""
+    from tpufem_torch.la.brick_flat import (BrickFlatTiling,
+                                            brick_flat_apply_plain,
+                                            prepare_brick_flat)
+    args = _brick_level(gdims, m, dtype, device, seed=3)
+    az, ay, ax = gdims
+    W = ax * m
+    t = BrickFlatTiling(rows=rows, lanes=lanes,
+                        reach=2 * m - 1 if m > 1 else 1, threads=threads,
+                        ytiles=-(-ay // rows),
+                        xtiles=-(-W // lanes),
+                        blocks=az * -(-ay // rows) * -(-W // lanes))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(args[0][0].numel())).to(
+        device, dtype)
+    y = prepare_brick_flat(*args, tiling=t)(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, brick_flat_apply_plain(x, *args))
 
 
 def test_brick_flat_refusals(device):
     """A wrong-dtype or non-contiguous x raises in the wrapper and in a
-    prepared launch; the entry point refuses an empty plan."""
+    prepared launch; the entry point refuses an empty plan and a packed
+    launch whose tiling it cannot run (several rows of a partial row,
+    threads no multiple of 32, too few threads for the tile, more than
+    256 threads) or whose fields are not aligned to their type."""
     from tpufem_torch import _build
     from tpufem_torch.la.brick_flat import brick_flat_apply, prepare_brick_flat
     fields, plan, gdims, m = _brick_level((3, 4, 5), 6, torch.float32, device)
@@ -666,12 +701,24 @@ def test_brick_flat_refusals(device):
         launch(torch.zeros(n, device=device, dtype=torch.float64))
     lib = _build.load().lib
     x = torch.zeros(n, device=device)
-    args = _build.BrickFlatLaunch(F=fields.data_ptr(), plan=x.data_ptr(),
-                                  device=0, az=3, ay=4, W=30, nf=0)
-    rc = lib.tpufem_brick_flat_f32(ctypes.addressof(args), x.data_ptr(),
-                                   x.data_ptr(),
-                                   torch.cuda.current_stream().cuda_stream)
-    assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    y = torch.empty_like(x)
+    table = launch.keep[2]
+    good = dict(F=fields.data_ptr(), plan=table.data_ptr(), device=0, az=3,
+                ay=4, W=30, nf=len(plan), rows=1, lanes=30, reach=11,
+                threads=32)
+
+    def rc(**change):
+        args = _build.BrickFlatLaunch(**{**good, **change})
+        return lib.tpufem_brick_flat_f32(
+            ctypes.addressof(args), x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    assert rc() == 0
+    for bad in (dict(nf=0), dict(rows=2, lanes=20), dict(threads=48),
+                dict(rows=2, threads=32), dict(threads=512),
+                dict(F=fields.data_ptr() + 2)):
+        code = rc(**bad)
+        assert code != 0 and lib.tpufem_cuda_error_string(code), bad
     torch.cuda.synchronize()
 
 

@@ -33,11 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 class BrickFlatLaunch(ctypes.Structure):
     """What a brick-AMG level's flat stencil launch needs beside x, y and
-    the stream (csrc/brick_flat.cu:BrickFlatLaunch), filled once per
-    level."""
+    the stream (csrc/brick_flat.cu:BrickFlatLaunch): the fields, the
+    plan, the dims and the tiling (la.brick_flat.brick_flat_tiling),
+    filled once per level."""
 
     _fields_ = ([(k, ctypes.c_void_p) for k in ("F", "plan")]
-                + [(k, ctypes.c_int) for k in ("device", "az", "ay", "W", "nf")])
+                + [(k, ctypes.c_int)
+                   for k in ("device", "az", "ay", "W", "nf", "rows", "lanes",
+                             "reach", "threads")])
 
 
 class CsrLaunch(ctypes.Structure):
