@@ -9,7 +9,6 @@ and run them in turns in one call on the card (A, B, B, A):
     python scripts/brick_flat_times.py [--tree DIR] [--json PATH]
                                        [--random] [--quick] [--split]
                                        [--sass DIR] [--set NAME=VALUE]
-                                       [--define MACRO=VALUE]
 
 The rows: tpufem's ``poisson_amg`` (60^3 lattice), ``poisson_amg_500k``
 and ``elasticity_amg_500k`` bench rows through chip_smoke.amg_row (f32,
@@ -30,15 +29,14 @@ chip_smoke.py's, whichever tree is timed.
 ``--random``: random fields on the three grids, no rows (a design
 iteration).  ``--quick``: float32 only, no torch.sparse.mm;
 ``--no-library``: no torch.sparse.mm.
-``--split``: the tree's csrc/brick_flat.cu built alone with
-TPUFEM_BF_PHASE = 0 (whole), 1 (the field loads, summed without x) and
-2 (the x reads and products, no field loads), each timed at the m = 6
-level, float32, with the registers ptxas reports.  ``--sass DIR``: the SASS of the tree's
-brick_flat kernels (cuobjdump) into DIR.  ``--set NAME=VALUE``: a
-constant of the tree's tpufem_torch.la.brick_flat (its tiling's
-MIN_BLOCKS, MAX_POINTS, MAX_LANES); ``--define
-MACRO=VALUE``: an nvcc macro of the build (TPUFEM_BF_CHUNK: the terms of
-a register stage).
+``--split``: temporary copies of the tree's csrc/brick_flat.cu, built
+alone and edited as ``_split_source`` says: whole, the field loads
+summed without x, and the x reads and products without the field loads,
+each timed at the m = 6 level, float32, with the registers ptxas
+reports.  ``--sass DIR``: the SASS of the tree's brick_flat kernels
+(cuobjdump) into DIR.  ``--set NAME=VALUE``: a constant of the tree's
+tpufem_torch.la.brick_flat (its tiling's MIN_BLOCKS, MAX_POINTS,
+MAX_LANES).
 """
 
 from __future__ import annotations
@@ -179,18 +177,38 @@ def kernel_rows(sm, levels, dev, tag, gpu, quick, library=True):
     return rows
 
 
+# The split of the kernel: the lines of csrc/brick_flat.cu that a
+# temporary copy edits, to time the field loads or the products alone.
+_FIELD_LOAD = "r[kk] = __ldg(f0 + k * n);"
+_PRODUCT = "acc = add_rn(acc, mul_rn(cur[kk], box[xb + xoff[k0 + kk]]));"
+
+
+def _split_source(src: str, phase: int):
+    """The source for phase 0 (whole), 1 (the field loads summed without
+    x) or 2 (the x reads and products with no field loads), or None where
+    the source has not the lines the split edits."""
+    if _FIELD_LOAD not in src or _PRODUCT not in src:
+        return None
+    if phase == 1:
+        return src.replace(_PRODUCT, "acc = add_rn(acc, cur[kk]);")
+    if phase == 2:
+        return src.replace(_FIELD_LOAD, "r[kk] = T(1);")
+    return src
+
+
 def split_rows(sm, root, levels, dev, tag, gpu):
-    """The m = 6 level, float32, through the tree's csrc/brick_flat.cu
-    built alone with TPUFEM_BF_PHASE = 0, 1, 2 (a source that has it)."""
+    """The m = 6 level, float32, through edited copies of the tree's
+    csrc/brick_flat.cu, each built alone (see _split_source)."""
     import torch
     from tpufem_torch import _build
     from tpufem_torch.la import brick_flat as bf
     csrc = os.path.join(root, "tpufem_torch", "csrc")
     with open(os.path.join(csrc, "brick_flat.cu")) as f:
-        if "TPUFEM_BF_PHASE" not in f.read():
-            print(f"[{tag}] --split: csrc/brick_flat.cu has no phases",
-                  flush=True)
-            return []
+        src = f.read()
+    if _split_source(src, 0) is None:
+        print(f"[{tag}] --split: csrc/brick_flat.cu has not the split's "
+              f"lines", flush=True)
+        return []
     name, fields, plan, gdims, c = [lv for lv in levels if lv[4] == 6][0]
     fields = fields.to(torch.float32).contiguous()
     launch = bf.prepare_brick_flat(fields, plan, gdims, c)
@@ -202,10 +220,12 @@ def split_rows(sm, root, levels, dev, tag, gpu):
     with tempfile.TemporaryDirectory() as tmp:
         for phase, what in ((0, "whole"), (1, "field loads alone"),
                             (2, "products alone")):
+            cu = os.path.join(tmp, f"split{phase}.cu")
             so = os.path.join(tmp, f"split{phase}.so")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
-                   f"-DTPUFEM_BF_PHASE={phase}", "-I", csrc, "-shared", "-o",
-                   so, os.path.join(csrc, "brick_flat.cu")]
+            with open(cu, "w") as f:
+                f.write(_split_source(src, phase))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared",
+                   "-o", so, cu]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed: {proc.stderr}")
@@ -253,8 +273,6 @@ def main() -> int:
     p.add_argument("--set", action="append", default=[],
                    metavar="NAME=VALUE",
                    help="a tiling constant of la.brick_flat")
-    p.add_argument("--define", action="append", default=[],
-                   metavar="MACRO=VALUE", help="an nvcc macro of the build")
     args = p.parse_args()
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
@@ -277,9 +295,8 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         setattr(bf, key, int(value))
-    if args.set or args.define:
-        tag += " " + " ".join(args.set + args.define)
-    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in args.define)
+    if args.set:
+        tag += " " + " ".join(args.set)
     sm = _smoke()
     gpu = sm.gpu_line()
     kern = _build.load()

@@ -6,9 +6,10 @@ stored), each point's sum over the terms in plan order from -0.0 with
 the product and the sum rounded apart, against the plain
 version (``brick_flat_apply_plain``, which tests/test_torch_bramg.py
 holds to tpufem's ``flat_apply``), bit for bit.  Levels: m = 1 and m =
-6, float32 and float64, the tilings brick_flat_tiling gives and others
-(a run of rows that ends inside the grid, strips of lanes, more threads
-than points, a whole plane a tile)."""
+6, float32 and float64, on grids whose brick_flat_tiling has the
+tiling's edges (a run of rows that ends inside the grid, strips of
+lanes, more threads than points, a whole plane a tile).  And what
+prepare_brick_flat refuses before it packs a launch."""
 
 import dataclasses
 
@@ -31,46 +32,66 @@ def _level(gdims, m, dtype, seed):
     return x, F, plan
 
 
-def _tiling(gdims, m, rows, lanes, threads=None):
-    az, ay, ax = gdims
-    W = ax * m
-    ytiles, xtiles = -(-ay // rows), -(-W // lanes)
-    return bf.BrickFlatTiling(
-        rows=rows, lanes=lanes, reach=2 * m - 1 if m > 1 else 1,
-        threads=threads or 32 * -(-rows * lanes // 32), ytiles=ytiles,
-        xtiles=xtiles, blocks=az * ytiles * xtiles)
+def _last_strip(t, gdims, m):
+    """The points of a row's last lane tile."""
+    return gdims[2] * m - (t.xtiles - 1) * t.lanes
 
 
-# (grid, m, dtype, (rows, lanes[, threads]) or None for brick_flat_tiling's)
+# (grid, m, dtype, what brick_flat_tiling's tiling of the grid must show)
 CASES = {
-    "m1-default-float64": ((3, 5, 4), 1, torch.float64, None),
-    "m6-default-float32": ((2, 3, 5), 6, torch.float32, None),
-    "m6-W6-narrower-than-halo": ((2, 3, 1), 6, torch.float64, None),
-    "m6-az1": ((1, 4, 5), 6, torch.float32, None),
-    "m1-ay1": ((3, 1, 5), 1, torch.float32, None),
-    "m6-W150-two-lane-tiles": ((2, 2, 25), 6, torch.float32, None),
-    "m1-rows-end-inside-grid": ((3, 13, 7), 1, torch.float32, (5, 7)),
-    "m1-rows-more-threads": ((2, 9, 6), 1, torch.float64, (4, 6, 64)),
-    "m6-lane-strips": ((2, 3, 7), 6, torch.float32, (1, 16)),
-    "m6-lane-strips-more-threads": ((2, 3, 5), 6, torch.float32,
-                                    (1, 12, 96)),
-    "m6-whole-plane": ((3, 4, 2), 6, torch.float64, (4, 12)),
+    "m1-default-float64": ((3, 5, 4), 1, torch.float64,
+                           lambda t, g, m: t.rows == 1),
+    "m6-default-float32": ((2, 3, 5), 6, torch.float32,
+                           lambda t, g, m: t.rows == 1),
+    "m6-W6-narrower-than-halo": ((2, 3, 1), 6, torch.float64,
+                                 lambda t, g, m: t.lanes < 2 * t.reach),
+    "m6-az1": ((1, 4, 5), 6, torch.float32, lambda t, g, m: True),
+    "m1-ay1": ((3, 1, 5), 1, torch.float32, lambda t, g, m: True),
+    "m6-W150-two-lane-tiles": ((2, 2, 25), 6, torch.float32,
+                               lambda t, g, m: t.xtiles == 2),
+    "m1-rows-end-inside-grid": ((132, 5, 4), 1, torch.float32,
+                                lambda t, g, m: t.rows > 1
+                                and g[1] % t.rows),
+    "m1-rows-more-threads": ((53, 9, 6), 1, torch.float64,
+                             lambda t, g, m: t.rows > 1
+                             and t.threads > t.rows * t.lanes),
+    "m6-lane-strips": ((2, 3, 22), 6, torch.float32,
+                       lambda t, g, m: t.xtiles > 1
+                       and (g[2] * m) % t.lanes),
+    "m6-lane-strips-more-threads": ((2, 2, 27), 6, torch.float32,
+                                    lambda t, g, m: t.xtiles > 1
+                                    and t.threads > _last_strip(t, g, m)),
+    "m6-whole-plane": ((264, 4, 2), 6, torch.float64,
+                       lambda t, g, m: (t.rows, t.lanes) == (g[1], g[2] * m)),
 }
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_brick_flat_walk_gives_the_plain_versions_bits(name):
-    gdims, m, dtype, shape = CASES[name]
+    gdims, m, dtype, shows = CASES[name]
     x, F, plan = _level(gdims, m, dtype, seed=len(name))
-    t = (bf.brick_flat_tiling(gdims, m) if shape is None
-         else _tiling(gdims, m, *shape))
-    y, counts = bf.brick_flat_walk(x, F, plan, gdims, m, tiling=t)
+    t = bf.brick_flat_tiling(gdims, m)
+    assert shows(t, gdims, m)
+    y, counts = bf.brick_flat_walk(x, F, plan, gdims, m)
     assert torch.equal(y, bf.brick_flat_apply_plain(x, F, plan, gdims, m))
     assert counts == dict(blocks=t.blocks, twice=0)
-    if "ends-inside" in name:
-        assert gdims[1] % t.rows
-    if "lane-" in name:
-        assert t.xtiles > 1 and (gdims[2] * m) % t.lanes
+
+
+@pytest.mark.parametrize("entry,error", [
+    ((0, 0, 12), ValueError), ((2, 0, 0), ValueError),
+    ((0, -2, 0), ValueError), (None, RuntimeError)],
+    ids=["s_beyond_reach", "dz_beyond_box", "dy_beyond_box", "cpu_fields"])
+def test_prepare_brick_flat_refusals(entry, error):
+    """prepare_brick_flat refuses, before it builds or packs anything, a
+    plan with a shift outside the box the kernel stages (|s| > 2m - 1,
+    |dz| or |dy| > 1), which would read past the box, and fields that
+    are not on the card."""
+    x, F, plan = _level((2, 2, 2), 6, torch.float32, seed=5)
+    if entry is not None:
+        plan = list(plan)
+        plan[len(plan) // 2] = entry
+    with pytest.raises(error):
+        bf.prepare_brick_flat(F, plan, (2, 2, 2), 6)
 
 
 @pytest.mark.parametrize("gdims,m,blocks", [

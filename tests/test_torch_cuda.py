@@ -619,12 +619,14 @@ def _brick_level(gdims, m, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("gdims,m", [
     ((21, 21, 21), 1), ((33, 27, 22), 1), ((22, 17, 17), 6),
-    ((1, 4, 5), 6), ((3, 2, 7), 1), ((2, 3, 5), 6), ((3, 4, 25), 6),
-    ((3, 1, 5), 1), ((2, 1, 4), 6), ((2, 3, 1), 6)],
+    ((22, 27, 33), 1), ((1, 4, 5), 6), ((3, 2, 7), 1), ((2, 3, 5), 6),
+    ((3, 4, 25), 6), ((3, 1, 5), 1), ((2, 1, 4), 6), ((2, 3, 1), 6)],
     ids=["poisson_amg_l1", "poisson_500k_l1", "elasticity_500k_l1",
-         "az1", "W7", "W30", "W150", "ay1", "ay1_m6", "W6_m6"])
+         "W33_rows_end_inside", "az1", "W7", "W30", "W150", "ay1", "ay1_m6",
+         "W6_m6"])
 def test_brick_flat_kernel_matches_plain(device, gdims, m, dtype):
-    """The level-1 grids of the AMG bench rows, one plane (az = 1), one
+    """The level-1 grids of the AMG bench rows, one of 33 lanes whose
+    tiles of 2 rows end inside its 27 rows, one plane (az = 1), one
     row (ay = 1), minor axes that are no multiple of 32, one of 150
     lanes (two lane tiles, the second of 22) and one of 6 (m = 6,
     narrower than the halo of 11 lanes), through the public wrapper (one
@@ -646,44 +648,42 @@ def test_brick_flat_kernel_matches_plain(device, gdims, m, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("gdims,m,rows,lanes,threads", [
-    ((3, 13, 11), 1, 11, 11, 128), ((3, 13, 12), 1, 5, 12, 64),
-    ((2, 5, 17), 6, 1, 40, 64), ((2, 5, 17), 6, 1, 102, 256),
-    ((4, 7, 3), 6, 7, 18, 128)],
-    ids=["rows11_of_13", "rows5_of_13", "lanes40_of_102",
-         "threads256_m6", "whole_plane_m6"])
-def test_brick_flat_kernel_tilings(device, gdims, m, rows, lanes, threads,
-                                   dtype):
-    """Tilings other than brick_flat_tiling's: a run of rows that ends
-    inside the grid (13 rows in tiles of 11 and of 5), strips of 40
-    lanes of a 102-lane row, more threads than points, a tile of a whole
-    plane: the plain version's bits, as brick_flat_walk gives them on
-    the CPU."""
-    from tpufem_torch.la.brick_flat import (BrickFlatTiling,
-                                            brick_flat_apply_plain,
+@pytest.mark.parametrize("gdims,m,shape", [
+    ((132, 5, 4), 1, (4, 4, 2, 1, 32)), ((53, 9, 6), 1, (2, 6, 5, 1, 32)),
+    ((2, 5, 22), 6, (1, 128, 5, 2, 128)), ((2, 5, 27), 6, (1, 128, 5, 2, 128)),
+    ((264, 4, 2), 6, (4, 12, 1, 1, 64))],
+    ids=["rows4_of_5", "rows2_of_9", "lanes128_of_132", "last_strip34_m6",
+         "whole_plane_m6"])
+def test_brick_flat_kernel_tilings(device, gdims, m, shape, dtype):
+    """Grids whose brick_flat_tiling (rows, lanes, ytiles, xtiles,
+    threads) has the tiling's edges: a run of rows that ends inside the
+    grid (5 rows in tiles of 4, 9 in tiles of 2), strips of 128 lanes of
+    a 132- and a 162-lane row, more threads than points, a tile of a
+    whole plane: the plain version's bits, as brick_flat_walk gives them
+    on the CPU."""
+    from tpufem_torch.la.brick_flat import (brick_flat_apply_plain,
+                                            brick_flat_tiling,
                                             prepare_brick_flat)
+    t = brick_flat_tiling(gdims, m)
+    assert (t.rows, t.lanes, t.ytiles, t.xtiles, t.threads) == shape
     args = _brick_level(gdims, m, dtype, device, seed=3)
-    az, ay, ax = gdims
-    W = ax * m
-    t = BrickFlatTiling(rows=rows, lanes=lanes,
-                        reach=2 * m - 1 if m > 1 else 1, threads=threads,
-                        ytiles=-(-ay // rows),
-                        xtiles=-(-W // lanes),
-                        blocks=az * -(-ay // rows) * -(-W // lanes))
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal(args[0][0].numel())).to(
         device, dtype)
-    y = prepare_brick_flat(*args, tiling=t)(x)
+    y = prepare_brick_flat(*args)(x)
     torch.cuda.synchronize()
     assert torch.equal(y, brick_flat_apply_plain(x, *args))
 
 
 def test_brick_flat_refusals(device):
     """A wrong-dtype or non-contiguous x raises in the wrapper and in a
-    prepared launch; the entry point refuses an empty plan and a packed
-    launch whose tiling it cannot run (several rows of a partial row,
-    threads no multiple of 32, too few threads for the tile, more than
-    256 threads) or whose fields are not aligned to their type."""
+    prepared launch; a plan shift outside the staged box raises in
+    prepare_brick_flat; the entry point refuses an empty plan and a
+    packed launch whose tiling it cannot run (several rows of a partial
+    row, threads no multiple of 32, too few threads for the tile, more
+    than 256 threads) or whose fields are not aligned to their type; a
+    packed launch whose reach is below the plan's shifts stores NaN and
+    reads nothing outside its box."""
     from tpufem_torch import _build
     from tpufem_torch.la.brick_flat import brick_flat_apply, prepare_brick_flat
     fields, plan, gdims, m = _brick_level((3, 4, 5), 6, torch.float32, device)
@@ -699,6 +699,8 @@ def test_brick_flat_refusals(device):
         launch(torch.zeros(2 * n, device=device)[::2])
     with pytest.raises(ValueError):
         launch(torch.zeros(n, device=device, dtype=torch.float64))
+    with pytest.raises(ValueError, match="plan entries"):
+        prepare_brick_flat(fields, [(0, 0, 12)] + list(plan[1:]), gdims, m)
     lib = _build.load().lib
     x = torch.zeros(n, device=device)
     y = torch.empty_like(x)
@@ -719,7 +721,9 @@ def test_brick_flat_refusals(device):
                 dict(F=fields.data_ptr() + 2)):
         code = rc(**bad)
         assert code != 0 and lib.tpufem_cuda_error_string(code), bad
+    assert rc(reach=5) == 0  # the plan's shifts reach 11 lanes
     torch.cuda.synchronize()
+    assert torch.isnan(y).all()
 
 
 @pytest.mark.parametrize("extra,iterations,norm,flat", [

@@ -1,7 +1,8 @@
 // Asynchronous copies from global to shared memory, shared by the
 // kernels: 16 bytes at a time (cp.async.cg: through L2, never L1, so a
 // block reads what another SM wrote before the last grid barrier), or one
-// 4- or 8-byte value where the source is not 16-byte aligned.
+// 4- or 8-byte value where the source is not 16-byte aligned (or zeros in
+// its place).
 
 #pragma once
 
@@ -30,6 +31,25 @@ __device__ __forceinline__ void cp_async_value(T* smem, const T* gmem) {
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                  "l"(gmem)
+                 : "memory");
+  }
+}
+
+// The same, or zeros where !ok (a source size of 0: gmem is not read, but
+// must still be a valid address).
+template <typename T>
+__device__ __forceinline__ void cp_async_value_or_zero(T* smem, const T* gmem,
+                                                       bool ok) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "float or double");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned bytes = ok ? sizeof(T) : 0u;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(bytes)
                  : "memory");
   }
 }

@@ -49,12 +49,16 @@
 //   (no fused multiply-add), so the kernel gives the plain version's bits.
 //   A thread past the tile's last point inside the grid computes that
 //   point again and stores nothing.
+// - A plan shift outside the box (|dz| or |dy| > 1, |s| > reach: a packed
+//   launch whose reach is below the plan's shifts) makes every block
+//   store NaN and read nothing outside the box; prepare_brick_flat refuses
+//   such a plan before it packs a launch.
 //
 // Measured (scripts/brick_flat_times.py; device time after an L2 flush,
-// NVIDIA H100 80GB HBM3, 700.00 W): m = 6 f32 0.0161 ms against the first
-// design's 0.0334-0.0336 in the same run (f64 0.0254-0.0256 against
-// 0.0375-0.0376), m = 1 0.0046-0.0049 against 0.0068-0.0069.  Its field
-// loads alone take 0.0150 ms (2.3 TB/s).  Measured slower at m = 6 f32:
+// NVIDIA H100 80GB HBM3, 700.00 W): m = 6 f32 0.0151-0.0152 ms against
+// the first design's 0.0334 in the same run (f64 0.0246-0.0251 against
+// 0.0375), m = 1 0.0042-0.0048 against 0.0067-0.0070.  Its field loads
+// alone take 0.0141 ms (2.3 TB/s).  Measured slower at m = 6 f32:
 // shared-memory rings of 16-byte cp.async stages (0.0217-0.0245 ms
 // whatever their depth) and of 1-D bulk copies (TMA) on an mbarrier
 // (0.0163-0.0187; f64 0.0316), two adjacent points a thread with one
@@ -63,30 +67,18 @@
 //
 // What a launch needs beside x, y and the stream is a BrickFlatLaunch
 // packed once per level (the fields, the plan, the dims and the tiling).
-//
-// TPUFEM_BF_PHASE (scripts/brick_flat_times.py --split): 1 runs the field
-// loads and sums them without x, 2 the x reads and products without the
-// field loads.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "async_copy.cuh"
 #include "strip_common.cuh"
-
-#ifndef TPUFEM_BF_PHASE
-#define TPUFEM_BF_PHASE 0
-#endif
-// terms a register stage (two stages a thread)
-#ifndef TPUFEM_BF_CHUNK
-#define TPUFEM_BF_CHUNK 32
-#endif
 
 namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kMaxFields = 4096;  // tpufem_torch/la/brick_flat.py:MAX_FIELDS
-
-constexpr int kChunk = TPUFEM_BF_CHUNK;
+constexpr int kChunk = 32;        // terms a register stage (two a thread)
 
 // Everything a launch needs beside x, y and the stream, filled once per
 // level (mirrored by tpufem_torch/_build.py:BrickFlatLaunch).
@@ -116,23 +108,6 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 }
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
-}
-
-// One value, or zeros where !ok (cp.async with a zero source size).
-template <typename T>
-__device__ __forceinline__ void cp_async_or_zero(T* smem, const T* gmem,
-                                                 bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const unsigned bytes = ok ? sizeof(T) : 0u;
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(bytes)
-                 : "memory");
-  }
 }
 
 template <typename T>
@@ -174,13 +149,18 @@ brick_flat_kernel(const T* __restrict__ x, const T* __restrict__ F,
     for (int c = lane; c < bx; c += 32) {
       const int gx = x0 + c - R;
       const bool ok = rok && gx >= 0 && gx < W;
-      cp_async_or_zero(box + r * bx + c, ok ? xrow + gx : x, ok);
+      tpufem::cp_async_value_or_zero(box + r * bx + c, ok ? xrow + gx : x,
+                                     ok);
     }
   }
-  // a term's x offset in the box from its point's own
-  for (int k = tid; k < nf; k += nthr)
-    xoff[k] = ((1 + plan[3 * k]) * brow + 1 + plan[3 * k + 1]) * bx + R +
-              plan[3 * k + 2];
+  // a term's x offset in the box from its point's own; a shift the box
+  // does not hold marks the plan bad
+  int bad = 0;
+  for (int k = tid; k < nf; k += nthr) {
+    const int dz = plan[3 * k], dy = plan[3 * k + 1], s = plan[3 * k + 2];
+    bad |= dz < -1 || dz > 1 || dy < -1 || dy > 1 || s < -R || s > R;
+    xoff[k] = ((1 + dz) * brow + 1 + dy) * bx + R + s;
+  }
 
   // this thread's point (past the run: the run's last, not stored)
   const int l = min(tid, run - 1);
@@ -192,34 +172,35 @@ brick_flat_kernel(const T* __restrict__ x, const T* __restrict__ F,
 #pragma unroll
     for (int kk = 0; kk < C; ++kk) {
       const long long k = min(c * C + kk, nf - 1);
-      r[kk] = TPUFEM_BF_PHASE == 2 ? T(1) : __ldg(f0 + k * n);
+      r[kk] = __ldg(f0 + k * n);
     }
   };
   const int nch = (nf + C - 1) / C;
   T acc = T(-0.0), cur[C], nxt[C];
   load(0, cur);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
+  tpufem::cp_async_wait_all();
+  // a bad plan (a packed launch whose reach is below its shifts) reads
+  // nothing outside the box: the tile's points are NaN
+  const bool store =
+      tid < rows * lanes && tid / lanes < vrows && tid % lanes < vlanes;
+  if (__syncthreads_or(bad)) {
+    if (store) y[p0 + tid] = static_cast<T>(CUDART_NAN);
+    return;
+  }
 
   for (int c = 0; c < nch; ++c) {
     if (c + 1 < nch) load(c + 1, nxt);
     const int k0 = c * C, cnt = min(C, nf - k0);
 #pragma unroll
     for (int kk = 0; kk < C; ++kk) {
-      if (kk < cnt) {
-        if (TPUFEM_BF_PHASE == 1)
-          acc = add_rn(acc, cur[kk]);
-        else
-          acc = add_rn(acc, mul_rn(cur[kk], box[xb + xoff[k0 + kk]]));
-      }
+      if (kk < cnt)
+        acc = add_rn(acc, mul_rn(cur[kk], box[xb + xoff[k0 + kk]]));
     }
 #pragma unroll
     for (int kk = 0; kk < C; ++kk) cur[kk] = nxt[kk];
   }
 
-  if (tid < rows * lanes && tid / lanes < vrows && tid % lanes < vlanes)
-    y[p0 + tid] = acc;
+  if (store) y[p0 + tid] = acc;
 }
 
 template <typename T>

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,21 +47,20 @@ MAX_POINTS = 128
 MIN_BLOCKS = 264
 
 
-def _check(x: torch.Tensor, fields: torch.Tensor,
-           plan: Sequence[Tuple[int, int, int]],
-           adims: Tuple[int, int, int], m: int) -> None:
+def _check_level(fields: torch.Tensor,
+                 plan: Sequence[Tuple[int, int, int]],
+                 adims: Tuple[int, int, int], m: int) -> None:
+    """Refuses fields and a plan that do not make a level the kernel can
+    apply: every shift within the box it stages (|dz|, |dy| <= 1, |s| <=
+    2m - 1)."""
     az, ay, ax = adims
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"brick flat apply takes float32/float64, got {x.dtype}")
-    if fields.dtype != x.dtype or fields.device != x.device:
-        raise TypeError(f"fields {fields.dtype}@{fields.device} do not match "
-                        f"x {x.dtype}@{x.device}")
-    if not (x.is_contiguous() and fields.is_contiguous()):
-        raise ValueError("brick flat apply needs contiguous x and fields")
-    if min(az, ay, ax, m) < 1 or x.shape != (az * ay * ax * m,):
-        raise ValueError(f"x of shape {tuple(x.shape)} is not the flat "
-                         f"{az}x{ay}x{ax * m} grid")
-    if (fields.dim() != 4 or tuple(fields.shape[1:]) != (az, ay, ax * m)
+    if fields.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"brick flat apply takes float32/float64, got "
+                        f"{fields.dtype}")
+    if not fields.is_contiguous():
+        raise ValueError("brick flat apply needs contiguous fields")
+    if (min(az, ay, ax, m) < 1 or fields.dim() != 4
+            or tuple(fields.shape[1:]) != (az, ay, ax * m)
             or not 1 <= fields.shape[0] <= MAX_FIELDS
             or len(plan) != fields.shape[0]):
         raise ValueError(f"fields of shape {tuple(fields.shape)} and a plan of "
@@ -72,6 +71,18 @@ def _check(x: torch.Tensor, fields: torch.Tensor,
            for e in plan):
         raise ValueError(f"plan entries must be (dz, dy, s) with |dz|, |dy| "
                          f"<= 1 and |s| <= {reach}")
+
+
+def _check(x: torch.Tensor, fields: torch.Tensor,
+           plan: Sequence[Tuple[int, int, int]],
+           adims: Tuple[int, int, int], m: int) -> None:
+    _check_level(fields, plan, adims, m)
+    if x.dtype != fields.dtype or x.device != fields.device:
+        raise TypeError(f"x {x.dtype}@{x.device} does not match the fields "
+                        f"{fields.dtype}@{fields.device}")
+    if not x.is_contiguous() or x.shape != (fields[0].numel(),):
+        raise ValueError(f"x of shape {tuple(x.shape)} is not the contiguous "
+                         f"flat {'x'.join(map(str, fields.shape[1:]))} grid")
 
 
 def brick_flat_apply_plain(x: torch.Tensor, fields: torch.Tensor,
@@ -124,7 +135,7 @@ def brick_flat_tiling(adims: Tuple[int, int, int], m: int
             rows -= 1
     ytiles = -(-ay // rows)
     return BrickFlatTiling(rows=rows, lanes=lanes,
-                           reach=2 * m - 1 if m > 1 else 1,
+                           reach=2 * m - 1,
                            threads=32 * -(-rows * lanes // 32),
                            ytiles=ytiles, xtiles=xtiles,
                            blocks=az * ytiles * xtiles)
@@ -132,8 +143,7 @@ def brick_flat_tiling(adims: Tuple[int, int, int], m: int
 
 def brick_flat_walk(x: torch.Tensor, fields: torch.Tensor,
                     plan: Sequence[Tuple[int, int, int]],
-                    adims: Tuple[int, int, int], m: int,
-                    tiling: Optional[BrickFlatTiling] = None
+                    adims: Tuple[int, int, int], m: int
                     ) -> Tuple[torch.Tensor, Dict[str, int]]:
     """The kernel's tiling walked in plain PyTorch, with its staging and
     its roundings: for each block (z, row tile, lane tile), the box of x
@@ -148,7 +158,7 @@ def brick_flat_walk(x: torch.Tensor, fields: torch.Tensor,
     az, ay, ax = adims
     W = ax * m
     n = az * ay * W
-    t = brick_flat_tiling(adims, m) if tiling is None else tiling
+    t = brick_flat_tiling(adims, m)
     flat_f = fields.reshape(-1)
     xg = x.reshape(az, ay, W)
     rows, lanes, R = t.rows, t.lanes, t.reach
@@ -190,14 +200,17 @@ def brick_flat_walk(x: torch.Tensor, fields: torch.Tensor,
 
 def prepare_brick_flat(fields: torch.Tensor,
                        plan: Sequence[Tuple[int, int, int]],
-                       adims: Tuple[int, int, int], m: int,
-                       tiling: Optional[BrickFlatTiling] = None
+                       adims: Tuple[int, int, int], m: int
                        ) -> Callable[[torch.Tensor], torch.Tensor]:
     """A launcher ``x -> y`` of the kernel on CUDA ``fields``, with the
-    fields' pointer, the plan table on the card, the dims, the tiling and
-    the entry point fixed once (``tiling``: brick_flat_tiling's by default);
-    a call checks x against them and passes x, y and the stream.  Counts
-    its launches in ``brick_flat_apply.launches``."""
+    fields' pointer, the plan table on the card, the dims,
+    brick_flat_tiling's tiling and the entry point fixed once; a call
+    checks x against them and passes x, y and the stream.  Counts its
+    launches in ``brick_flat_apply.launches``.  Refuses fields and a plan
+    that brick_flat_apply would refuse, and fields off the card."""
+    _check_level(fields, plan, adims, m)
+    if fields.device.type != "cuda":
+        raise RuntimeError(f"no brick flat kernel for device {fields.device}")
     from tpufem_torch import _build
     lib = _build.load().lib
     az, ay, ax = adims
@@ -207,7 +220,7 @@ def prepare_brick_flat(fields: torch.Tensor,
         np.asarray(plan, dtype=np.int32).reshape(-1, 3)).to(fields.device)
     fn = (lib.tpufem_brick_flat_f32 if fields.dtype == torch.float32
           else lib.tpufem_brick_flat_f64)
-    t = brick_flat_tiling(adims, m) if tiling is None else tiling
+    t = brick_flat_tiling(adims, m)
     args = _build.BrickFlatLaunch(F=fields.data_ptr(), plan=table.data_ptr(),
                                   device=fields.device.index, az=az, ay=ay,
                                   W=ax * m, nf=fields.shape[0], rows=t.rows,
