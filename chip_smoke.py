@@ -123,10 +123,14 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    counted from zero around its run, warm solves, launches per CG
    iteration and the warm solve's device-busy share; the CSR kernel
    against its plain version on the path's matrices (the spoke 500k
-   fine operator in float32, float64 and bf16, its P and P^T, a sparse
-   coarse level, the cube's P0 and P0^T) and the bf16 dense kernel on
+   fine operator in float32, float64 and bf16, its P and P^T and its
+   level-1 P and P^T, a sparse coarse level, the cube's P0, which has
+   empty rows, P0^T and its level-1 P and P^T), the same bits on two
+   launches, and the bf16 dense kernel on
    the spoke 500k dense level and elasticity P1's level 1 (9,512 and
-   18,840 rows), with times, the host cost, the bound and
+   18,840 rows), with times, the host cost, the bound and the share of
+   it, the floor of the method (an empty launch and an elementwise pass
+   over y after the same flush) and
    torch.sparse.mm / torch.matmul beside them; tpufem's four float64
    SA-AMG runs (SAAMG_GOLDS: iterations exact, norms to rel 1e-9).
 
@@ -1973,15 +1977,21 @@ def csr_work(A):
 
 def csr_kernel_phase(mats, gpu: str):
     """The CSR kernel against its plain version on the path's own
-    matrices, within csr_spmv_bound, with times, the wrapper's host
-    cost, the bound and torch.sparse.mm of the same float32 / float64
-    matrix (cuSPARSE; none computes the bf16 product).  Returns (rows,
-    worst abs error)."""
+    matrices, within csr_spmv_bound and the same bits on two launches,
+    with times, the wrapper's host cost, the bound and the share of it,
+    the floor of the method at the matrix's n (an empty launch and an
+    elementwise pass over y, each after the same L2 flush) and
+    torch.sparse.mm of the same float32 / float64 matrix (cuSPARSE; none
+    computes the bf16 product).  Returns (rows, worst abs error)."""
     import torch
     from tpufem_torch.fem.csr_spmv import (csr_spmv, csr_spmv_bound,
                                            csr_spmv_plain)
     rows, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(14)
+    empty_ms, _ = device_ms(lambda: torch.cuda._sleep(0), "spin_kernel",
+                            0.0, "an empty launch")
+    print(f"csr_spmv: an empty launch after the L2 flush {fmt_ms(empty_ms)} "
+          f"device  [{gpu}]", flush=True)
     for name, A in mats:
         x = torch.randn(A.ncols, generator=gen, device=A.device,
                         dtype=torch.float64).to(A.out_dtype)
@@ -2001,6 +2011,7 @@ def csr_kernel_phase(mats, gpu: str):
               f"(max abs err {abs_err:.3e}, worst share of the bound "
               f"{float((err / bnd.clamp_min(1e-300)).max()):.3e})")
         worst = max(worst, abs_err)
+        empty = int((A.indptr[1:] == A.indptr[:-1]).sum())
         ms = median_ms(lambda: A.matvec(x))
         host = host_ms(lambda: A.matvec(x))
         plain_ms = median_ms(lambda: csr_spmv_plain(A, x), reps=5, samples=5)
@@ -2014,23 +2025,34 @@ def csr_kernel_phase(mats, gpu: str):
         b_ms, b_by = bound_ms(nbytes, flops)
         dev, note = device_ms(lambda: A.matvec(x), "csr_spmv_kernel", b_ms,
                               f"csr_spmv {name} {A.vals.dtype}")
+        out = torch.empty_like(y)
+        y_ms, _ = device_ms(lambda: torch.neg(y, out=out),
+                            "elementwise_kernel", 0.0, f"a pass over y, {name}")
         rows.append(dict(name=name, dtype=str(A.vals.dtype).split(".")[1],
-                         n=A.n, ncols=A.ncols, nnz=A.nnz, G=A.G,
+                         n=A.n, ncols=A.ncols, nnz=A.nnz, empty_rows=empty,
+                         tiles=A.tiles,
                          max_abs_err=abs_err, ms=ms, device_ms=dev,
                          device_note=note, host_ms=host, plain_ms=plain_ms,
                          library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by,
+                         share_of_bound=None if dev is None else b_ms / dev,
+                         empty_launch_ms=empty_ms, y_pass_ms=y_ms,
                          call_minus_device_ms=(None if dev is None
                                                else ms - dev)))
+        share = "n/a" if dev is None else f"{100 * b_ms / dev:.0f}%"
         print(f"csr_spmv {name:<34} {rows[-1]['dtype']:<8} {A.n}x{A.ncols}, "
-              f"{A.nnz} entries, G {A.G} | max |kernel - plain| "
-              f"{abs_err:.3e} | per call: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.sparse.mm {fmt_ms(lib_ms)}"
+              f"{A.nnz} entries, {empty} empty rows, {A.tiles} tiles | "
+              f"max |kernel - plain| "
+              f"{abs_err:.3e}, the same bits twice | per call: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm "
+              f"{fmt_ms(lib_ms)}"
               + (f" (off the plain version by {lib_err:.3e})"
                  if lib_err is not None else "")
-              + f" | device {fmt_dev(dev, note)} | host cost {host:.4f} ms per "
-              f"queued call | bound {b_ms:.4f} ms ({b_by}, "
-              f"{nbytes / 1e6:.2f} MB)  [{gpu}]", flush=True)
+              + f" | device {fmt_dev(dev, note)}, {share} of the bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB); floor: an "
+              f"empty launch {fmt_ms(empty_ms)}, a pass over y "
+              f"{fmt_ms(y_ms)} | host cost {host:.4f} ms per queued call  "
+              f"[{gpu}]", flush=True)
     return rows, worst
 
 
@@ -2140,11 +2162,13 @@ def saamg_phase(cli, gpu: str):
             del sparse
         if key.endswith("500k"):
             op = solver.op
+            lv = solver.pc.levels
             mats += [("spoke 500k fine", op),
                      ("spoke 500k fine", op.astype(torch.float64)),
                      ("spoke 500k fine", op.astype(torch.bfloat16)),
-                     ("spoke 500k P", solver.pc.levels[0].P),
-                     ("spoke 500k P^T", solver.pc.levels[0].PT)]
+                     ("spoke 500k P", lv[0].P), ("spoke 500k P^T", lv[0].PT),
+                     ("spoke 500k level-1 P", lv[1].P),
+                     ("spoke 500k level-1 P^T", lv[1].PT)]
             for i, lv in enumerate(solver.pc.levels[1:], 1):
                 if isinstance(lv.A, DenseMat):
                     dense_levels.append((f"spoke 500k level {i}", lv.A))
@@ -2162,8 +2186,13 @@ def saamg_phase(cli, gpu: str):
               f"  [{gpu}]", flush=True)
         pc = res.problem.solver_function.pc
         if key == "poisson_p1_amg_brick_off":
-            mats += [("cube P1 500k P0", pc.levels[0].P0),
-                     ("cube P1 500k P0^T", pc.levels[0].P0T)]
+            P0 = pc.levels[0].P0
+            check(bool((P0.indptr[1:] == P0.indptr[:-1]).any()),
+                  "cube P1 500k: P0 has no empty row")
+            mats += [("cube P1 500k P0 (empty rows)", P0),
+                     ("cube P1 500k P0^T", pc.levels[0].P0T),
+                     ("cube P1 500k level-1 P", pc.levels[1].P),
+                     ("cube P1 500k level-1 P^T", pc.levels[1].PT)]
         for i, lv in enumerate(pc.levels[1:], 1):
             if isinstance(lv.A, CsrMatrix):
                 mats.append((f"{key} level {i}", lv.A))
@@ -2573,9 +2602,12 @@ def main() -> int:
          "host_ms": csr["host_ms"],
          "call_minus_device_ms": csr["call_minus_device_ms"],
          "matrices": [{k: r[k] for k in ("name", "dtype", "n", "ncols", "nnz",
-                                         "G", "ms", "device_ms", "host_ms",
+                                         "empty_rows", "tiles",
+                                         "ms", "device_ms", "host_ms",
                                          "plain_ms", "library_ms",
-                                         "bound_ms", "max_abs_err")}
+                                         "bound_ms", "share_of_bound",
+                                         "empty_launch_ms", "y_pass_ms",
+                                         "max_abs_err")}
                       for r in csr_rows]},
         {"name": "dense_gemv_bf16", "route": "cuda",
          "source": "tpufem_torch/csrc/dense_gemv.cu",

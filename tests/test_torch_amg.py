@@ -19,8 +19,8 @@ from tpufem.la import amg as tpu_amg
 
 from tpufem_torch import convert, native
 from tpufem_torch.config import SolverOptions
-from tpufem_torch.fem.csr_spmv import (CsrMatrix, csr_spmv, csr_spmv_bound,
-                                       csr_spmv_plain, lanes_for)
+from tpufem_torch.fem.csr_spmv import (CsrMatrix, csr_plan, csr_spmv,
+                                       csr_spmv_bound, csr_spmv_plain)
 from tpufem_torch.fem.dense_gemv import (DenseMat, dense_gemv_bf16,
                                          dense_gemv_bound, dense_gemv_walk,
                                          dense_pieces, dense_smem_bytes)
@@ -310,7 +310,10 @@ def test_csr_plain_matches_scipy_and_tpufem_ell(shape, dtype):
     M = _random_csr(n, m, dens, 3)
     dt = getattr(torch, dtype)
     A = CsrMatrix.from_scipy(M, dt, CPU)
-    assert A.G == lanes_for(M.indptr) and A.ncols == m
+    P = csr_plan(M.indptr)
+    assert torch.equal(A.tile_row, torch.from_numpy(P.tile_row))
+    assert A.ncols == m
+    assert torch.equal(A.starts, torch.from_numpy(P.starts))
     rng = np.random.default_rng(4)
     xo = torch.from_numpy(rng.standard_normal(m)).to(A.out_dtype)
     y = csr_spmv(A, xo)

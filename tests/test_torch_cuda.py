@@ -12,6 +12,7 @@ suite's conftest imports jax, so there run it without it:
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1006,7 +1007,7 @@ def _random_csr(n, m, density, seed, wide_rows=0):
     ids=["square", "P", "PT", "tiny", "hub", "one_row"])
 def test_csr_spmv_kernel_matches_plain(device, shape, dtype):
     """The CSR kernel against its plain version within csr_spmv_bound,
-    every lane count the shapes pick (1 to 32), one launch a product."""
+    one wrapper call a product, the same bits twice."""
     from tpufem_torch.fem.csr_spmv import (CsrMatrix, csr_spmv,
                                            csr_spmv_bound, csr_spmv_plain)
     n, m, dens, wide = shape
@@ -1045,17 +1046,48 @@ def test_csr_spmv_on_a_side_stream_and_refusals(device):
         A.matvec(torch.zeros(400, device=device)[::2])
     with pytest.raises(ValueError):
         csr_spmv(A, x.cpu())
+    with pytest.raises(ValueError):  # vals off a 16-byte boundary
+        dataclasses.replace(A, vals=A.vals[1:], indices=A.indices[1:],
+                            _launch=None).matvec(x[:A.ncols])
     lib = _build.load().lib
     stream = torch.cuda.current_stream().cuda_stream
-    for G, n in ((3, A.n), (64, A.n), (4, 0)):
-        bad = _build.CsrLaunch(indptr=A.indptr.data_ptr(),
-                               indices=A.indices.data_ptr(),
-                               vals=A.vals.data_ptr(), device=0, n=n,
-                               ncols=A.ncols, G=G)
+    launch = A._launch.keep[0]
+    for field, value in (("tiles", A.tiles + 1), ("n", 0), ("nnz", -1),
+                         ("vals", A.vals.data_ptr() + 4),
+                         ("tile_row", 0)):
+        bad = _build.CsrLaunch.from_buffer_copy(launch)
+        setattr(bad, field, value)
         rc = lib.tpufem_csr_spmv_f32(ctypes.addressof(bad), x.data_ptr(),
                                      y.data_ptr(), stream)
         assert rc != 0 and lib.tpufem_cuda_error_string(rc)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("name", ["long_rows", "three_tiles", "one_entry",
+                                  "empty_runs", "ragged", "hub"])
+def test_csr_spmv_cut_rows_on_the_card(device, name, dtype):
+    """The cases the plan must cut right (tests/test_torch_csr_plan.py:
+    rows longer than a tile, a row across three tiles, one-entry rows,
+    runs of empty rows at the start, the middle and the end, n and nnz no
+    multiple of the tile, the hub row): within csr_spmv_bound of the
+    plain version, empty rows 0, the same bits on two launches."""
+    from test_torch_csr_plan import TILE, csr_of_lengths, plan_cases
+    from tpufem_torch.fem.csr_spmv import (CsrMatrix, csr_spmv_bound,
+                                           csr_spmv_plain)
+    lengths, ncols = plan_cases(TILE)[name]
+    M = csr_of_lengths(lengths, ncols, 11)
+    A = CsrMatrix.from_scipy(M, getattr(torch, dtype), device)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        ncols)).to(device, A.out_dtype)
+    y = A.matvec(x)
+    yp = csr_spmv_plain(A, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert bool(((y - yp).abs() <= csr_spmv_bound(A, x)).all())
+    empty = torch.from_numpy(np.diff(M.indptr) == 0).to(device)
+    assert bool((y[empty] == 0).all())
+    assert torch.equal(A.matvec(x), y)
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 333, 4096, 9512, 18840, 25001])

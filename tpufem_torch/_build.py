@@ -47,8 +47,10 @@ class CsrLaunch(ctypes.Structure):
     """What a CSR product needs beside x, y and the stream
     (csrc/csr_spmv.cu:CsrLaunch), filled once per matrix."""
 
-    _fields_ = ([(k, ctypes.c_void_p) for k in ("indptr", "indices", "vals")]
-                + [(k, ctypes.c_int) for k in ("device", "n", "ncols", "G")])
+    _fields_ = ([(k, ctypes.c_void_p)
+                 for k in ("indptr", "indices", "vals", "starts", "tile_row")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "n", "ncols", "nnz", "tiles")])
 
 
 class DenseLaunch(ctypes.Structure):

@@ -1,5 +1,5 @@
 """CSR sparse matrices on the device and their product y = A x: the CUDA
-kernel's wrapper and its plain PyTorch version.
+kernel's wrapper, its host plan and its plain PyTorch version.
 
 Every sparse operator of the port's SA-AMG is a ``CsrMatrix``: the spoke
 mesh's assembled fine operator (and its bf16-valued twin for the
@@ -9,14 +9,27 @@ a padded ELL with a COO spill tail (tpufem/fem/assemble.py:84-160) or as
 block windows (tpufem/fem/window_op.py), layouts built around the TPU's
 gathers; on the card CSR serves them all.
 
+The kernel (csrc/csr_spmv.cu) cuts the entries, not the rows, into tiles
+of TILE, a block a tile, so that its work is even whatever the rows: P0
+with one entry a row, the fine matrix with 14, P^T with ~155.  Bytes bound
+it (values, indices, indptr, x and y once: 62 MB for the spoke 500k fine
+matrix); on the small transfers the launch and the two round trips to
+memory a block waits on are most of its time.  ``csr_plan`` builds, once
+per matrix, what the kernel needs beside the CSR arrays: each tile's
+first row, and a bit for every entry that begins a row (so that a
+tile's rows are known as soon as its entries arrive).  Tile t writes
+the rows that begin in it, empty rows too; a row running on past its
+tile is finished there from the entries just past the tile.  Every y[r]
+is summed in one order: two launches give the same bits.
+
 ``csr_spmv`` takes the plain version only for a matrix that lies on the
-CPU; on a CUDA matrix it launches the kernel of csrc/csr_spmv.cu (one
-launch a product, counted in ``csr_spmv.launches``) or raises.  A
-matrix prepares its launch once (``CsrMatrix.matvec``).  Value types:
-float32 and float64 with x and y of the same type; bfloat16 values with
-float32 x and y, x rounded to bfloat16 and the products summed in
-float32.  The kernel and the plain version sum in different orders; they
-agree within ``csr_spmv_bound``.
+CPU; on a CUDA matrix it launches the kernel (one launch a product,
+counted in ``csr_spmv.launches``) or raises.  A matrix prepares its
+launch once (``CsrMatrix.matvec``).  Value types: float32 and float64
+with x and y of the same type; bfloat16 values with float32 x and y, x
+rounded to bfloat16 and the products summed in float32.  The kernel and
+the plain version sum in different orders; they agree within
+``csr_spmv_bound``.
 """
 
 from __future__ import annotations
@@ -31,33 +44,59 @@ import torch
 _VALUE_TYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
-def lanes_for(indptr: np.ndarray) -> int:
-    """Lanes per row of the kernel: the power of two at or above an
-    eighth of the mean row length, from 2 to 32.  Short rows want few
-    lanes, so that a warp walks many rows at once: on the spoke 500k
-    fine operator (14 entries a row) 2 lanes took 0.0334 ms, 16 lanes
-    0.0692 (scripts/csr_lanes.py, PERF.md)."""
+# Entries a tile of the kernel (csrc/csr_spmv.cu:kTile), measured against
+# 512 and 2,048 (PERF.md)
+TILE = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrPlan:
+    """The kernel's plan of a CSR pattern, tiles of ``tile`` entries
+    (tile t: entries [t tile, (t + 1) tile)), built once on the host:
+    ``tile_row`` int32 [tiles + 1], tile t's first row: the first row
+    that begins at or after the tile's first entry (0 for tile 0; n at
+    the end), so that tile t writes y for the rows [tile_row[t],
+    tile_row[t + 1]), the rows that begin in it, empty ones too; and
+    ``starts``, int32 words of bits, bit e set where a row begins at
+    entry e, whole tiles of them."""
+
+    tile_row: np.ndarray
+    starts: np.ndarray
+
+
+def csr_plan(indptr: np.ndarray, tile: int = TILE) -> CsrPlan:
+    """The kernel's plan of the pattern ``indptr`` for tiles of ``tile``
+    entries (a multiple of 32; the kernel's is TILE); a matrix with no
+    entries has one tile."""
+    indptr = np.asarray(indptr, dtype=np.int64)
     n = indptr.shape[0] - 1
-    mean = (int(indptr[-1]) / n) if n else 0.0
-    g = 2
-    while g < 32 and 8 * g < mean:
-        g *= 2
-    return g
+    nnz = int(indptr[-1])
+    tiles = max(1, -(-nnz // tile))
+    tile_row = np.empty(tiles + 1, dtype=np.int64)
+    tile_row[:-1] = np.searchsorted(indptr[:-1],
+                                    np.arange(tiles, dtype=np.int64) * tile)
+    tile_row[0], tile_row[-1] = 0, n
+    bits = np.zeros(tiles * tile, dtype=bool)
+    bits[indptr[:-1][np.diff(indptr) > 0]] = True
+    starts = np.packbits(bits, bitorder="little").view("<u4").view(np.int32)
+    return CsrPlan(tile_row=tile_row.astype(np.int32), starts=starts)
 
 
 @dataclasses.dataclass
 class CsrMatrix:
     """An n x ncols CSR matrix on one device: int32 ``indptr`` [n + 1] and
     ``indices`` [nnz], ``vals`` [nnz] (float32, float64 or bfloat16), the
-    kernel's lanes per row ``G``, and on the CPU the row of every entry
-    (``rows``, the plain version's scatter index)."""
+    kernel's plan (``csr_plan``: ``tile_row``, ``starts``, on the
+    matrix's device), and on the CPU the row of every entry (``rows``,
+    the plain version's scatter index)."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
     vals: torch.Tensor
     n: int
     ncols: int
-    G: int
+    tile_row: torch.Tensor
+    starts: torch.Tensor
     rows: Optional[torch.Tensor] = None
     _launch: Optional[Callable] = dataclasses.field(default=None, repr=False)
 
@@ -88,7 +127,10 @@ class CsrMatrix:
         if torch.device(device).type == "cpu":
             rows = torch.from_numpy(np.repeat(np.arange(n, dtype=np.int64),
                                               np.diff(indptr)))
-        return cls(ip, ix, v.to(device), n, ncols, lanes_for(indptr), rows)
+        P = csr_plan(indptr)
+        return cls(ip, ix, v.to(device), n, ncols,
+                   torch.from_numpy(P.tile_row).to(device),
+                   torch.from_numpy(P.starts).to(device), rows)
 
     @classmethod
     def from_scipy(cls, M, dtype: torch.dtype,
@@ -104,6 +146,10 @@ class CsrMatrix:
     @property
     def nnz(self) -> int:
         return int(self.vals.shape[0])
+
+    @property
+    def tiles(self) -> int:
+        return int(self.tile_row.shape[0]) - 1
 
     @property
     def out_dtype(self) -> torch.dtype:
@@ -173,7 +219,7 @@ def csr_spmv_bound(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def prepare_csr_spmv(A: CsrMatrix) -> Callable[[torch.Tensor], torch.Tensor]:
     """A launcher ``x -> y`` of the kernel on the CUDA matrix ``A``, with
-    its pointers, dims, lanes and the entry point fixed once; a call
+    its pointers, dims, plan and the entry point fixed once; a call
     checks x and passes x, y and the stream.  Counts its launches in
     ``csr_spmv.launches``."""
     from tpufem_torch import _build
@@ -181,13 +227,17 @@ def prepare_csr_spmv(A: CsrMatrix) -> Callable[[torch.Tensor], torch.Tensor]:
     fn = {torch.float32: lib.tpufem_csr_spmv_f32,
           torch.float64: lib.tpufem_csr_spmv_f64,
           torch.bfloat16: lib.tpufem_csr_spmv_bf16}[A.vals.dtype]
-    args = _build.CsrLaunch(
-        indptr=A.indptr.data_ptr(), indices=A.indices.data_ptr(),
-        vals=A.vals.data_ptr(), device=A.device.index, n=A.n,
-        ncols=A.ncols, G=A.G)
-    addr = ctypes.addressof(args)
     what = (f"csr_spmv of a {A.n}x{A.ncols} {A.vals.dtype} matrix, "
             f"{A.nnz} entries")
+    if A.nnz and (A.vals.data_ptr() % 16 or A.indices.data_ptr() % 16):
+        raise ValueError(f"{what}: vals and indices must start on 16-byte "
+                         "boundaries")
+    args = _build.CsrLaunch(
+        indptr=A.indptr.data_ptr(), indices=A.indices.data_ptr(),
+        vals=A.vals.data_ptr(), starts=A.starts.data_ptr(),
+        tile_row=A.tile_row.data_ptr(), device=A.device.index, n=A.n,
+        ncols=A.ncols, nnz=A.nnz, tiles=A.tiles)
+    addr = ctypes.addressof(args)
     raw_stream = _build.raw_stream_getter()
     dtype, device, index, n = A.out_dtype, A.device, A.device.index, A.n
 
@@ -204,7 +254,8 @@ def prepare_csr_spmv(A: CsrMatrix) -> Callable[[torch.Tensor], torch.Tensor]:
         csr_spmv.launches += 1
         return y
 
-    launch.keep = (args, A.indptr, A.indices, A.vals)  # what ``addr`` holds
+    # what ``addr`` points into
+    launch.keep = (args, A.indptr, A.indices, A.vals, A.starts, A.tile_row)
     return launch
 
 
@@ -217,7 +268,7 @@ def csr_spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
         return csr_spmv_plain(A, x)
     if A.device.type != "cuda":
         raise RuntimeError(f"no CSR kernel for device {A.device}")
-    return prepare_csr_spmv(A)(x)
+    return A.matvec(x)
 
 
 csr_spmv.launches = 0
