@@ -133,6 +133,22 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    over y after the same flush) and
    torch.sparse.mm / torch.matmul beside them; tpufem's four float64
    SA-AMG runs (SAAMG_GOLDS: iterations exact, norms to rel 1e-9).
+15. the spoke mesh's remaining problems: the matrix-free cgpoisson
+   (``--mesh_type unstructured --order 1 --ndofs 500000`` and ``--order
+   2|3 --ndofs 150000``, strong, float32), each of which must launch the
+   matrix-free kernel (matfree_action, counted from zero around the run)
+   and no other operator kernel, run 100 steps and agree with tpufem's own
+   float32 CPU run (SPOKE_CG_REF, within CG_SPOKE_NORM_TOL /
+   CG_SPOKE_REL_TOL: the singular system's trajectory amplifies
+   rounding); the kernel against its plain version on those three
+   operators in float32 and float64 (the same bits twice, within
+   matfree_action_bound), with times, the host cost, the bound and
+   torch.sparse.mm of the assembled CSR at P1 and P2; Poisson P2 150k and
+   P3 50k on SA-AMG (levels as tpufem's, iterations within one of its
+   float32 CPU runs, certified, SPOKE_PK_REF); elasticity 150k for 8
+   steps (the bs = 3 hierarchy on csr_spmv, its norm against tpufem's;
+   the system is singular and CG diverges, as in tpufem); and tpufem's
+   float64 runs at 3,000 dofs (SPOKE_F64_GOLDS).
 
 Device times come from the profiler's spans of the kernel itself, each
 timed call after a read of 256 MB that evicts the L2 (``device_ms``);
@@ -336,6 +352,84 @@ SAAMG_GOLDS = (
       "-amg_brick", "off"], 17, 2.181054945892062e-05),
     (["--problem_type", "poisson", "--mesh_type", "unstructured", "--ndofs",
       "20000"], 58, 738.3125824626104))
+# The spoke mesh's remaining problems (phase 15).  tpufem's own
+# matrix-free cgpoisson runs on the spoke, f32 on the CPU (jax 0.9.0, x64
+# off), from
+#   python scripts/cgpoisson_reference.py --mesh_type unstructured \
+#       --order O --ndofs N --scaling_type strong --dtype float32
+# (order, --ndofs) -> (ndofs, cells, iterations, rel, norm)
+SPOKE_CG_ARGS = ["--problem_type", "cgpoisson", "--mesh_type",
+                 "unstructured", "--scaling_type", "strong", "--dtype",
+                 "float32", "--device", "cuda"]
+SPOKE_CG_REF = {
+    (1, 500000): (499964, 2644284, 100, 3.5911428928375244,
+                  1153.1087498311513),
+    (2, 150000): (1086647, 745612, 100, 3.8204472064971924,
+                  938.7067262991673),
+    (3, 150000): (3555940, 745612, 100, 4.42650032043457,
+                  483.66056085258515),
+}
+# The spoke's cgpoisson system is singular (no Dirichlet facet) and
+# inconsistent, and CG diverges on it (rel > 1 after 100 steps), so its
+# float32 trajectory amplifies rounding: tpufem's own float32 loop moves
+# by up to 1.17e-3 (norm) and 2.26e-2 (rel) at P1 500k, 1.60e-4 /
+# 2.25e-3 at P2 150k and 1.09e-4 / 1.15e-4 at P3 150k when every entry
+# of its RHS moves by one ulp (ten perturbations each,
+# ``scripts/cgpoisson_reference.py --mesh_type unstructured ... --ulp_seed
+# S`` for S = 1..10).  Phase 5's CG_F32_NORM_TOL / CG_F32_REL_TOL (3e-3 /
+# 1e-2) are below that spread at P1; the spoke runs are held to
+CG_SPOKE_NORM_TOL, CG_SPOKE_REL_TOL = 1e-2, 5e-2
+# tpufem's float64 CLI runs at --ndofs 3000 (weak scaling): (problem,
+# order, options) -> (iterations, norm, tolerance on the norm).  The
+# 100-step cgpoisson runs at P2 / P3 move by up to 2.1e-7 / 9.9e-4 in
+# tpufem's own float64 loop when its RHS moves by one ulp (ten
+# perturbations, cgpoisson_reference.py --ulp_seed); 30 steps by 2.5e-13.
+SPOKE_F64_GOLDS = (
+    ("cgpoisson", 1, [], 100, 251.62201939995953, 1e-9),
+    ("cgpoisson", 2, [], 100, 394.3962889459107, 1e-6),
+    ("cgpoisson", 3, [], 100, 441.479374154072, 1e-2),
+    ("cgpoisson", 2, ["-cg_kmax", "30"], 30, 154.78174093206965, 1e-9),
+    ("cgpoisson", 3, ["-cg_kmax", "30"], 30, 131.05255459697148, 1e-9),
+    ("poisson", 2, [], 101, 728.1316879075519, 1e-9),
+    ("poisson", 3, [], 184, 1276.4638392089626, 1e-9),
+    ("elasticity", 1, ["-ksp_max_it", "8"], 8, 0.0003120250060742934, 1e-9),
+)
+# the spoke's SA-AMG rows, f32, rtol 1e-8: tpufem's own CPU runs, from
+#   python scripts/saamg_reference.py --mesh_type unstructured \
+#       [--problem_type elasticity] --order O --ndofs N --scaling_type \
+#       strong --dtype float32 [-- -ksp_max_it 8]
+# key -> (argv, ndofs, levels, iterations, norm, true_rel, passes).  At
+# order 2/3 the card's host (numpy 2.3.5, scipy 1.18.1 against 2.0.2 /
+# 1.17.0 where tpufem's runs were made) assembles another CSR in the last
+# bits (its digest differs; at P3 the reference element tables differ
+# too), which moves ties of the aggregation: levels 7,102 / 122 at P2 150k
+# and 2,941 / 58 at P3 50k on the card against tpufem's 7,099 / 123 and
+# 2,939 / 57, while on the host where tpufem ran the port's own P2 setup
+# gives tpufem's sizes.  The coarse sizes of those rows are held within
+SPOKE_PK_LEVELS_TOL = 0.03
+SPOKE_PK_ARGS = ["--mesh_type", "unstructured", "--scaling_type", "strong",
+                 "--dtype", "float32", "--device", "cuda"]
+SPOKE_PK_REF = {
+    "poisson_spoke_p2_150k": (
+        ["--problem_type", "poisson", "--order", "2", "--ndofs", "150000"]
+        + SPOKE_PK_ARGS, 1086647, [1086647, 7099, 123], 500, 5762.8125,
+        4.986e-11, 2),
+    "poisson_spoke_p3_50k": (
+        ["--problem_type", "poisson", "--order", "3", "--ndofs", "50000"]
+        + SPOKE_PK_ARGS, 1136826, [1136826, 2939, 57], 500, 5724.54296875,
+        2.199e-10, 2),
+    "elasticity_spoke_8": (
+        ["--problem_type", "elasticity", "--ndofs", "150000",
+         "-ksp_max_it", "8"] + SPOKE_PK_ARGS, 149973, [149973, 12708, 276],
+        8, 0.003613180248066783, 22.97, 0),
+}
+# the float32 elasticity run on the spoke, 8 steps of a diverging CG on a
+# singular system, amplifies rounding: tpufem's own float32 run moves its
+# norm by 7.1e-5 to 1.92e-3 (median 9.0e-4) when every entry of its RHS
+# moves by one ulp (ten perturbations, ``saamg_reference.py ... --ulp_seed
+# S`` for S = 1..10), and the port's card runs sit 1.71e-3 off.  Held to
+# tpufem's float32 norm within about 5x the largest of those moves:
+SPOKE_ELAST_NORM_TOL = 1e-2
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -1885,14 +1979,16 @@ def busy_share(fn):
 
 
 def saamg_run(cli, key, argv, gpu, ndofs, levels, ref_it=None,
-              ref_norm=None):
+              ref_norm=None, levels_tol=0.0):
     """One SA-AMG run through the CLI, f32: the build and first certified
     solve with the CSR and dense kernels' counts set to zero just before
     and read just after; five warm uncertified solves (their launches
     per CG iteration, ms per iteration); the device-busy share of one
     more.  Spoke rows run to the 120-iteration cap (``ref_it`` None);
-    cube rows are held within one iteration of tpufem's f32 CPU run.
-    Returns (the run's csr_spmv and dense_gemv launches, the problem)."""
+    cube rows are held within one iteration of tpufem's f32 CPU run.  The
+    coarse level sizes are tpufem's, or within a share ``levels_tol`` of
+    them.  Returns (the run's csr_spmv and dense_gemv launches, the
+    problem)."""
     import torch
     from tpufem_torch.fem.csr_spmv import csr_spmv
     from tpufem_torch.fem.dense_gemv import DenseMat, dense_gemv_bf16
@@ -1911,7 +2007,9 @@ def saamg_run(cli, key, argv, gpu, ndofs, levels, ref_it=None,
     check(isinstance(pc, SAAMG), f"{key}: the solve is not SA-AMG")
     check(prob.space.ndofs == ndofs,
           f"{key}: {prob.space.ndofs} dofs, tpufem's has {ndofs}")
-    check(pc.level_sizes == levels,
+    check(len(pc.level_sizes) == len(levels) and pc.level_sizes[0] == levels[0]
+          and all(abs(a - b) <= levels_tol * b
+                  for a, b in zip(pc.level_sizes, levels)),
           f"{key}: levels {pc.level_sizes}, tpufem's {levels}")
     dense = any(isinstance(lv.A, DenseMat) for lv in pc.levels)
     check(n_csr > 0 and (n_dense > 0 or not dense),
@@ -2226,6 +2324,284 @@ def saamg_phase(cli, gpu: str):
     return n_csr, n_dense, csr_rows, dense_rows, csr_worst, dense_worst
 
 
+def matfree_work(op):
+    """(bytes, flops, the plan's bytes) of one matrix-free apply: G, the
+    cell dofs, x and y once each (what y = A x must move, the bound's
+    bytes); the kernel's 4 n^2 + 3 n multiply-adds a cell; apart, the
+    plan's slot list and offsets, which belong to the two-launch design
+    and not to y = A x."""
+    item = op.G.element_size()
+    C, n, N = op.ncells, op.n, op.ndofs
+    nbytes = C * 9 * item + C * n * 4 + 2 * N * item
+    plan = C * n * 4 + (N + 1) * 4
+    return nbytes, 2 * (4 * n * n + 3 * n) * C, plan
+
+
+def matfree_kernel_phase(ops, gpu: str):
+    """The matrix-free kernel against its plain version on the spoke's
+    operators, within matfree_action_bound, the same bits on two
+    launches, with times (the device time of its two launches after an L2
+    flush, per call, the host cost), the bound and torch.sparse.mm of the
+    assembled CSR of the same operator where it is given.  Returns (rows,
+    worst abs error)."""
+    import torch
+    from tpufem_torch.fem.matfree_op import (matfree_action,
+                                             matfree_action_bound,
+                                             matfree_apply_plain)
+    rows, worst = [], 0.0
+    for name, op, L in ops:
+        gen = torch.Generator(device=op.device).manual_seed(15)
+        x = torch.randn(op.ndofs, generator=gen, device=op.device,
+                        dtype=torch.float64).to(op.dtype)
+        before = matfree_action.launches
+        y = op.apply(x)
+        check(matfree_action.launches == before + 1,
+              f"matfree_action {name}: the apply did not count once")
+        check(torch.equal(matfree_action(op, x), y),
+              f"matfree_action {name}: two launches differ")
+        yp = matfree_apply_plain(op, x)
+        bnd = matfree_action_bound(op, x)
+        torch.cuda.synchronize()
+        err = (y - yp).abs()
+        abs_err = float(err.max())
+        check(bool(torch.isfinite(y).all()) and bool((err <= bnd).all()),
+              f"matfree_action {name}: kernel disagrees with the plain "
+              f"version (max abs err {abs_err:.3e}, worst share of the bound "
+              f"{float((err / bnd.clamp_min(1e-300)).max()):.3e})")
+        worst = max(worst, abs_err)
+        ms = median_ms(lambda: op.apply(x))
+        host = host_ms(lambda: op.apply(x))
+        plain_ms = median_ms(lambda: matfree_apply_plain(op, x), reps=3,
+                             samples=3)
+        lib_ms = lib_err = None
+        if L is not None:
+            lib_ms, lib_err = library_ms(L, x, yp)
+        nbytes, flops, plan_bytes = matfree_work(op)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        dev, note = device_ms(lambda: op.apply(x), "matfree_action", b_ms,
+                              f"matfree_action {name} {op.dtype}",
+                              launches=2)
+        dtype = str(op.dtype).split(".")[1]
+        rows.append(dict(name=name, dtype=dtype, order=op.order,
+                         cells=op.ncells, ndofs=op.ndofs, max_abs_err=abs_err,
+                         ms=ms, device_ms=dev, device_note=note,
+                         host_ms=host, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_ms_with_plan=bound_ms(nbytes + plan_bytes,
+                                                     flops)[0],
+                         share_of_bound=None if dev is None else b_ms / dev,
+                         call_minus_device_ms=(None if dev is None
+                                               else ms - dev)))
+        share = "n/a" if dev is None else f"{100 * b_ms / dev:.0f}%"
+        print(f"matfree_action {name:<22} {dtype:<8} P{op.order}, "
+              f"{op.ncells} cells, {op.ndofs} dofs | max |kernel - plain| "
+              f"{abs_err:.3e}, the same bits twice | per call: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm "
+              + (f"{fmt_ms(lib_ms)} (off the plain version by {lib_err:.3e})"
+                 if L is not None else "none (no CSR assembled)")
+              + f" | device {fmt_dev(dev, note)}, {share} of the bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB; the plan "
+              f"{plan_bytes / 1e6:.2f} MB more; {flops / 1e9:.3f} "
+              f"GFLOP) | host cost {host:.4f} ms per queued call  [{gpu}]",
+              flush=True)
+    return rows, worst
+
+
+def spoke_cg_run(cli, order: int, nd: int, gpu: str):
+    """One matrix-free cgpoisson CLI run on the spoke, f32, with every
+    operator kernel's count set to zero just before it and read just
+    after: it must launch matfree_action and no other operator kernel,
+    run 100 steps and agree with tpufem's float32 run (SPOKE_CG_REF,
+    within CG_SPOKE_NORM_TOL / CG_SPOKE_REL_TOL).  Returns (result,
+    matfree_action launches)."""
+    import torch
+    from tpufem_torch.fem.csr_spmv import csr_spmv
+    from tpufem_torch.fem.dense_gemv import dense_gemv_bf16
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    from tpufem_torch.fem.flat_op import FlatOperator
+    from tpufem_torch.fem.matfree_op import MatFreePoissonOp, matfree_action
+    from tpufem_torch.fem.perm_apply import perm_apply
+    from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_bs3
+    from tpufem_torch.fem.strip_op import StripOperator
+    from tpufem_torch.la.brick_flat import brick_flat_apply
+    from tpufem_torch.timing import REGISTRY
+    others = (stencil_apply, stencil_apply_bs3, StripOperator.apply_strips,
+              StripOperator.cg_resident, FlatOperator.interior,
+              dia_zones_apply, perm_apply, csr_spmv, dense_gemv_bf16,
+              brick_flat_apply)
+    REGISTRY.reset()
+    for k in others:
+        k.launches = 0
+    matfree_action.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(SPOKE_CG_ARGS + ["--order", str(order), "--ndofs",
+                                    str(nd)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_mf = matfree_action.launches
+    n_other = sum(k.launches for k in others)
+    solver = res.problem.solver_function
+    ndofs, cells, ref_it, ref_rel, ref_norm = SPOKE_CG_REF[(order, nd)]
+    norm_err = abs(res.norm - ref_norm) / ref_norm
+    rel_err = abs(solver.rel - ref_rel) / ref_rel
+    print(f"cgpoisson spoke P{order} --ndofs {nd} f32: {ndofs} dofs, "
+          f"{res.problem.space.mesh.num_cells_global} cells, "
+          f"{res.iterations} iterations, rel {solver.rel!r} (tpufem "
+          f"{ref_rel!r}, off by {rel_err:.2e}), norm {res.norm!r} (tpufem "
+          f"{ref_norm!r}, off by {norm_err:.2e}); launches matfree_action "
+          f"{n_mf}, other operator kernels {n_other}; {solver.gdofs:.4f} "
+          f"Gdof/s, {solver.solve_s:.6f} s per solve; mesh "
+          f"{REGISTRY.get('ZZZ Create Mesh'):.3f} s, operator "
+          f"{REGISTRY.get('ZZZ Assemble matrix'):.3f} s, RHS "
+          f"{REGISTRY.get('ZZZ Assemble vector'):.3f} s, whole CLI run "
+          f"{run_s:.3f} s  [{gpu}]", flush=True)
+    check(isinstance(solver.op, MatFreePoissonOp),
+          f"cgpoisson spoke P{order}: the operator is "
+          f"{type(solver.op).__name__}")
+    check(res.problem.space.ndofs == ndofs and
+          res.problem.space.mesh.num_cells_global == cells,
+          f"cgpoisson spoke P{order}: {res.problem.space.ndofs} dofs, "
+          f"tpufem's run had {ndofs}")
+    check(n_mf > 0 and n_other == 0,
+          f"cgpoisson spoke P{order}: launches matfree_action {n_mf}, "
+          f"other operator kernels {n_other}")
+    check(res.iterations == ref_it,
+          f"cgpoisson spoke P{order}: {res.iterations} iterations")
+    check(res.x.shape == (ndofs,) and bool(torch.isfinite(res.x).all()),
+          f"cgpoisson spoke P{order}: the solution is not finite")
+    check(norm_err <= CG_SPOKE_NORM_TOL and rel_err <= CG_SPOKE_REL_TOL,
+          f"cgpoisson spoke P{order}: off tpufem's norm by {norm_err:.2e}, "
+          f"rel by {rel_err:.2e}")
+    return res, n_mf
+
+
+def spoke_elasticity_run(cli, gpu: str):
+    """Elasticity on the spoke, f32, 8 CG steps (SPOKE_PK_REF's
+    ``elasticity``): the bs = 3 SA-AMG hierarchy on csr_spmv (and the
+    bf16 dense level), counted from zero around the run, its levels as
+    tpufem's, the norm against tpufem's f32 run.  The system is singular
+    and inconsistent (no clamped face): true_rel is printed, not held.
+    Returns (csr launches, dense launches, the result)."""
+    import torch
+    from tpufem_torch.fem.csr_spmv import csr_spmv
+    from tpufem_torch.fem.dense_gemv import dense_gemv_bf16
+    from tpufem_torch.la.amg import SAAMG
+    from tpufem_torch.timing import REGISTRY
+    argv, ndofs, levels, ref_it, ref_norm, ref_true, _ = \
+        SPOKE_PK_REF["elasticity_spoke_8"]
+    REGISTRY.reset()
+    csr_spmv.launches = dense_gemv_bf16.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_csr, n_dense = csr_spmv.launches, dense_gemv_bf16.launches
+    solver = res.problem.solver_function
+    pc = solver.pc
+    norm_err = abs(res.norm - ref_norm) / ref_norm
+    print(f"elasticity spoke f32 -ksp_max_it 8: {res.problem.space.ndofs} "
+          f"dofs, route {solver.route}, levels {pc.level_sizes} (tpufem "
+          f"{levels}), {res.iterations} iterations (tpufem {ref_it}), norm "
+          f"{res.norm!r} (tpufem {ref_norm!r}, off by {norm_err:.2e}), "
+          f"true_rel {res.true_rel!r} (tpufem {ref_true}; the system is "
+          f"singular and inconsistent, CG grows until its cap: tpufem's "
+          f"6,000-dof run at the default cap of 500 ends at true_rel "
+          f"2.680e+08, a known behaviour of the reference); PC setup "
+          f"{solver.pc_setup_s:.3f} s; launches csr_spmv {n_csr}, "
+          f"dense_gemv_bf16 {n_dense}; whole CLI run {run_s:.3f} s  [{gpu}]",
+          flush=True)
+    check(isinstance(pc, SAAMG) and solver.route == "plain",
+          "elasticity spoke: not SA-AMG on the plain route")
+    check(res.problem.space.ndofs == ndofs and pc.level_sizes == levels,
+          f"elasticity spoke: {res.problem.space.ndofs} dofs, levels "
+          f"{pc.level_sizes}; tpufem {ndofs}, {levels}")
+    check(res.iterations == ref_it, f"elasticity spoke: {res.iterations} "
+          "iterations")
+    check(n_csr > 0, "elasticity spoke: no csr_spmv launch")
+    check(bool(torch.isfinite(res.x).all()) and norm_err <=
+          SPOKE_ELAST_NORM_TOL,
+          f"elasticity spoke: off tpufem's norm by {norm_err:.2e}")
+    return n_csr, n_dense, res
+
+
+def spoke_pk_phase(cli, gpu: str):
+    """Phase 15: the spoke mesh's matrix-free cgpoisson P1 500k and P2 /
+    P3 150k (matfree_action), Poisson P2 150k and P3 50k on SA-AMG
+    (certified), elasticity 150k (8 steps), the kernel against its plain
+    version on the three cgpoisson operators in float32 and float64 (the
+    float64 operators rebuilt from the same meshes) with torch.sparse.mm
+    of the assembled CSR at P1 and P2, and tpufem's float64 runs at 3,000
+    dofs.  Returns (matfree launches, rows, worst error, csr launches,
+    dense launches)."""
+    import numpy as np
+    import torch
+    from tpufem_torch.fem.assemble import assemble_csr_np
+    from tpufem_torch.fem.matfree_op import MatFreePoissonOp
+    from tpufem_torch.timing import REGISTRY
+    n_mf, ops = 0, []
+    for order, nd in SPOKE_CG_REF:
+        res, n = spoke_cg_run(cli, order, nd, gpu)
+        n_mf += n
+        prob = res.problem
+        op = prob.solver_function.op
+        L = L64 = None
+        if order <= 2:
+            t0 = time.perf_counter()
+            ip, ix, data = assemble_csr_np(prob.space, prob.bc, "poisson")
+            ip = torch.from_numpy(ip.astype(np.int64))
+            ix = torch.from_numpy(ix.astype(np.int64))
+            L = torch.sparse_csr_tensor(ip, ix, torch.from_numpy(data),
+                                        size=(op.ndofs, op.ndofs))
+            L64 = L.to(device=op.device)
+            L = L64.to(torch.float32)
+            print(f"spoke P{order}: the assembled CSR ({data.shape[0]} "
+                  f"entries) in {time.perf_counter() - t0:.3f} s  [{gpu}]",
+                  flush=True)
+        op64 = MatFreePoissonOp.build(prob.space, prob.bc, torch.float64,
+                                      op.device)
+        label = f"spoke P{order} {nd // 1000}k"
+        ops += [(label, op, L), (label, op64, L64)]
+        del res, prob
+    rows, worst = matfree_kernel_phase(ops, gpu)
+    del ops
+    torch.cuda.empty_cache()
+    n_csr = n_dense = 0
+    for key, (argv, ndofs, levels, its, norm, true_rel, passes) in \
+            SPOKE_PK_REF.items():
+        if key.startswith("elasticity"):
+            continue
+        c, d, res = saamg_run(cli, key, argv, gpu, ndofs, levels, its, norm,
+                              levels_tol=SPOKE_PK_LEVELS_TOL)
+        n_csr, n_dense = n_csr + c, n_dense + d
+        print(f"{key}: refinement passes {res.refine_passes} (tpufem "
+              f"{passes}), true_rel {res.true_rel!r} (tpufem {true_rel}), "
+              f"order {res.problem.space.order}  [{gpu}]", flush=True)
+        del res
+        torch.cuda.empty_cache()
+    c, d, res = spoke_elasticity_run(cli, gpu)
+    n_csr, n_dense = n_csr + c, n_dense + d
+    del res
+    torch.cuda.empty_cache()
+    for problem, order, extra, gold_it, gold_norm, tol in SPOKE_F64_GOLDS:
+        REGISTRY.reset()
+        argv = ["--problem_type", problem, "--mesh_type", "unstructured",
+                "--order", str(order), "--ndofs", "3000", "--dtype",
+                "float64", "--device", "cuda"] + extra
+        res = cli.main(argv)
+        rel = abs(res.norm - gold_norm) / gold_norm
+        print(f"spoke float64 {problem} P{order} {' '.join(extra)}: "
+              f"{res.iterations} iterations, norm {res.norm!r} (tpufem "
+              f"{gold_norm!r}, rel {rel:.2e}, held to {tol:g})  [{gpu}]",
+              flush=True)
+        check(res.iterations == gold_it, f"spoke float64 {problem} "
+              f"P{order}: {res.iterations} iterations, tpufem {gold_it}")
+        check(rel <= tol, f"spoke float64 {problem} P{order}: norm off by "
+              f"rel {rel:.2e}")
+        del res
+    torch.cuda.empty_cache()
+    return n_mf, rows, worst, n_csr, n_dense
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2480,6 +2856,17 @@ def main() -> int:
     print(f"phase 14: {time.perf_counter() - t14:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
 
+    # -- 15. the spoke's matrix-free cgpoisson (matfree_action), Poisson
+    #        P2/P3 and elasticity on SA-AMG --------------------------------
+    t15 = time.perf_counter()
+    mf_launches, mf_rows, mf_worst, csr15, dense15 = spoke_pk_phase(cli, gpu)
+    mf = [r for r in mf_rows if r["name"] == "spoke P1 500k"
+          and r["dtype"] == "float32"][0]
+    csr_launches += csr15
+    dense_launches += dense15
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -2620,6 +3007,20 @@ def main() -> int:
          "host_ms": dense["host_ms"], "mv_f32_ms": dense["mv_f32_ms"],
          "call_minus_device_ms": dense["call_minus_device_ms"],
          "levels": dense_rows},
+        {"name": "matfree_action", "route": "cuda",
+         "source": "tpufem_torch/csrc/matfree_action.cu",
+         "replaces": "none (XLA MatFreePoissonOp.apply, "
+                     "tpufem/problems/cgpoisson.py:59: the gather, "
+                     "poisson_action_from_metric, tpufem/fem/kernels.py:149,"
+                     " and DofScatter.scatter_add, "
+                     "tpufem/fem/assemble.py:250)",
+         "launches": mf_launches, "max_abs_err": mf_worst,
+         "ms": mf["ms"], "plain_ms": mf["plain_ms"],
+         "bound_ms": mf["bound_ms"], "bound_by": mf["bound_by"],
+         "library_ms": mf["library_ms"], "device_ms": mf["device_ms"],
+         "host_ms": mf["host_ms"],
+         "call_minus_device_ms": mf["call_minus_device_ms"],
+         "operators": mf_rows},
     ]
     print(f"device_ms: {len(REFUSED_PROFILES)} profile(s) refused for a "
           f"wrong count of kernel spans, {EVENT_TIMES[0]} device time(s) "

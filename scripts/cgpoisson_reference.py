@@ -9,11 +9,22 @@ device RHS, the const-table DIA as a StripOperator, and
 ``cg_solve_fused``.  With ``--flat`` (P2/P3) it runs the ``-use_flat 1``
 loop instead (cgpoisson.py:268-277): the DIA as a FlatOperator (its XLA
 interior twin on the CPU) and ``cg_solve_fused`` on the float32
-channel-plane buffer.  It prints one JSON line per configuration: the
-lattice, ndofs, iterations, the recurrence rel and the solution norm.
+channel-plane buffer.  With ``--mesh_type unstructured`` it runs the
+spoke mesh's loop (cgpoisson.py:84-107, 205-209, 278-282): the host RHS
+with b[bc] = 0, the matrix-free ``MatFreePoissonOp`` (gather, metric
+action, sorted segment sum) and ``cg_solve_fused`` on it.  It prints one
+JSON line per configuration: the lattice (the cube) or the cell count
+(the spoke), ndofs, iterations, the recurrence rel and the solution norm.
+``--ulp_seed S`` (the spoke) moves every nonzero entry of the RHS, in the
+solve's dtype, by one ulp up or down, the directions drawn from
+``numpy.random.default_rng(S)``: how far the loop's own rounding can move
+its result, the measure of the port's tolerances on these runs.
 
     python scripts/cgpoisson_reference.py --order 3 --ndofs 500000 \\
         --scaling_type strong --dtype float32 [--flat]
+    python scripts/cgpoisson_reference.py --mesh_type unstructured \\
+        --order 1 --ndofs 500000 --scaling_type strong --dtype float32 \\
+        [--ulp_seed 1]
 
 float64 turns on jax's x64 mode, as tpufem's CLI does; float32 keeps it
 off, so dots accumulate in float32, as in a tpufem float32 run.
@@ -42,6 +53,10 @@ def main() -> None:
     p.add_argument("--kmax", type=int, default=100)
     p.add_argument("--flat", action="store_true",
                    help="the -use_flat 1 operator (P2/P3)")
+    p.add_argument("--mesh_type", default="cube",
+                   choices=("cube", "unstructured"))
+    p.add_argument("--ulp_seed", type=int, default=None,
+                   help="the spoke: move the RHS by one ulp (this seed)")
     a = p.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
@@ -64,6 +79,8 @@ def main() -> None:
                                          assemble_poisson_rhs_structured_dev)
 
     dtype = jnp.float32 if a.dtype == "float32" else jnp.float64
+    if a.mesh_type == "unstructured":
+        return spoke(a, dtype)
     nx, ny, nz, _ = compute_box_size_structured(
         a.ndofs, a.scaling_type == "strong", 1, a.order, 1)
     mesh = BoxTetMesh(nx, ny, nz)
@@ -105,6 +122,61 @@ def main() -> None:
         "order": a.order, "ndofs": int(space.ndofs), "lattice": [nx, ny, nz],
         "scaling_type": a.scaling_type, "dtype": a.dtype, "flat": a.flat,
         "iterations": int(it), "rel": float(rel),
+        "norm": float(np.linalg.norm(x.astype(np.float64))),
+        "norm_in_dtype": float(jnp.sqrt(jnp.sum(jnp.asarray(x) ** 2))),
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def ulp_nudge(b, seed: int):
+    """``b`` with each nonzero entry one ulp of its dtype up or down, the
+    directions from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+    up = np.random.default_rng(seed).random(b.shape) < 0.5
+    moved = np.where(up, np.nextafter(b, b.dtype.type(np.inf)),
+                     np.nextafter(b, b.dtype.type(-np.inf)))
+    return np.where(b != 0, moved, b).astype(b.dtype)
+
+
+def spoke(a, dtype) -> None:
+    """tpufem's matrix-free loop on the spoke mesh."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tpufem.fem.assemble import DofScatter
+    from tpufem.fem.dirichlet import DirichletBC
+    from tpufem.fem.space import FunctionSpace
+    from tpufem.la.cg import cg_solve_fused
+    from tpufem.mesh.spoke import create_spoke_mesh
+    from tpufem.problems import common
+    from tpufem.problems.cgpoisson import make_action
+    from tpufem.problems.poisson import assemble_poisson_rhs_np
+
+    mesh = create_spoke_mesh(a.ndofs, a.scaling_type == "strong", 1, 1,
+                             verbose=False)
+    space = FunctionSpace(mesh, a.order)
+    bc = DirichletBC.from_space(
+        space, mesh.locate_boundary_facets(common.poisson_bc_marker))
+    b_np = assemble_poisson_rhs_np(space)
+    b_np[bc.flat_dofs()] = 0.0
+    b_np = b_np.astype(np.dtype(dtype))
+    if a.ulp_seed is not None:
+        b_np = ulp_nudge(b_np, a.ulp_seed)
+    b = jnp.asarray(b_np)
+    op = make_action(space, bc, DofScatter(space.cell_dofs,
+                                           space.ndofs_scalar), dtype)
+
+    def run(o, r):
+        return cg_solve_fused(o.apply, r, x0=None, rtol=a.rtol, maxit=a.kmax)
+
+    t0 = time.perf_counter()
+    x, it, rel = jax.jit(run)(op, b)
+    x = np.asarray(x)
+    print(json.dumps({
+        "mesh_type": "unstructured", "order": a.order,
+        "ndofs": int(space.ndofs), "cells": int(mesh.num_cells_global),
+        "scaling_type": a.scaling_type, "dtype": a.dtype,
+        "ulp_seed": a.ulp_seed, "iterations": int(it), "rel": float(rel),
         "norm": float(np.linalg.norm(x.astype(np.float64))),
         "norm_in_dtype": float(jnp.sqrt(jnp.sum(jnp.asarray(x) ** 2))),
         "seconds": time.perf_counter() - t0}), flush=True)

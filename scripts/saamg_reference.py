@@ -8,10 +8,14 @@ as ``-amg_brick off``), or the spoke mesh (``--mesh_type unstructured``),
 CG to rtol 1e-8 and the float64 certification.  It prints one JSON line:
 ndofs, the SA-AMG level sizes, iterations, the solution norm, the
 certified true residual and the refinement passes.  ``--levels_only``
-(the spoke mesh) stops after the preconditioner's setup, as tpufem's
-make_solver runs it (tpufem/problems/poisson.py:323-368: the window gate,
-then SA-AMG on the RCM route or the plain one), and prints ndofs, the
-route and the level sizes without a solve.
+(the spoke mesh, Poisson at ``--order``) stops after the preconditioner's
+setup, as tpufem's make_solver runs it (tpufem/problems/poisson.py:
+323-368: the window gate, then SA-AMG on the RCM route or the plain one),
+and prints ndofs, the route and the level sizes without a solve.
+``--ulp_seed S`` (elasticity) moves every nonzero entry of tpufem's host
+RHS by one ulp of the solve's dtype, up or down as
+``cgpoisson_reference.ulp_nudge`` draws them: how far the run's own
+rounding can move its result.
 
     python scripts/saamg_reference.py --ndofs 500000 --scaling_type strong \\
         --dtype float32 -- -pc_type amg -amg_brick off
@@ -22,6 +26,9 @@ route and the level sizes without a solve.
         -- -pc_type amg -amg_brick off
     python scripts/saamg_reference.py --mesh_type unstructured \\
         --ndofs 500000 --scaling_type strong --dtype float32 --levels_only
+    python scripts/saamg_reference.py --problem_type elasticity \\
+        --mesh_type unstructured --ndofs 150000 --scaling_type strong \\
+        --dtype float32 --ulp_seed 1 -- -ksp_max_it 8
 
 float64 turns on jax's x64 mode, as tpufem's CLI does; float32 keeps it
 off, so dots accumulate in float32, as in a tpufem float32 run.  Run each
@@ -60,7 +67,7 @@ def levels_only(a) -> None:
     dtype = jnp.float32 if a.dtype == "float32" else jnp.float64
     mesh = create_spoke_mesh(a.ndofs, a.scaling_type == "strong", 1, 1,
                              verbose=False)
-    space = FunctionSpace(mesh, 1)
+    space = FunctionSpace(mesh, a.order)
     bc = DirichletBC.from_space(space, mesh.locate_boundary_facets(
         common.poisson_bc_marker))
     _, csr = assemble_operator(space, bc, "poisson", dtype=np.dtype(dtype))
@@ -74,11 +81,27 @@ def levels_only(a) -> None:
         pc = SAAMG.setup(csr, bs=1, options=solver, dtype=dtype,
                          bc_mask=bc.mask(), fine_factored=False)
     print(json.dumps({
-        "mesh_type": "unstructured", "ndofs": int(space.ndofs),
+        "mesh_type": "unstructured", "order": a.order,
+        "ndofs": int(space.ndofs),
         "scaling_type": a.scaling_type, "dtype": a.dtype,
         "route": "rcm" if wop is not None else "plain",
         "levels": list(pc.level_sizes),
         "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def nudge_elasticity_rhs(a) -> None:
+    """Wrap tpufem's host elasticity RHS so that each nonzero entry moves
+    by one ulp of the solve's dtype (the certification's float64 RHS is
+    the same moved vector)."""
+    import numpy as np
+
+    from cgpoisson_reference import ulp_nudge
+    from tpufem.problems import elasticity
+    if a.problem_type != "elasticity":
+        raise SystemExit("--ulp_seed moves the elasticity RHS only")
+    rhs, dt = elasticity.assemble_elasticity_rhs_np, np.dtype(a.dtype)
+    elasticity.assemble_elasticity_rhs_np = lambda space: ulp_nudge(
+        rhs(space).astype(dt), a.ulp_seed).astype(np.float64)
 
 
 def main() -> None:
@@ -92,6 +115,8 @@ def main() -> None:
     p.add_argument("--dtype", default="float32")
     p.add_argument("--levels_only", action="store_true",
                    help="the spoke mesh: stop after the SA-AMG setup")
+    p.add_argument("--ulp_seed", type=int, default=None,
+                   help="elasticity: move the RHS by one ulp (this seed)")
     p.add_argument("options", nargs="*",
                    help="solver options for tpufem's CLI (after --)")
     a = p.parse_args()
@@ -104,6 +129,8 @@ def main() -> None:
     from tpufem.cli import parse_args, solve
     if a.levels_only:
         return levels_only(a)
+    if a.ulp_seed is not None:
+        nudge_elasticity_rhs(a)
     cfg = parse_args(["--problem_type", a.problem_type, "--mesh_type",
                       a.mesh_type, "--order", str(a.order), "--ndofs",
                       str(a.ndofs), "--scaling_type", a.scaling_type,
@@ -125,7 +152,7 @@ def main() -> None:
         "problem_type": a.problem_type, "mesh_type": a.mesh_type,
         "order": a.order, "ndofs": int(ndofs.group(1)) if ndofs else None,
         "scaling_type": a.scaling_type, "dtype": a.dtype,
-        "options": a.options,
+        "options": a.options, "ulp_seed": a.ulp_seed,
         "levels": json.loads(levels.group(1)) if levels else None,
         "iterations": int(its), "norm": float(norm),
         "true_rel": float(m.group(1)) if m else None,

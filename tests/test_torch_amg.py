@@ -64,6 +64,22 @@ def _spoke_csr():
     return sp.csr_matrix((data, indices, indptr)), bc.mask()
 
 
+def _spoke_elasticity_bsr():
+    """(block CSR of the spoke mesh's elasticity operator as a scipy BSR
+    matrix, its interleaved mask, near-nullspace): no Dirichlet dof, the
+    rigid-body modes as the near-nullspace."""
+    from tpufem_torch.fem.assemble import assemble_csr_np
+    from tpufem_torch.mesh.spoke import create_spoke_mesh
+    mesh = create_spoke_mesh(3000, True, 3, 1, verbose=False)
+    space = FunctionSpace(mesh, 1, bs=3)
+    bc = DirichletBC.from_space(space, mesh.locate_boundary_facets(
+        common.elasticity_bc_marker))
+    indptr, indices, data = assemble_csr_np(space, bc, "elasticity")
+    n = 3 * (indptr.shape[0] - 1)
+    return (sp.bsr_matrix((data, indices, indptr), shape=(n, n)), bc.mask(),
+            build_near_nullspace(space.scalar_dof_coords()))
+
+
 def _opts(cls, **kw):
     o = cls()
     for k, v in kw.items():
@@ -200,6 +216,9 @@ SETUPS = {
                      dict(fine_store_a=False, fine_transfer_window=True)),
     "spoke_sparse_levels": ("spoke", 1, dict(amg_coarse_eq_limit=30,
                                              amg_dense_level_limit=100), {}),
+    # the spoke mesh's elasticity: block CSR in, the plain route
+    "spoke_elasticity_plain": ("spoke_elasticity", 3,
+                               dict(amg_coarse_eq_limit=100), {}),
 }
 
 
@@ -208,6 +227,8 @@ def _setup_inputs(name):
     if kind == "spoke":
         A, mask = _spoke_csr()
         nns = None
+    elif kind == "spoke_elasticity":
+        A, mask, nns = _spoke_elasticity_bsr()
     else:
         A, mask, nns = _cube((7, 8, 6), "elasticity" if bs == 3 else "poisson")
     return A, bs, mask, nns, opts, flags

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (the P1 stencil and its three-component form,
 the strip apply K3, the whole-CG kernel K4, the flat interior K5,
 brick_flat, the multi-kind zone kernel, the blocked per-perm apply, the
-CSR product and the bf16 dense level's product) against their plain
-PyTorch versions, on the card.
+CSR product, the bf16 dense level's product and the matrix-free action)
+against their plain PyTorch versions, on the card.
 Marked ``cuda``: without a CUDA device every test skips.
 
 This file imports no jax, so it also runs on a machine without jax; the
@@ -1144,3 +1144,94 @@ def test_saamg_goldens_on_the_card(device, argv, iterations, norm):
     assert res.iterations == iterations
     assert abs(res.norm - norm) <= 1e-9 * norm
     assert csr_spmv.launches >= 2 * res.iterations
+
+
+def _matfree_op(order, dtype, device, ndofs=3000):
+    """The matrix-free operator of the spoke mesh at ``order`` (weak
+    scaling: 9,254 cells at 3,000 dofs) on ``device``."""
+    from tpufem_torch.fem.matfree_op import MatFreePoissonOp
+    from tpufem_torch.mesh.spoke import create_spoke_mesh
+    mesh = create_spoke_mesh(ndofs, False, 1, 1, verbose=False)
+    space = FunctionSpace(mesh, order)
+    bc = DirichletBC.from_space(
+        space, mesh.locate_boundary_facets(poisson_bc_marker))
+    return MatFreePoissonOp.build(space, bc, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_matfree_action_kernel_matches_plain(device, order, dtype):
+    """The matrix-free kernel against its plain version on the spoke mesh
+    at P1-P3, within matfree_action_bound; one count an apply; the same
+    bits twice."""
+    from tpufem_torch.fem.matfree_op import (matfree_action,
+                                             matfree_action_bound,
+                                             matfree_apply_plain)
+    op = _matfree_op(order, dtype, device)
+    x = torch.from_numpy(np.random.default_rng(order).standard_normal(
+        op.ndofs)).to(device, dtype)
+    before = matfree_action.launches
+    y = op.apply(x)
+    assert matfree_action.launches == before + 1
+    torch.cuda.synchronize()
+    err = (y - matfree_apply_plain(op, x)).abs()
+    assert bool(torch.isfinite(y).all())
+    assert bool((err <= matfree_action_bound(op, x)).all())
+    assert torch.equal(matfree_action(op, x), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_matfree_action_single_cell_empty_dofs_and_bc(device, order, dtype):
+    """One cell, three dofs in no cell (no slots: 0), a Dirichlet row (0):
+    the kernel gives the plain version's values."""
+    from tpufem_torch.fem.assemble import metric_np
+    from tpufem_torch.fem.matfree_op import (MatFreePoissonOp,
+                                             matfree_action_bound,
+                                             matfree_apply_plain)
+    from tpufem_torch.fem.reference import ReferenceTet
+    n = ReferenceTet(order).ndofs
+    coords = np.array([[[0.0, 0.0, 0.0], [1.0, 0.1, 0.0], [0.2, 0.9, 0.1],
+                        [0.1, 0.2, 1.1]]])
+    op = MatFreePoissonOp.from_arrays(metric_np(coords),
+                                      np.arange(n)[None, :], [1], n + 3,
+                                      order, dtype, device)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        op.ndofs)).to(device, dtype)
+    y = op.apply(x)
+    torch.cuda.synchronize()
+    assert float(y[1]) == 0.0 and bool((y[-3:] == 0).all())
+    err = (y - matfree_apply_plain(op, x)).abs()
+    assert bool((err <= matfree_action_bound(op, x)).all())
+
+
+def test_matfree_action_refusals(device):
+    """A CUDA operator with x on the CPU raises (no fallback to the plain
+    version), as do x of another dtype or shape."""
+    from tpufem_torch.fem.matfree_op import matfree_action
+    op = _matfree_op(1, torch.float32, device)
+    with pytest.raises(ValueError):
+        matfree_action(op, torch.zeros(op.ndofs))
+    with pytest.raises(TypeError):
+        matfree_action(op, torch.zeros(op.ndofs, dtype=torch.float64,
+                                       device=device))
+    with pytest.raises(ValueError):
+        matfree_action(op, torch.zeros(op.ndofs + 1, device=device))
+
+
+def test_matfree_entry_and_cgpoisson_on_the_card(device):
+    """The entry twin launches the kernel; tpufem's f64 spoke cgpoisson
+    P1 run (100 steps, norm 251.62201939995953) through it."""
+    from tpufem_torch import cli
+    from tpufem_torch.entry import entry
+    from tpufem_torch.fem.matfree_op import matfree_action
+    fn, (op, x) = entry()
+    before = matfree_action.launches
+    y = fn(op, x)
+    assert matfree_action.launches == before + 1 and y.is_cuda
+    matfree_action.launches = 0
+    res = cli.main(["--problem_type", "cgpoisson", "--mesh_type",
+                    "unstructured", "--ndofs", "3000", "--dtype", "float64",
+                    "--device", "cuda"])
+    assert res.iterations == 100 and matfree_action.launches >= 100
+    assert abs(res.norm - 251.62201939995953) <= 1e-9 * 251.62201939995953

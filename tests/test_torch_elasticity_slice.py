@@ -3,8 +3,9 @@ problem and solve against tpufem's ``elasticity.problem`` (RHS to rel
 1e-13, the same iteration count, the solution norm to rel 1e-10), the
 goldens of tests/test_golden.py and tpufem's 10k run through the CLI,
 the float32 certified contract, the brick-AMG fallback where GMG cannot
-coarsen the lattice, and the refusals (tpufem's generic SA-AMG, at order
-2 and with -amg_brick off, the unstructured mesh, no CUDA fallback)."""
+coarsen the lattice, tpufem's generic SA-AMG (-amg_brick off), the spoke
+mesh's singular run, and the refusals (-pc_type amg at order 2, no CUDA
+fallback)."""
 
 import numpy as np
 import pytest
@@ -103,14 +104,20 @@ def test_float32_certified_contract():
     (["--order", "2", "-pc_type", "amg"], "tpufem has no such path"),
     # ported since: tpufem's SA-AMG, planar
     (["-pc_type", "amg", "-amg_brick", "off"], None),
-    (["--mesh_type", "unstructured"], "ROADMAP M15b"),
+    # ported since: the spoke mesh, singular (no clamped face), where CG
+    # runs to its cap without converging, as tpufem's does
+    (["--mesh_type", "unstructured", "-ksp_max_it", "8"], "singular"),
 ], ids=["order2", "amg", "unstructured"])
 def test_unported_options_raise(argv, raises):
-    """The unstructured elasticity raises naming its ROADMAP item, and
-    order-k -pc_type amg saying tpufem has no such path; -amg_brick off
-    (SA-AMG) runs a small certified solve."""
+    """Order-k -pc_type amg raises saying tpufem has no such path;
+    -amg_brick off (SA-AMG) runs a small certified solve; the unstructured
+    elasticity runs to its cap on its singular system."""
     argv = ["--problem_type", "elasticity", "--ndofs", "3000",
             "--device", "cpu"] + argv
+    if raises == "singular":
+        res = cli.main(argv + ["--dtype", "float64"])
+        assert res.iterations == 8 and res.true_rel > 1.0
+        return
     if raises is not None:
         with pytest.raises(NotImplementedError, match=raises):
             cli.main(argv)

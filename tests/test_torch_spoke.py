@@ -194,10 +194,10 @@ def test_spoke_f32_certified_at_the_bench_cap(extra):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--problem_type", "cgpoisson"], "M9"),
-    (["--problem_type", "elasticity"], "M15b"),
-    (["--order", "2"], "M15c"),
-], ids=["cgpoisson", "elasticity", "order2"])
+    (["--num_shards", "2"], "M16"),
+    (["--output", "out"], "M17"),
+    (["--memory_profiling"], "M17"),
+], ids=["num_shards", "output", "memory_profiling"])
 def test_unported_spoke_paths_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["--mesh_type", "unstructured", "--ndofs", "3000",

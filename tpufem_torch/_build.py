@@ -83,6 +83,15 @@ class FlatLaunch(ctypes.Structure):
                              "halo", "nnz", "nvar", "lanes")])
 
 
+class MatfreeLaunch(ctypes.Structure):
+    """What a matrix-free Poisson apply needs beside x, y and the stream
+    (csrc/matfree_action.cu:MatfreeLaunch), filled once per operator."""
+
+    _fields_ = ([(k, ctypes.c_void_p)
+                 for k in ("G", "cd", "offsets", "slots", "bc", "yc")]
+                + [(k, ctypes.c_int) for k in ("device", "C", "n", "ndofs")])
+
+
 class PermApplyLaunch(ctypes.Structure):
     """What a blocked per-perm apply needs beside x, y and the stream
     (csrc/perm_apply.cu:PermApplyLaunch), filled once per operator."""
@@ -182,6 +191,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # PermApplyLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
+        fn = getattr(lib, f"tpufem_matfree_action_{suffix}")
+        # MatfreeLaunch*, x, y, stream
+        fn.argtypes = [vp] * 4
+        fn.restype = ci
     for name in ("tpufem_csr_spmv_f32", "tpufem_csr_spmv_f64",
                  "tpufem_csr_spmv_bf16", "tpufem_dense_gemv_bf16"):
         fn = getattr(lib, name)
@@ -199,6 +212,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # on an SM, or -cuda error
     lib.tpufem_stencil_p1_bs3_blocks.argtypes = [ci]
     lib.tpufem_stencil_p1_bs3_blocks.restype = ci
+    # device, float64 tables (host), count: the matrix-free kernel's
+    # constant tables
+    lib.tpufem_matfree_tables.argtypes = [ci, vp, ci]
+    lib.tpufem_matfree_tables.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
 

@@ -2,10 +2,11 @@
 
 Takes tpufem's flags (``parse_args`` is a copy of tpufem's) plus
 ``--device`` (default ``cuda``; there is no fallback to the CPU), builds
-the cube mesh, runs the Poisson (P1-P3), matrix-free CG Poisson (P1-P3)
-or elasticity (P1-P3) problem on one device, prints the reproducibility
-summary, the ZZZ timing table, the Krylov iterations, the solution norm
-and, for ``poisson`` and ``elasticity``, the certified true residual.
+the cube or the spoke mesh, runs the Poisson (P1-P3), matrix-free CG
+Poisson (P1-P3) or elasticity (P1-P3) problem on one device, prints the
+reproducibility summary, the ZZZ timing table, the Krylov iterations, the
+solution norm and, for ``poisson`` and ``elasticity``, the certified true
+residual.
 ``-log_view`` writes a ``torch.profiler`` trace of the solve, as tpufem
 writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 
@@ -13,10 +14,11 @@ writes a ``jax.profiler`` one (tpufem/cli.py:238-255).
 elasticity, as does tpufem's fallback where GMG cannot coarsen the
 lattice; ``-amg_brick off``, and ``-pc_type amg`` at orders above 1, run
 tpufem's generic SA-AMG (la.amg).  ``--mesh_type unstructured`` builds
-tpufem's spoke mesh and runs Poisson P1 on it (assembled CSR, SA-AMG,
-the constant nullspace deflated).  Not ported yet (each raises
-NotImplementedError naming its ROADMAP item): elasticity, P2/P3 and the
-matrix-free cgpoisson on the unstructured mesh, more than one shard,
+tpufem's spoke mesh and runs on it Poisson P1-P3 (assembled CSR, SA-AMG,
+the constant nullspace deflated), elasticity (block CSR, SA-AMG with the
+rigid-body modes) and the matrix-free cgpoisson P1-P3 (the gather /
+metric action / scatter kernel).  Not ported yet (each raises
+NotImplementedError naming its ROADMAP item): more than one shard,
 --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
@@ -27,6 +29,8 @@ Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda [-pc_type amg | --order 2|3]
       python -m tpufem_torch --problem_type poisson --mesh_type \\
           unstructured --ndofs 150000 --scaling_type strong --device cuda
+      python -m tpufem_torch --problem_type cgpoisson --mesh_type \\
+          unstructured --order 3 --ndofs 150000 --scaling_type strong
 """
 
 from __future__ import annotations
@@ -158,17 +162,7 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _check_scope(cfg: Config) -> None:
-    cg = cfg.problem_type == "cgpoisson"
-    spoke = cfg.mesh_type != "cube"
     unported = [
-        (cg and spoke,
-         f"--problem_type cgpoisson --mesh_type {cfg.mesh_type} (the "
-         "matrix-free gather/scatter action): ROADMAP M9"),
-        (spoke and cfg.problem_type == "elasticity",
-         f"--problem_type elasticity --mesh_type {cfg.mesh_type} (block "
-         "CSR, SA-AMG with the rigid-body modes): ROADMAP M15b"),
-        (spoke and cfg.order != 1,
-         f"--order {cfg.order} --mesh_type {cfg.mesh_type}: ROADMAP M15c"),
         (cfg.num_shards > 1, f"--num_shards {cfg.num_shards}: ROADMAP M16"),
         (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
         (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),

@@ -4,8 +4,8 @@ Every function takes tpufem's state as numpy arrays (never jax objects):
 a tpufem ``DiaOperator`` built with ``device=False`` (scalar, or planar
 bs = 3), a ``StructuredOperator``'s element matrices and mask (scalar,
 or blocked bs = 3), a ``GMG``'s, a ``BrickAMG``'s or an ``SAAMG``'s
-per-level arrays and a ``FlatOperator``'s tables read back with
-``np.asarray``.  The tests use them to
+per-level arrays, a ``FlatOperator``'s tables and a ``MatFreePoissonOp``'s
+state read back with ``np.asarray``.  The tests use them to
 run both packages on identical weights; on a card the port builds the
 same arrays itself (no jax there), and the tests check that its builders
 agree with tpufem's.
@@ -18,10 +18,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpufem_torch.fem.assemble import ScatterPlan
 from tpufem_torch.fem.csr_spmv import CsrMatrix
 from tpufem_torch.fem.dense_gemv import DenseMat
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.fem.flat_op import FlatGeom, FlatOperator
+from tpufem_torch.fem.matfree_op import MatFreePoissonOp
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             dof_slice_plan, grid_layout,
                                             to_planar)
@@ -221,3 +223,24 @@ def saamg_from_numpy(levels: Sequence[dict], coarse_inv: np.ndarray,
     return SAAMG(levels=out, coarse_inv=torch.from_numpy(
         np.array(coarse_inv)).to(device), smoother_degree=smoother_degree,
         level_sizes=list(level_sizes))
+
+
+def matfree_from_tpufem(G: np.ndarray, cd: np.ndarray, bc_flat: np.ndarray,
+                        perm: np.ndarray, segments: np.ndarray, order: int,
+                        dtype: torch.dtype,
+                        device: torch.device) -> MatFreePoissonOp:
+    """A port MatFreePoissonOp on ``device`` from a tpufem
+    ``MatFreePoissonOp``'s state: its metric ``G``, cell dofs ``cd``,
+    Dirichlet dofs ``bc_flat``, its ``DofScatter``'s ``perm`` and
+    ``segments`` and its ``order``.  The dofs are counted from
+    ``segments``, the largest plus one: every dof of a function space
+    lies in a cell, so a dof below that in no cell is refused."""
+    segments = np.asarray(segments).astype(np.int64)
+    n = int(segments[-1]) + 1 if segments.size else 0
+    offsets = np.searchsorted(segments, np.arange(n + 1))
+    if np.any(offsets[1:] == offsets[:-1]):
+        raise ValueError("a dof in no cell: not a function space's scatter")
+    plan = ScatterPlan(perm=np.asarray(perm).astype(np.int32),
+                       offsets=offsets.astype(np.int32))
+    return MatFreePoissonOp.from_arrays(G, cd, bc_flat, n, order, dtype,
+                                        device, plan=plan)

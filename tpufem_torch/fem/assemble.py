@@ -1,6 +1,8 @@
-"""Host float64 cell geometry, the Poisson and elasticity element
-stiffness (numpy; counterpart of tpufem/fem/assemble.py:280-347 and
-tpufem/fem/kernels.py:73-77, 180-200), and the assembled operator of the
+"""Host float64 cell geometry, the Poisson metric and the Poisson and
+elasticity element stiffness (numpy; counterpart of
+tpufem/fem/assemble.py:280-347 and tpufem/fem/kernels.py:73-77, 180-200),
+the cell -> dof scatter plan of the matrix-free action
+(tpufem/fem/assemble.py:228-270), and the assembled operator of the
 unstructured path (tpufem/fem/assemble.py:38-75, 350-426).
 
 The structured path needs the element matrices of the six Kuhn tet
@@ -12,6 +14,7 @@ a ``CsrMatrix`` (fem.csr_spmv), where tpufem builds a padded ELL.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -66,12 +69,17 @@ def _geometry_np(coords: np.ndarray):
     return Jinv, np.abs(det)
 
 
+def metric_np(coords: np.ndarray) -> np.ndarray:
+    """[C, 3, 3] per-cell metric |det J| J^-1 J^-T in float64, the only
+    geometry the Poisson operator needs (tpufem/fem/assemble.py:318)."""
+    Jinv, adet = _geometry_np(coords)
+    return np.einsum("cal,cbl->cab", Jinv, Jinv) * adet[:, None, None]
+
+
 def _poisson_stiffness_np(coords: np.ndarray, order: int) -> np.ndarray:
     """[C, n, n] stiffness of a = inner(grad u, grad v) dx per cell."""
     Kflat, _, n = _poisson_ref_tables(order)
-    Jinv, adet = _geometry_np(coords)
-    G = np.einsum("cal,cbl->cab", Jinv, Jinv) * adet[:, None, None]
-    return (G.reshape(-1, 9) @ Kflat).reshape(-1, n, n)
+    return (metric_np(coords).reshape(-1, 9) @ Kflat).reshape(-1, n, n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,6 +116,33 @@ def _elasticity_stiffness_np(coords: np.ndarray, order: int) -> np.ndarray:
 def detJ_np(coords: np.ndarray) -> np.ndarray:
     """Host float64 |detJ| [C] alone (the RHS volume term's measure)."""
     return np.abs(_cell_jacobians(coords)[4])
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """The sorted cell -> dof scatter of tpufem's ``DofScatter``
+    (tpufem/fem/assemble.py:228-270) as a dof -> cell-slot CSR: ``perm``
+    int32 [C n], the stable argsort of ``cell_dofs.ravel()`` (the slot
+    list: slot s = c n + i is local dof i of cell c), and ``offsets``
+    int32 [N + 1]: dof d's slots are perm[offsets[d]:offsets[d + 1]], in
+    ascending order (tpufem's ``segments``, the dof of each listed slot,
+    is d repeated offsets[d + 1] - offsets[d] times)."""
+
+    perm: np.ndarray
+    offsets: np.ndarray
+
+
+def scatter_plan(cell_dofs: np.ndarray, ndofs: int) -> ScatterPlan:
+    """The scatter plan of ``cell_dofs`` [C, n] over ``ndofs`` dofs."""
+    flat = np.asarray(cell_dofs).reshape(-1)
+    if flat.size >= 2 ** 31 or ndofs >= 2 ** 31:
+        raise ValueError("a scatter plan of 2^31 or more slots or dofs: "
+                         "the plan is int32")
+    perm = np.argsort(flat, kind="stable")
+    offsets = np.zeros(ndofs + 1, dtype=np.int64)
+    np.cumsum(np.bincount(flat, minlength=ndofs), out=offsets[1:])
+    return ScatterPlan(perm=perm.astype(np.int32),
+                       offsets=offsets.astype(np.int32))
 
 
 # ---------------------------------------------------------------------------

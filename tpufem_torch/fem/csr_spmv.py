@@ -200,10 +200,10 @@ def csr_spmv_plain(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
             torch.arange(A.n, device=A.device),
             (A.indptr[1:] - A.indptr[:-1]).long())
     if A.vals.dtype == torch.bfloat16:
-        xg = x.to(torch.bfloat16).float()[A.indices.long()]
+        xg = torch.index_select(x.to(torch.bfloat16).float(), 0, A.indices)
         prod = A.vals.float() * xg
     else:
-        prod = A.vals * x[A.indices.long()]
+        prod = A.vals * torch.index_select(x, 0, A.indices)
     return torch.zeros(A.n, dtype=A.out_dtype,
                        device=A.device).index_add_(0, rows, prod)
 

@@ -1,5 +1,6 @@
-"""Matrix-free CG Poisson problem on the cube mesh (counterpart of
-tpufem/problems/cgpoisson.py:80-328, structured branch).
+"""Matrix-free CG Poisson problem (counterpart of
+tpufem/problems/cgpoisson.py:80-328), on the cube mesh and on an
+unstructured mesh.
 
 Rebuild of ``cgpoisson::problem`` (reference src/cgpoisson_problem.cpp):
 unpreconditioned CG (kmax = 100, rtol = 1e-6 by default) on the
@@ -29,6 +30,14 @@ chain (cgpoisson.py:110-212):
 
 With b[bc] = 0 the Krylov trajectory on a baked operator equals the
 reference's rows-zero convention (cgpoisson_problem.cpp:207).
+
+On an unstructured mesh (the spoke mesh; tpufem/problems/cgpoisson.py:
+84-107, 205-209) the operator is the gather / metric action / sorted
+scatter of fem.matfree_op, one apply of the matrix-free kernel per CG
+step, with the host float64 RHS and b[bc] = 0; ``-cg_kernel``,
+``-use_flat`` and ``-use_strip`` stay unread there, as in tpufem.  The
+spoke mesh has no Dirichlet facet, so its system is singular and CG
+runs its 100 steps on it undeflated, as tpufem's does.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from tpufem_torch.config import Config
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.flat_op import FlatOperator
+from tpufem_torch.fem.matfree_op import MatFreePoissonOp
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.strip_op import StripOperator
 from tpufem_torch.fem.structured_op import StructuredOperator
@@ -184,12 +194,15 @@ def _operator(mesh: BoxTetMesh, order: int, bc: DirichletBC, cfg: Config,
     return op, apply
 
 
-def problem(mesh: BoxTetMesh, order: int, cfg: Config,
+def problem(mesh, order: int, cfg: Config,
             device: torch.device) -> common.Problem:
     dtype, acc_dtype = common.resolve_dtype(cfg)
+    structured = isinstance(mesh, BoxTetMesh)
 
     with Timer("ZZZ FunctionSpace"):
         space = FunctionSpace(mesh, order)
+        if not structured:
+            _ = space.cell_dofs
 
     with Timer("ZZZ Create boundary conditions"):
         facets = mesh.locate_boundary_facets(common.poisson_bc_marker)
@@ -199,7 +212,7 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
     with Timer("ZZZ Assemble vector", device):
         # matrix-free lifting vanishes (u0 = 0); b[bc] = 0 zeroes the
         # columns of A (cgpoisson_problem.cpp:159-168)
-        if dtype == torch.float32:
+        if dtype == torch.float32 and structured:
             if order == 1:
                 rhs_op = DiaOperator.build(mesh, 1, "mass", dtype=dtype,
                                            device=device)
@@ -213,7 +226,11 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
             b = torch.from_numpy(b_np.astype(np_dtype(dtype))).to(device)
 
     with Timer("ZZZ Assemble matrix", device):
-        op, apply = _operator(mesh, order, bc, cfg, dtype, device)
+        if structured:
+            op, apply = _operator(mesh, order, bc, cfg, dtype, device)
+        else:
+            op = MatFreePoissonOp.build(space, bc, dtype, device)
+            apply = op.apply
 
     solver_opts = cfg.solver
     rtol = float(solver_opts.extra.get("cg_rtol", 1e-6))

@@ -1,5 +1,6 @@
 """Vector-valued (bs = 3) linear elasticity on the structured cube mesh
-(counterpart of tpufem/problems/elasticity.py:43-218, structured path).
+and on an unstructured mesh (counterpart of
+tpufem/problems/elasticity.py:43-218).
 
 P1-P3 vector Lagrange space; the clamped y = 0 face; the rotational body
 force; the BC-eliminated blocked stiffness (P1: a bs = 3 DIA stencil;
@@ -28,6 +29,18 @@ planar (SA-AMG: the hierarchy of the interleaved CSR export, its fine
 level permuted to planar).  ``-pc_type amg`` at order k fails in tpufem
 (its SA-AMG exports no CSR of the blocked StructuredOperator), and the
 port raises there too.
+
+On an unstructured mesh (the spoke mesh; tpufem/problems/elasticity.py:
+136-218) the operator is the assembled block CSR (fem.assemble: its
+scalar expansion a ``CsrMatrix`` on the device), the RHS the host cell
+mass tensors with a ``bincount`` per component, and the solve CG with
+tpufem's SA-AMG on the interleaved layout with ``bs = 3`` and the
+rigid-body near-nullspace, on tpufem's plain route (its window gate
+refuses a block CSR), certified against the float64 BSR matrix.  The
+spoke mesh has no y = 0 facet, so its system is pure traction: singular,
+with the rigid-body modes in its kernel, and inconsistent (the body
+force is not in equilibrium).  tpufem deflates nothing there and CG
+grows without bound until its cap; the port does the same.
 """
 
 from __future__ import annotations
@@ -36,12 +49,14 @@ import numpy as np
 import torch
 
 from tpufem_torch.config import Config
+from tpufem_torch.fem.assemble import assemble_operator, detJ_np
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.structured_op import StructuredOperator
 from tpufem_torch.la.nullspace import build_near_nullspace
 from tpufem_torch.mesh.structured import BoxTetMesh
+from tpufem_torch.mesh.topology import TetTopology
 from tpufem_torch.problems import common
 from tpufem_torch.problems.poisson import Solver
 from tpufem_torch.timing import Timer
@@ -84,26 +99,45 @@ def assemble_elasticity_rhs_pk_dev(space: FunctionSpace, bc: DirichletBC,
 
 
 def assemble_elasticity_rhs_np(space: FunctionSpace) -> np.ndarray:
-    """Host float64 RHS (interleaved, no BC values): the per-perm mass
-    apply of each interpolated component (tpufem/problems/elasticity.py:
-    110-121)."""
+    """Host float64 RHS (interleaved, no BC values): on the cube the
+    per-perm mass apply of each interpolated component; on an
+    unstructured mesh the cell mass tensors and a ``bincount`` per
+    component (tpufem/problems/elasticity.py:110-133)."""
     f = space.interpolate(common.elasticity_f).reshape(-1, 3)
+    if isinstance(space.mesh, TetTopology):
+        cd = space.cell_dofs
+        adet = detJ_np(space.mesh.cell_coords())
+        M = space.element.mass_tensor
+        b_cells = np.einsum("ij,cjr->cir", M, f[cd]) * adet[:, None, None]
+        b = np.zeros((space.ndofs_scalar, 3))
+        for r in range(3):
+            b[:, r] = np.bincount(cd.reshape(-1),
+                                  weights=b_cells[:, :, r].reshape(-1),
+                                  minlength=space.ndofs_scalar)
+        return b.reshape(-1)
     mass = StructuredOperator.build(space.mesh, space.order, "mass",
                                     dtype=torch.float64)
     return np.stack([mass.apply_raw_np(f[:, r]) for r in range(3)],
                     axis=-1).reshape(-1)
 
 
-def problem(mesh: BoxTetMesh, order: int, cfg: Config,
+def problem(mesh, order: int, cfg: Config,
             device: torch.device) -> common.Problem:
     dtype, acc_dtype = common.resolve_dtype(cfg)
+    structured = not isinstance(mesh, TetTopology)
 
     with Timer("ZZZ FunctionSpace"):
         space = FunctionSpace(mesh, order, bs=3)
+        if not structured:
+            _ = space.cell_dofs
 
     with Timer("ZZZ Create boundary conditions"):
         facets = mesh.locate_boundary_facets(common.elasticity_bc_marker)
         bc = DirichletBC.from_space(space, facets)
+
+    if not structured:
+        return _problem_unstructured(mesh, order, cfg, device, space, bc,
+                                     dtype, acc_dtype)
 
     with Timer("ZZZ Assemble matrix", device):
         A = build_operator(mesh, order, "elasticity", bc_dofs=bc.flat_dofs(),
@@ -145,3 +179,40 @@ def problem(mesh: BoxTetMesh, order: int, cfg: Config,
     return common.Problem(b=b, u=u, solver_function=solver_function,
                           space=space, bc=bc, rhs_op=mass,
                           near_nullspace=nns)
+
+
+def _problem_unstructured(mesh, order: int, cfg: Config,
+                          device: torch.device, space: FunctionSpace,
+                          bc: DirichletBC, dtype: torch.dtype,
+                          acc_dtype: torch.dtype) -> common.Problem:
+    """The assembled block CSR system of an unstructured mesh, its host
+    float64 RHS, the near-nullspace and the BSR certification twin
+    (tpufem/problems/elasticity.py:171-218)."""
+    with Timer("ZZZ Assemble matrix", device):
+        A, csr = assemble_operator(space, bc, "elasticity", dtype, device)
+
+    def rhs64() -> np.ndarray:
+        b64 = assemble_elasticity_rhs_np(space)
+        b64[bc.flat_dofs()] = bc.value
+        return b64
+
+    with Timer("ZZZ Assemble vector", device):
+        b = torch.from_numpy(rhs64().astype(np_dtype(dtype))).to(device)
+
+    with Timer("ZZZ Create near-nullspace"):
+        nns = build_near_nullspace(space.scalar_dof_coords())
+
+    def fidelity():
+        """float64 host twin: the assembled BSR matrix (la.refine)."""
+        import scipy.sparse as sp
+        n = space.ndofs
+        M64 = sp.bsr_matrix((csr[2], csr[1], csr[0]), shape=(n, n))
+        return (lambda v: M64 @ v), rhs64()
+
+    u = torch.zeros(space.ndofs, dtype=dtype, device=device)
+    solver_function = Solver(A, mesh, order, cfg, dtype, acc_dtype, device,
+                             fidelity=fidelity, problem="elasticity",
+                             bc_marker=common.elasticity_bc_marker,
+                             near_nullspace=nns, bc_mask=bc.mask(), csr=csr)
+    return common.Problem(b=b, u=u, solver_function=solver_function,
+                          space=space, bc=bc, near_nullspace=nns)

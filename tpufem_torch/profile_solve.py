@@ -52,7 +52,8 @@ PORT_KERNELS = ("stencil_p1_kernel", "stencil_p1_bs3_kernel",
                 "flat_interior_kernel", "brick_flat_kernel",
                 "dia_zones_kernel", "perm_apply_cube_kernel",
                 "perm_apply_sum_kernel", "csr_spmv_kernel",
-                "dense_gemv_bf16_kernel", "dense_gemv_bf16_combine")
+                "dense_gemv_bf16_kernel", "dense_gemv_bf16_combine",
+                "matfree_action_cells_kernel", "matfree_action_dofs_kernel")
 
 
 def busy_us(intervals) -> float:
