@@ -142,8 +142,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    CG_SPOKE_REL_TOL: the singular system's trajectory amplifies
    rounding); the kernel against its plain version on those three
    operators in float32 and float64 (the same bits twice, within
-   matfree_action_bound), with times, the host cost, the bound and
-   torch.sparse.mm of the assembled CSR at P1 and P2; Poisson P2 150k and
+   matfree_action_bound), with times, the host cost, the bound, the
+   cluster plan's halo share and largest cluster and torch.sparse.mm of
+   the assembled CSR at P1 and P2; Poisson P2 150k and
    P3 50k on SA-AMG (levels as tpufem's, iterations within one of its
    float32 CPU runs, certified, SPOKE_PK_REF); elasticity 150k for 8
    steps (the bs = 3 hierarchy on csr_spmv, its norm against tpufem's;
@@ -401,11 +402,18 @@ SPOKE_F64_GOLDS = (
 # key -> (argv, ndofs, levels, iterations, norm, true_rel, passes).  At
 # order 2/3 the card's host (numpy 2.3.5, scipy 1.18.1 against 2.0.2 /
 # 1.17.0 where tpufem's runs were made) assembles another CSR in the last
-# bits (its digest differs; at P3 the reference element tables differ
-# too), which moves ties of the aggregation: levels 7,102 / 122 at P2 150k
+# bits, which moves ties of the aggregation: levels 7,102 / 122 at P2 150k
 # and 2,941 / 58 at P3 50k on the card against tpufem's 7,099 / 123 and
-# 2,939 / 57, while on the host where tpufem ran the port's own P2 setup
-# gives tpufem's sizes.  The coarse sizes of those rows are held within
+# 2,939 / 57.  Shown by scripts/spoke_levels.py: the reference tables,
+# the mesh and the metric are the same bits on both hosts; the element
+# matrices (a BLAS product, fem/assemble.py:_poisson_stiffness_np) are
+# the first step that differs, then the CSR (its values, and from
+# --ndofs 6000 its pattern: exact-zero sums are dropped) and the RCM
+# order; the smallest order-2 size whose levels differ is --ndofs 25000
+# (2,342 / 53 on the card, 2,342 / 52 where tpufem ran), and that card
+# CSR gives the card's levels to tpufem's setup and to the port's alike.
+# A behaviour of the host's libraries, not of the port.  The coarse
+# sizes of those rows are held within
 SPOKE_PK_LEVELS_TOL = 0.03
 SPOKE_PK_ARGS = ["--mesh_type", "unstructured", "--scaling_type", "strong",
                  "--dtype", "float32", "--device", "cuda"]
@@ -2325,29 +2333,40 @@ def saamg_phase(cli, gpu: str):
 
 
 def matfree_work(op):
-    """(bytes, flops, the plan's bytes) of one matrix-free apply: G, the
-    cell dofs, x and y once each (what y = A x must move, the bound's
-    bytes); the kernel's 4 n^2 + 3 n multiply-adds a cell; apart, the
-    plan's slot list and offsets, which belong to the two-launch design
-    and not to y = A x."""
+    """(bytes, flops, the plan's bytes) of one matrix-free apply: the
+    metric as its six distinct entries, the cell dofs, x and y once each
+    (what y = A x must move, the bound's bytes); the kernel's 4 n^2 + 3 n
+    multiply-adds a cell; apart, what the design's plan adds: the cluster
+    plan's slot locals and summing order (2 bytes a slot each), its
+    locals' dofs and run ends, the halo lists and the partial sums
+    written and read (an operator of the two-launch design: its slot
+    list and offsets)."""
     item = op.G.element_size()
     C, n, N = op.ncells, op.n, op.ndofs
-    nbytes = C * 9 * item + C * n * 4 + 2 * N * item
-    plan = C * n * 4 + (N + 1) * 4
+    nbytes = C * 6 * item + C * n * 4 + 2 * N * item
+    p = getattr(op, "cplan", None)
+    if p is None:
+        plan = C * n * 4 + (N + 1) * 4
+    else:
+        plan = (p.ld.nbytes + p.sum_idx.nbytes + p.gid.nbytes
+                + p.sum_end.nbytes + p.clusters.nbytes + p.halo_dof.nbytes
+                + p.halo_off.nbytes + p.halo_src.nbytes * (4 + 2 * item) // 4)
     return nbytes, 2 * (4 * n * n + 3 * n) * C, plan
 
 
 def matfree_kernel_phase(ops, gpu: str):
     """The matrix-free kernel against its plain version on the spoke's
     operators, within matfree_action_bound, the same bits on two
-    launches, with times (the device time of its two launches after an L2
-    flush, per call, the host cost), the bound and torch.sparse.mm of the
-    assembled CSR of the same operator where it is given.  Returns (rows,
-    worst abs error)."""
+    launches, with times (the device time of its launches after an L2
+    flush, per call, the host cost), the bound, the cluster plan's halo
+    share and largest cluster, and torch.sparse.mm of the assembled CSR
+    of the same operator where it is given.  Returns (rows, worst abs
+    error)."""
     import torch
     from tpufem_torch.fem.matfree_op import (matfree_action,
                                              matfree_action_bound,
-                                             matfree_apply_plain)
+                                             matfree_apply_plain,
+                                             matfree_launches)
     rows, worst = [], 0.0
     for name, op, L in ops:
         gen = torch.Generator(device=op.device).manual_seed(15)
@@ -2380,8 +2399,9 @@ def matfree_kernel_phase(ops, gpu: str):
         b_ms, b_by = bound_ms(nbytes, flops)
         dev, note = device_ms(lambda: op.apply(x), "matfree_action", b_ms,
                               f"matfree_action {name} {op.dtype}",
-                              launches=2)
+                              launches=matfree_launches(op))
         dtype = str(op.dtype).split(".")[1]
+        plan = op.cplan
         rows.append(dict(name=name, dtype=dtype, order=op.order,
                          cells=op.ncells, ndofs=op.ndofs, max_abs_err=abs_err,
                          ms=ms, device_ms=dev, device_note=note,
@@ -2391,7 +2411,9 @@ def matfree_kernel_phase(ops, gpu: str):
                                                      flops)[0],
                          share_of_bound=None if dev is None else b_ms / dev,
                          call_minus_device_ms=(None if dev is None
-                                               else ms - dev)))
+                                               else ms - dev),
+                         halo_share=plan.halo_share,
+                         largest_cluster=plan.max_locals))
         share = "n/a" if dev is None else f"{100 * b_ms / dev:.0f}%"
         print(f"matfree_action {name:<22} {dtype:<8} P{op.order}, "
               f"{op.ncells} cells, {op.ndofs} dofs | max |kernel - plain| "
@@ -2402,7 +2424,9 @@ def matfree_kernel_phase(ops, gpu: str):
               + f" | device {fmt_dev(dev, note)}, {share} of the bound "
               f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB; the plan "
               f"{plan_bytes / 1e6:.2f} MB more; {flops / 1e9:.3f} "
-              f"GFLOP) | host cost {host:.4f} ms per queued call  [{gpu}]",
+              f"GFLOP) | clusters of {plan.cells} cells, halo share "
+              f"{plan.halo_share:.3f}, largest cluster {plan.max_locals} "
+              f"dofs | host cost {host:.4f} ms per queued call  [{gpu}]",
               flush=True)
     return rows, worst
 

@@ -9,23 +9,30 @@ into a git-ignored directory and run them in turns in one call on the
 card (A, B, B, A):
 
     python scripts/matfree_times.py [--tree DIR] [--json PATH]
-                                    [--no-library] [--cli] [--quick]
+        [--no-library] [--cli] [--quick] [--sizes O:N,...] [--cells N:B,...]
+        [--sass] [--split] [--variants] [--ncu]
 
 The operators: the spoke mesh (strong scaling) at P1 500k (2,644,284
 cells), P2 and P3 150k (745,612 cells), float32 and float64, built as the
-cgpoisson path builds them.  Each is held to its plain version (within
-matfree_action_bound, the same bits on two launches) and timed: per call
-(CUDA events, median of 11 means of 20 back-to-back calls), device time
-per call by chip_smoke.device_ms (an L2 flush before each call, the
-kernel's own profiler spans counted: both launches, then the cell launch
-and the dof launch alone), the wrapper's host cost per queued call, the
-bound (chip_smoke.matfree_work) and ``torch.sparse.mm`` of the assembled
-CSR of the same operator at P1 and P2 (float32; ``--no-library`` skips
-it).  ``--cli`` also runs ``python -m tpufem_torch --problem_type
-cgpoisson --mesh_type unstructured`` at the three sizes, float32, and
-prints their Gdof/s and seconds per solve; ``--quick`` times float32
-only.  The methods are this repository's chip_smoke.py's, whichever
-tree is timed.
+cgpoisson path builds them (``--sizes`` others, ``--cells`` other cluster
+sizes).  Each is held to its plain version (within matfree_action_bound,
+the same bits on two launches) and timed: per call (CUDA events, median
+of 11 means of 20 back-to-back calls), device time per call by
+chip_smoke.device_ms (an L2 flush before each call, the kernel's own
+profiler spans counted: all its launches, then each launch alone), the
+wrapper's host cost per queued call, the bound (chip_smoke.matfree_work),
+the cluster plan's halo share and largest cluster, and
+``torch.sparse.mm`` of the assembled CSR of the same operator (float32;
+``--no-library`` skips it).  ``--cli`` also runs ``python -m tpufem_torch
+--problem_type cgpoisson --mesh_type unstructured`` at the three sizes,
+float32, and prints their Gdof/s and seconds per solve; ``--quick``
+times float32 only.  ``--sass`` prints each matfree kernel's SASS
+instructions by opcode (cuobjdump) and ptxas's lines; ``--split`` cuts
+the two-launch design's P3 cell launch into its loads and stores alone
+and its products alone, ``--variants`` times the cluster design's
+variants (CLUSTER_VARIANTS), both from edited copies of the tree's
+source; ``--ncu`` asks ncu for the P3 cell launch's warp states.  The
+methods are this repository's chip_smoke.py's, whichever tree is timed.
 """
 
 from __future__ import annotations
@@ -35,8 +42,11 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = ((1, 500000), (2, 150000), (3, 150000))
@@ -72,8 +82,10 @@ def _ptxas(log: str) -> list:
     return out
 
 
-def operators(dtypes, library: bool, dev):
-    """(name, operator, torch CSR of it or None) on the spoke mesh."""
+def operators(dtypes, library: bool, dev, sizes=SIZES):
+    """(name, operator, torch CSR of it or None) on the spoke mesh, at
+    ``sizes`` ((order, --ndofs), strong scaling); the CSR (float32) where
+    ``library``."""
     import numpy as np
     import torch
     from tpufem_torch.fem.assemble import assemble_csr_np
@@ -83,7 +95,7 @@ def operators(dtypes, library: bool, dev):
     from tpufem_torch.mesh.spoke import create_spoke_mesh
     from tpufem_torch.problems.common import poisson_bc_marker
     out, meshes = [], {}
-    for order, nd in SIZES:
+    for order, nd in sizes:
         if nd not in meshes:
             meshes[nd] = create_spoke_mesh(nd, True, 1, 1, verbose=False)
         mesh = meshes[nd]
@@ -91,8 +103,12 @@ def operators(dtypes, library: bool, dev):
         bc = DirichletBC.from_space(
             space, mesh.locate_boundary_facets(poisson_bc_marker))
         L = None
-        if library and order <= 2:
+        if library:
+            t0 = time.perf_counter()
             ip, ix, data = assemble_csr_np(space, bc, "poisson")
+            print(f"spoke P{order} {nd}: CSR of {data.shape[0]} entries "
+                  f"assembled in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
             L = torch.sparse_csr_tensor(
                 torch.from_numpy(ip.astype(np.int64)),
                 torch.from_numpy(ix.astype(np.int64)),
@@ -105,11 +121,24 @@ def operators(dtypes, library: bool, dev):
     return out
 
 
-def kernel_rows(sm, ops, tag, gpu):
+def _launch_parts(root):
+    """(label, kernel name) of each launch of the tree's design."""
+    with open(os.path.join(root, "tpufem_torch", "csrc",
+                           "matfree_action.cu")) as f:
+        src = f.read()
+    if "matfree_action_clusters_kernel" in src:
+        return (("clusters", "matfree_action_clusters"),
+                ("halo", "matfree_action_halo"))
+    return (("cells", "matfree_action_cells"), ("dofs", "matfree_action_dofs"))
+
+
+def kernel_rows(sm, ops, tag, gpu, root):
     import torch
+    from tpufem_torch.fem import matfree_op
     from tpufem_torch.fem.matfree_op import (matfree_action,
                                              matfree_action_bound,
                                              matfree_apply_plain)
+    parts = _launch_parts(root)
     rows, ok = [], True
     for name, op, L in ops:
         dt = str(op.dtype).split(".")[1]
@@ -128,13 +157,15 @@ def kernel_rows(sm, ops, tag, gpu):
         b_ms, b_by = sm.bound_ms(nbytes, flops)
         ms = sm.median_ms(lambda: op.apply(x))
         host = sm.host_ms(lambda: op.apply(x))
+        launches = (matfree_op.matfree_launches(op)
+                    if hasattr(matfree_op, "matfree_launches") else 2)
         dev, note = sm.device_ms(lambda: op.apply(x), "matfree_action", b_ms,
-                                 f"matfree_action {name} {dt}", launches=2)
-        cells, _ = sm.device_ms(lambda: op.apply(x),
-                                "matfree_action_cells", 0.0,
-                                f"cells {name} {dt}")
-        dofs, _ = sm.device_ms(lambda: op.apply(x), "matfree_action_dofs",
-                               0.0, f"dofs {name} {dt}")
+                                 f"matfree_action {name} {dt}",
+                                 launches=launches)
+        part_ms = {label: sm.device_ms(lambda: op.apply(x), kname, 0.0,
+                                       f"{label} {name} {dt}")[0]
+                   for label, kname in parts[:launches]}
+        plan = getattr(op, "cplan", None)
         lib_ms = None
         if L is not None:
             lib_ms, _ = sm.library_ms(L, x, yp)
@@ -142,7 +173,10 @@ def kernel_rows(sm, ops, tag, gpu):
                    cells=op.ncells, ndofs=op.ndofs,
                    max_abs_err=float(err.max()), within_bound=held,
                    same_bits=same, ms=ms, device_ms=dev, device_note=note,
-                   cells_ms=cells, dofs_ms=dofs, host_ms=host, bound_ms=b_ms,
+                   launch_ms=part_ms, launches=launches,
+                   halo_share=None if plan is None else plan.halo_share,
+                   max_locals=None if plan is None else plan.max_locals,
+                   host_ms=host, bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes,
                    plan_bytes=plan_bytes,
                    flops=flops, library_ms=lib_ms,
@@ -150,13 +184,341 @@ def kernel_rows(sm, ops, tag, gpu):
         rows.append(row)
         share = "n/a" if dev is None else f"{100 * b_ms / dev:.0f}%"
         print(f"[{tag}] matfree_action {name} {dt}: {op.ncells} cells, "
-              f"{op.ndofs} dofs | device {sm.fmt_dev(dev, note)} (cells "
-              f"{sm.fmt_ms(cells)}, dofs {sm.fmt_ms(dofs)}), per call "
+              f"{op.ndofs} dofs | device {sm.fmt_dev(dev, note)} ("
+              + ", ".join(f"{k} {sm.fmt_ms(v)}" for k, v in part_ms.items())
+              + (f"; halo share {plan.halo_share:.3f}, largest cluster "
+                 f"{plan.max_locals} dofs" if plan is not None else "")
+              + f"), per call "
               f"{ms:.4f} ms, host cost {host:.4f} ms | bound {b_ms:.4f} ms "
               f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP): "
               f"{share} of it | torch.sparse.mm {sm.fmt_ms(lib_ms)} | within "
               f"bound {held}, same bits {same}  [{gpu}]", flush=True)
     return rows, ok
+
+
+# The split of the P3 cell launch of the two-launch design (a thread a
+# cell, cell values slot-major, then a thread a dof over the plan): how a
+# temporary copy of the tree's csrc/matfree_action.cu is cut to its loads
+# and stores alone (cd, x, G read, the cell values stored, no products)
+# or its products alone (u and G made from the cell's index, the 20
+# values summed and stored only under a condition that never holds).
+_CELL_LOADS = """  int d[N];
+  load_row<N>(L.cd + static_cast<size_t>(c) * N, d);
+  T u[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) u[i] = __ldg(x + d[i]);
+  const T* __restrict__ g =
+      static_cast<const T*>(L.G) + static_cast<size_t>(c) * 9;
+  // G00, G11, G22, G01, G02, G12: the tables' order
+  const T gs[6] = {__ldg(g), __ldg(g + 4), __ldg(g + 8),
+                   __ldg(g + 1), __ldg(g + 2), __ldg(g + 5)};
+"""
+_CELL_PRODUCTS_START = "  constexpr int off = table_offset<N>();"
+_CELL_STORES = """  T* __restrict__ yc = static_cast<T*>(L.yc);
+#pragma unroll
+  for (int i = 0; i < N; ++i) yc[static_cast<size_t>(i) * L.C + c] = y[i];
+"""
+
+
+def _cell_split_source(src: str, phase: int):
+    """The two-launch source cut to ``phase`` (0 whole, 1 loads and stores
+    alone, 2 products alone), or None where the tree has another form."""
+    if (_CELL_LOADS not in src or _CELL_PRODUCTS_START not in src
+            or _CELL_STORES not in src):
+        return None
+    if phase == 1:
+        a = src.index(_CELL_PRODUCTS_START)
+        b = src.index(_CELL_STORES)
+        src = (src[:a] + "  T y[N];\n#pragma unroll\n  for (int i = 0; i < N; "
+               "++i) y[i] = u[i] * gs[i % 6];\n" + src[b:])
+    elif phase == 2:
+        src = src.replace(_CELL_LOADS, """  T u[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) u[i] = T(c & 1023) * T(1e-3) + T(i);
+  const T gs[6] = {T(1) + T(c & 7), T(2), T(3) + T(c & 3), T(0.5), T(0.25),
+                   T(0.125)};
+""").replace(_CELL_STORES, """  T s = y[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) s += y[i];
+  if (s == T(-1.2345e30)) static_cast<T*>(L.yc)[c] = s;
+""")
+    return src
+
+
+def split_rows(sm, root, op, tag, gpu):
+    """The P3 cell launch of the two-launch design, float32, built alone
+    whole, with its loads and stores alone and with its products alone:
+    device ms of the cell launch after an L2 flush, and ptxas's line."""
+    import ctypes
+    import numpy as np
+    import torch
+    from tpufem_torch import _build
+    csrc = os.path.join(root, "tpufem_torch", "csrc")
+    with open(os.path.join(csrc, "matfree_action.cu")) as f:
+        src = f.read()
+    if _cell_split_source(src, 0) is None:
+        print(f"[{tag}] --split: csrc/matfree_action.cu is not the "
+              "two-launch form", flush=True)
+        return []
+    from tpufem_torch.fem.matfree_op import all_kernel_tables
+    dev = op.device
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(op.ndofs, generator=gen, device=dev)
+    y = torch.empty_like(x)
+    scratch = torch.empty(op.ncells * op.n, device=dev)
+    mask = None if op.bc_mask is None else op.bc_mask.to(torch.uint8)
+    args = _build.MatfreeLaunch(
+        G=op.G.data_ptr(), cd=op.cd.data_ptr(), offsets=op.offsets.data_ptr(),
+        slots=op.perm.data_ptr(), bc=0 if mask is None else mask.data_ptr(),
+        yc=scratch.data_ptr(), device=dev.index, C=op.ncells, n=op.n,
+        ndofs=op.ndofs)
+    tables = np.ascontiguousarray(all_kernel_tables(), dtype=np.float64)
+    nbytes, flops, _ = _smoke().matfree_work(op)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in os.listdir(csrc):
+            if f.endswith(".cuh"):
+                shutil.copy(os.path.join(csrc, f), tmp)
+        for phase, what in ((0, "whole"), (1, "loads and stores alone"),
+                            (2, "products alone")):
+            cu = os.path.join(tmp, f"split{phase}.cu")
+            so = os.path.join(tmp, f"split{phase}.so")
+            with open(cu, "w") as f:
+                f.write(_cell_split_source(src, phase))
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                                   "-shared", "-o", so, cu],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed: {proc.stderr}")
+            ptx = [u for n, u in _ptxas(proc.stdout + proc.stderr)
+                   if "cells" in n and "IfLi20E" in n]
+            lib = ctypes.CDLL(so)
+            lib.tpufem_matfree_tables.argtypes = [ctypes.c_int,
+                                                  ctypes.c_void_p,
+                                                  ctypes.c_int]
+            rc = lib.tpufem_matfree_tables(dev.index, tables.ctypes.data,
+                                           int(tables.size))
+            if rc != 0:
+                raise RuntimeError(f"split {what}: tables, cuda error {rc}")
+            fn = lib.tpufem_matfree_action_f32
+            fn.argtypes = [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+
+            def call():
+                rc = fn(ctypes.addressof(args), x.data_ptr(), y.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"split {what}: cuda error {rc}")
+
+            ms, note = sm.device_ms(call, "matfree_action_cells", 0.0,
+                                    f"P3 cell launch {what}")
+            rows.append(dict(kernel="matfree_action cells P3 split",
+                             name=what, device_ms=ms, device_note=note,
+                             ptxas=ptx, bytes=nbytes, flops=flops))
+            print(f"[{tag}] P3 150k float32 cell launch, {what}: device "
+                  f"{sm.fmt_dev(ms, note)}; ptxas {ptx}  [{gpu}]",
+                  flush=True)
+    return rows
+
+
+# Variants of the cluster design, each a temporary copy of the tree's
+# csrc/matfree_action.cu edited as its text says: its products cut out
+# (each cell value u_i G_s, no tables), its products alone (no x staged,
+# no sums: the cell values kept only under a condition that never
+# holds), and blocks of 512 or 1024 threads (the same cells a thread:
+# clusters 2x or 4x as large, half or a quarter of the blocks an SM).
+# name -> (edits, factor on the cells a cluster).
+_PHASE1 = "  for (int l0 = threadIdx.x; l0 < nloc; l0 += 4 * kThreads) {"
+_PHASE3 = """  T* part = static_cast<T*>(L.partials) + base;
+  for (int l = threadIdx.x; l < nloc; l += kThreads) {"""
+_PRODUCTS = "    cell_values<T, N>(gs, u, v);"
+_THREADS = "constexpr int kThreads = 256;"
+_MIN_BLOCKS = "sizeof(T) == 4 ? 4 : 2;"
+CLUSTER_VARIANTS = {
+    "whole": ((), 1),
+    "no products": (((_PRODUCTS, "#pragma unroll\n    for (int i = 0; i < "
+                      "N; ++i) v[i] = u[i] * gs[i % 6];"),), 1),
+    "products alone": (((_PHASE1, _PHASE1.replace("l0 < nloc", "l0 < 0")),
+                        (_PHASE3, _PHASE3.replace(
+                            "  for (int l", "  if (vals[threadIdx.x] == "
+                            "T(-1.2345e30)) y[0] = vals[threadIdx.x];\n  for "
+                            "(int l").replace("l < nloc", "l < 0"))), 1),
+    "512 threads": (((_THREADS, _THREADS.replace("256", "512")),
+                     (_MIN_BLOCKS, "sizeof(T) == 4 ? 2 : 1;")), 2),
+    "1024 threads": (((_THREADS, _THREADS.replace("256", "1024")),
+                      (_MIN_BLOCKS, "sizeof(T) == 4 ? 1 : 1;")), 4),
+}
+
+
+def variant_rows(sm, root, ops, tag, gpu):
+    """The cluster design's variants (CLUSTER_VARIANTS) on the float32
+    operators: device ms of the cluster launch and of the whole apply
+    after an L2 flush, ptxas's line, within the bound of the plain
+    version where the products run."""
+    import ctypes
+    import numpy as np
+    import torch
+    from tpufem_torch import _build
+    from tpufem_torch.fem.assemble import cluster_plan
+    from tpufem_torch.fem.matfree_op import (matfree_action_bound,
+                                             matfree_apply_plain,
+                                             pack_matfree_launch)
+    csrc = os.path.join(root, "tpufem_torch", "csrc")
+    with open(os.path.join(csrc, "matfree_action.cu")) as f:
+        src = f.read()
+    if _THREADS not in src or _PHASE1 not in src or _PHASE3 not in src:
+        print(f"[{tag}] --variants: csrc/matfree_action.cu is not the "
+              "cluster form", flush=True)
+        return []
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for f in os.listdir(csrc):
+            if f.endswith(".cuh"):
+                shutil.copy(os.path.join(csrc, f), tmp)
+        for vname, (edits, grow) in CLUSTER_VARIANTS.items():
+            text = src
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"variant {vname}: {old!r} not found")
+                text = text.replace(old, new)
+            tag_v = vname.replace(" ", "_")
+            cu = os.path.join(tmp, f"{tag_v}.cu")
+            so = os.path.join(tmp, f"{tag_v}.so")
+            with open(cu, "w") as f:
+                f.write(text)
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                                   "-shared", "-o", so, cu],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed: {proc.stderr[-3000:]}")
+            ptx = {n: u for n, u in _ptxas(proc.stdout + proc.stderr)
+                   if "clusters" in n and "If" in n}
+            lib = ctypes.CDLL(so)
+            fn = lib.tpufem_matfree_action_f32
+            fn.argtypes = [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            for name, op, _ in ops:
+                if op.dtype != torch.float32:
+                    continue
+                plan = op.cplan
+                if grow != 1:
+                    op.cplan = cluster_plan(op.cd.cpu().numpy(), op.ndofs,
+                                            op.bc_flat.cpu().numpy(),
+                                            cells=plan.cells * grow)
+                args, keep = pack_matfree_launch(op)
+                x = torch.randn(op.ndofs, device=op.device,
+                                generator=torch.Generator(
+                                    device=op.device).manual_seed(15))
+                y = torch.empty_like(x)
+
+                def call():
+                    rc = fn(ctypes.addressof(args), x.data_ptr(),
+                            y.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{vname}: cuda error {rc}")
+
+                call()
+                held = None
+                if vname in ("whole", "512 threads", "1024 threads"):
+                    err = (y - matfree_apply_plain(op, x)).abs()
+                    held = bool((err <= matfree_action_bound(op, x)).all())
+                part, _ = sm.device_ms(call, "matfree_action_clusters", 0.0,
+                                       f"{vname} clusters {name}")
+                whole, _ = sm.device_ms(call, "matfree_action", 0.0,
+                                        f"{vname} {name}", launches=2)
+                op.cplan = plan
+                del keep
+                used = [u for n, u in ptx.items() if f"ILi{op.n}E" in n]
+                rows.append(dict(kernel="matfree_action variant",
+                                 variant=vname, name=name, clusters_ms=part,
+                                 device_ms=whole, within_bound=held,
+                                 ptxas=used))
+                print(f"[{tag}] variant {vname}, {name} float32: clusters "
+                      f"{sm.fmt_ms(part)}, whole {sm.fmt_ms(whole)}; within "
+                      f"bound {held}; ptxas {used}  [{gpu}]", flush=True)
+    return rows
+
+
+def _compile_alone(root) -> str:
+    """nvcc's output (ptxas's lines) for the tree's matfree_action.cu
+    compiled alone."""
+    from tpufem_torch import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+             os.path.join(tmp, "m.o"),
+             os.path.join(root, "tpufem_torch", "csrc", "matfree_action.cu")],
+            capture_output=True, text=True)
+    return proc.stdout + proc.stderr
+
+
+def sass_rows(kern, tag, gpu):
+    """Instructions in the SASS of each matfree_action kernel of the
+    built library (cuobjdump -sass)."""
+    from tpufem_torch import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(kern.path)],
+                         capture_output=True, text=True).stdout
+    counts, ops, name = {}, {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+            m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                op = ops.setdefault(name, {})
+                key = m.group(1).split(".")[0]
+                op[key] = op.get(key, 0) + 1
+    rows = []
+    for name, k in counts.items():
+        if "matfree" in name:
+            rows.append(dict(kernel=name, sass_instructions=k,
+                             opcodes=ops.get(name, {})))
+            top = sorted(ops.get(name, {}).items(), key=lambda t: -t[1])[:12]
+            print(f"[{tag}] SASS {name}: {k} instructions ({16 * k} bytes); "
+                  + ", ".join(f"{o} {c}" for o, c in top) + f"  [{gpu}]",
+                  flush=True)
+    return rows
+
+
+def ncu_rows(root, tag, gpu):
+    """ncu's warp-state sections for the P3 cell launch, where ncu is
+    installed and runs."""
+    from tpufem_torch import _build
+    ncu = shutil.which("ncu") or os.path.join(
+        os.path.dirname(_build._nvcc()), "ncu")
+    if not os.path.exists(ncu):
+        print(f"[{tag}] ncu: not installed on this host  [{gpu}]",
+              flush=True)
+        return [dict(kernel="ncu", note="not installed")]
+    cmd = [ncu, "--kernel-name", "regex:matfree_action_cells",
+           "--launch-count", "1", "--section", "WarpStateStats",
+           "--section", "SchedulerStats", sys.executable,
+           os.path.abspath(__file__), "--tree", root, "--ncu-target"]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=180)
+        text = (proc.stdout + proc.stderr)[-6000:]
+        note = f"rc {proc.returncode}"
+    except subprocess.TimeoutExpired:
+        text, note = "", "timed out after 180 s"
+    print(f"[{tag}] ncu ({note}):\n{text}", flush=True)
+    return [dict(kernel="ncu", note=note, output=text)]
+
+
+def ncu_target():
+    """One apply of the P3 150k float32 operator (what ncu profiles)."""
+    import torch
+    (_, op, _), = operators([torch.float32], False, torch.device("cuda", 0),
+                            sizes=((3, 150000),))
+    x = torch.ones(op.ndofs, device=op.device)
+    op.apply(x)
+    torch.cuda.synchronize()
 
 
 def cli_rows(tag, gpu):
@@ -197,6 +559,22 @@ def main() -> int:
     p.add_argument("--cli", action="store_true",
                    help="also the cgpoisson CLI runs")
     p.add_argument("--quick", action="store_true", help="float32 only")
+    p.add_argument("--sass", action="store_true",
+                   help="instructions in each matfree kernel's SASS")
+    p.add_argument("--split", action="store_true",
+                   help="the two-launch design's P3 cell launch cut to its "
+                        "loads and stores alone and its products alone")
+    p.add_argument("--variants", action="store_true",
+                   help="the cluster design's variants (CLUSTER_VARIANTS)")
+    p.add_argument("--ncu", action="store_true",
+                   help="ncu's warp states of the P3 cell launch")
+    p.add_argument("--ncu-target", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--sizes", default="1:500000,2:150000,3:150000",
+                   help="order:--ndofs of each operator")
+    p.add_argument("--cells", metavar="N:B,...",
+                   help="cells a cluster for a cell of N dofs, in place of "
+                        "fem.assemble.CLUSTER_CELLS")
     args = p.parse_args()
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
@@ -209,6 +587,9 @@ def main() -> int:
         print(f"matfree_times: imported {tpufem_torch.__file__}, not the "
               f"tree {root}", file=sys.stderr)
         return 1
+    if args.ncu_target:
+        ncu_target()
+        return 0
     from tpufem_torch import _build
     tag = os.path.relpath(root, ROOT)
     sm = _smoke()
@@ -218,13 +599,39 @@ def main() -> int:
           flush=True)
     for name, used in _ptxas(kern.log):
         print(f"[{tag}] ptxas {name}: {used}", flush=True)
+    extra = []
+    if args.sass:
+        extra = sass_rows(kern, tag, gpu)
+        if not kern.log:  # built by an earlier process: compile it alone
+            for name, used in _ptxas(_compile_alone(root)):
+                print(f"[{tag}] ptxas {name}: {used}", flush=True)
+                extra.append(dict(kernel=name, ptxas=used))
+    if args.cells:
+        from tpufem_torch.fem import assemble
+        assemble.CLUSTER_CELLS.update(
+            {int(k): int(v) for k, v in (t.split(":")
+                                         for t in args.cells.split(","))})
+        print(f"[{tag}] cells a cluster by dofs a cell: "
+              f"{assemble.CLUSTER_CELLS}", flush=True)
     dev = torch.device("cuda", 0)
     clocks_before = sm_clocks()
     dtypes = ([torch.float32] if args.quick
               else [torch.float32, torch.float64])
-    rows, ok = kernel_rows(sm, operators(dtypes, not args.no_library, dev),
-                           tag, gpu)
+    sizes = tuple(tuple(int(v) for v in t.split(":"))
+                  for t in args.sizes.split(","))
+    ops = operators(dtypes, not args.no_library, dev, sizes)
+    rows, ok = kernel_rows(sm, ops, tag, gpu, root)
+    if args.split:
+        p3 = [op for name, op, _ in ops
+              if op.order == 3 and op.dtype == torch.float32]
+        if p3:
+            extra += split_rows(sm, root, p3[0], tag, gpu)
+    if args.variants:
+        extra += variant_rows(sm, root, ops, tag, gpu)
+    del ops
     torch.cuda.empty_cache()
+    if args.ncu:
+        extra += ncu_rows(root, tag, gpu)
     runs = cli_rows(tag, gpu) if args.cli else []
     clocks_after = sm_clocks()
     print(f"[{tag}] clocks before {clocks_before}, after {clocks_after}  "
@@ -232,6 +639,7 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(tree=tag, gpu=gpu, rows=rows, cli=runs,
+                           extra=extra,
                            clocks=[clocks_before, clocks_after],
                            refused_profiles=len(sm.REFUSED_PROFILES),
                            event_times=sm.EVENT_TIMES[0]), f, indent=1)

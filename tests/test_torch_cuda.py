@@ -1205,6 +1205,66 @@ def test_matfree_action_single_cell_empty_dofs_and_bc(device, order, dtype):
     assert bool((err <= matfree_action_bound(op, x)).all())
 
 
+def _matfree_cluster_case(case, order, dtype, device):
+    """A CUDA operator whose cluster plan is an edge of the design:
+    ``all_halo``, three copies of one cell in clusters of one cell (every
+    free dof summed from partials, a Dirichlet row); ``smem_limit``, one
+    cluster of distinct cells whose float64 block needs just under the
+    card's 227 KB of shared memory."""
+    from tpufem_torch.fem.assemble import SMEM_BYTES, cluster_plan, metric_np
+    from tpufem_torch.fem.matfree_op import MatFreePoissonOp
+    from tpufem_torch.fem.reference import ReferenceTet
+    n = ReferenceTet(order).ndofs
+    rng = np.random.default_rng(order)
+    if case == "all_halo":
+        cells, cd, bc = 1, np.tile(np.arange(n), (3, 1)), np.array([0])
+    else:  # distinct dofs: 24 bytes a slot in float64
+        cells = SMEM_BYTES // (24 * n)
+        while True:
+            try:   # the plan refuses a cluster over the limit
+                cluster_plan(np.arange(cells * n).reshape(cells, n),
+                             cells * n, cells=cells)
+                break
+            except ValueError:
+                cells -= 1
+        cd, bc = np.arange(cells * n).reshape(cells, n), np.zeros(0, int)
+    coords = (np.array([[0.0, 0.0, 0.0], [1.0, 0.1, 0.0], [0.2, 0.9, 0.1],
+                        [0.1, 0.2, 1.1]])[None]
+              + 0.05 * rng.standard_normal((cd.shape[0], 4, 3)))
+    N = int(cd.max()) + 1
+    op = MatFreePoissonOp.from_arrays(metric_np(coords), cd, bc, N, order,
+                                      dtype, device)
+    op.cplan = cluster_plan(cd, N, bc, cells=cells)
+    if case == "smem_limit":
+        assert SMEM_BYTES - 48 * n < op.cplan.smem_bytes(8) <= SMEM_BYTES
+    return op
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("case", ["all_halo", "smem_limit"])
+def test_matfree_action_cluster_edges(device, case, order, dtype):
+    """The kernel on a cluster that is all halo and on one at the shared-
+    memory limit: within matfree_action_bound of the plain version, the
+    same bits twice, one count an apply."""
+    from tpufem_torch.fem.matfree_op import (matfree_action,
+                                             matfree_action_bound,
+                                             matfree_apply_plain)
+    op = _matfree_cluster_case(case, order, dtype, device)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        op.ndofs)).to(device, dtype)
+    before = matfree_action.launches
+    y = op.apply(x)
+    assert matfree_action.launches == before + 1
+    torch.cuda.synchronize()
+    err = (y - matfree_apply_plain(op, x)).abs()
+    assert bool(torch.isfinite(y).all())
+    assert bool((err <= matfree_action_bound(op, x)).all())
+    assert torch.equal(matfree_action(op, x), y)
+    if case == "all_halo":
+        assert float(y[0]) == 0.0
+
+
 def test_matfree_action_refusals(device):
     """A CUDA operator with x on the CPU raises (no fallback to the plain
     version), as do x of another dtype or shape."""

@@ -153,8 +153,9 @@ def test_entry_matches_dia_rows_zero():
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_convert_round_trip(order):
     """matfree_from_tpufem carries tpufem's operator state (read back as
-    numpy) into the port: the port's own operator, array for array, and
-    the same bits from the plain version."""
+    numpy) into the port: the port's own operator, array for array (the
+    kernel's cluster plan too), and the same bits from the plain
+    version."""
     op, top, scatter = _spoke_ops(order)
     got = convert.matfree_from_tpufem(
         np.asarray(top.G), np.asarray(top.cd), np.asarray(top.bc_flat),
@@ -163,6 +164,11 @@ def test_convert_round_trip(order):
     for name in ("G", "cd", "bc_flat", "perm", "offsets"):
         assert torch.equal(getattr(got, name), getattr(op, name)), name
     assert got.ndofs == op.ndofs and got.order == op.order
+    # the kernel's cluster plan, built from tpufem's cd, is the port's
+    for name in ("order", "clusters", "gid", "sum_idx", "sum_end",
+                 "halo_dof", "halo_off", "halo_src"):
+        assert np.array_equal(getattr(got.cplan, name),
+                              getattr(op.cplan, name)), name
     x = torch.from_numpy(_x(op.ndofs, 5))
     assert torch.equal(matfree_apply_plain(got, x), matfree_apply_plain(op, x))
 
@@ -171,8 +177,8 @@ def test_convert_round_trip(order):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_walk_matches_plain(order, dtype):
-    """The kernel's two launches (the tables' form into slot-major cell
-    values, then the dof sums in plan order) walked in plain numpy agree
+    """The kernel's two launches (the clusters' cell values and sums in
+    shared memory, then the halo's partials) walked in plain numpy agree
     with the plain version within matfree_action_bound, and well inside
     it."""
     op64, _, _ = _spoke_ops(order)

@@ -88,8 +88,12 @@ class MatfreeLaunch(ctypes.Structure):
     (csrc/matfree_action.cu:MatfreeLaunch), filled once per operator."""
 
     _fields_ = ([(k, ctypes.c_void_p)
-                 for k in ("G", "cd", "offsets", "slots", "bc", "yc")]
-                + [(k, ctypes.c_int) for k in ("device", "C", "n", "ndofs")])
+                 for k in ("G6", "clusters", "gid", "ld", "sum_idx",
+                           "sum_end", "halo_dof", "halo_off", "halo_src",
+                           "partials")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "C", "n", "B", "K", "H", "max_locals",
+                             "smem")])
 
 
 class PermApplyLaunch(ctypes.Structure):
@@ -212,10 +216,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     # on an SM, or -cuda error
     lib.tpufem_stencil_p1_bs3_blocks.argtypes = [ci]
     lib.tpufem_stencil_p1_bs3_blocks.restype = ci
-    # device, float64 tables (host), count: the matrix-free kernel's
-    # constant tables
-    lib.tpufem_matfree_tables.argtypes = [ci, vp, ci]
-    lib.tpufem_matfree_tables.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]
     lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
 

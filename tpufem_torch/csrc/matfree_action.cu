@@ -14,174 +14,282 @@
 //
 // Form: not tpufem's D G D^T pipeline but, per cell, six symmetric n x n
 // reference tables, K^aa and K^ab + K^ba for a < b (the same quadrature),
-// weighted by the cell's metric G (symmetric, so only its upper triangle
-// is read): for each pair i <= j, a = sum_s G_s S_s[i][j], then y_i += a
-// u_j and y_j += a u_i.  The same function in exact arithmetic, and 4 n^2
-// + 3 n multiply-adds a cell against D G D^T's 6 n q + 9 q (P3: 1,660
-// against 3,483).  The tables of P1-P3 (3,096 values) sit in constant
-// memory, filled once per device by tpufem_matfree_tables; the loops are
-// unrolled for each n (4, 10, 20), so every table value is an immediate
-// constant operand of its multiply-add, read by no load.
+// weighted by the cell's six distinct metric entries: for each pair i <=
+// j, a = sum_s G_s S_s[i][j], then y_i += a u_j and y_j += a u_i.  The
+// same function in exact arithmetic, and 4 n^2 + 3 n multiply-adds a
+// cell against D G D^T's 6 n q + 9 q (P3: 1,660 against 3,483).  The
+// tables (matfree_tables.cuh, generated from tpufem_torch/fem/
+// matfree_op.py:kernel_tables) are compile-time constants: the loops
+// unroll for each n (4, 10, 20), every nonzero table value becomes an
+// immediate operand of its multiply-add (float32; float64 through the
+// constant bank) and a zero one no instruction (P3: 243 of the 1,260
+// values read are 0), so the product issues no load and no uniform-
+// register move for the tables.
 //
-// What bounds it on an H100: bytes at P1 and P2 (G, cd, x, y and the
-// plan: the spoke 500k P1 operator, 2,644,284 cells, moves about 190 MB
-// in float32), the multiply-adds at P3 (745,612 cells x 1,660 at 150k).
+// What bounds it on an H100: bytes at P1 and P2 (the metric, six values
+// a cell, the cells' dofs, x and y: the spoke 500k P1 operator, 2,644,284
+// cells, needs 110 MB in float32), the multiply-adds at P3 (745,612
+// cells x 1,660 at 150k).
 //
-// Design, the simple deterministic one: two launches, no atomics.
-// - Launch 1, one thread a cell: the cell's dofs in 8- or 16-byte
-//   loads, the gather from x, the six metric entries, the products, and
-//   the n cell values stored slot-major (yc[i C + c]) so that a warp's
-//   stores are contiguous.
-// - Launch 2, one thread a dof: the dof's slots from the plan (the
-//   stable argsort of cd, offsets [N + 1] and the slot list s = c n + i),
-//   their cell values summed in plan order from 0, the plain version's
-//   order; 0 on a Dirichlet row.  Two launches give the same bits.
-// Launch 2's gathers are most of the time at P1 and P2: the spoke's dof
-// numbering has little locality.  The other way round (launch 1 storing
-// each cell value at its slot's place in the plan, launch 2 reading its
-// run contiguously) measured 2x slower on the spoke's operators, the
-// scattered 4-byte stores costing far more than the gathers
-// (scripts/matfree_times.py; PERF.md).
+// Design: cell clusters summed in shared memory (the host plan is
+// tpufem_torch/fem/assemble.py:cluster_plan).  The cells are ordered for
+// locality (reverse Cuthill-McKee of the vertex graph, then by lowest
+// vertex) and cut into clusters of B cells; a block takes a cluster.
+// - It copies the cluster's summing order and run ends to shared memory
+//   (cp.async) while it stages x at the cluster's distinct dofs (its
+//   locals), four loads a thread in flight, then computes each cell's n
+//   values (a thread a cell, the cell's dofs as 16-bit locals) into
+//   shared memory, never to device memory.
+// - It sums every local's cell values in the plan's stored order, from
+//   0: a dof in this cluster alone goes to y, a Dirichlet dof gets 0, a
+//   dof that other clusters have too (the halo) goes to a partial sum at
+//   the local's place in `partials`.
+// - A second launch, a thread a halo dof, sums its partials in cluster
+//   order and writes y; it also writes 0 to the dofs in no cell.
+// No atomics: two launches give the same bits.  The plan's bytes beside
+// y = A x's own: the locals' dofs and run ends (6 bytes each), the slots'
+// locals and the summing order (2 bytes a slot each), the partials and
+// the halo lists.
 // What a launch needs beside x, y and the stream is a MatfreeLaunch
-// packed once per operator; yc is the operator's scratch.
+// packed once per operator; `partials` is the operator's scratch.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 
+#include "async_copy.cuh"
+#include "matfree_tables.cuh"
 #include "strip_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-// the tables of P1, P2, P3: 6 n^2 each, n = 4, 10, 20
-constexpr int kTableCount = 6 * (16 + 100 + 400);
-__constant__ float kTab32[kTableCount];
-__constant__ double kTab64[kTableCount];
+constexpr int kMaxDevices = 64;
 
 template <int N>
-__host__ __device__ constexpr int table_offset() {
-  return N == 4 ? 0 : (N == 10 ? 6 * 16 : 6 * (16 + 100));
+struct Tables;
+template <>
+struct Tables<4> {
+  static constexpr const auto& v = tpufem::kMatfreeTables4;
+};
+template <>
+struct Tables<10> {
+  static constexpr const auto& v = tpufem::kMatfreeTables10;
+};
+template <>
+struct Tables<20> {
+  static constexpr const auto& v = tpufem::kMatfreeTables20;
+};
+
+// S_s[i][j] of the n = N tables: device code reads a host constexpr
+// array's elements through a constexpr function called as a constant
+// expression
+template <int N>
+__host__ __device__ constexpr double table(int s, int i, int j) {
+  return Tables<N>::v[s][i][j];
 }
 
-template <typename T>
-__device__ __forceinline__ T tab(int k);
-template <>
-__device__ __forceinline__ float tab<float>(int k) {
-  return kTab32[k];
-}
-template <>
-__device__ __forceinline__ double tab<double>(int k) {
-  return kTab64[k];
+// f(std::integral_constant<int, I>) for I = 0 .. sizeof...(Is) - 1, in order
+template <typename F, int... Is>
+__device__ __forceinline__ void static_for(std::integer_sequence<int, Is...>,
+                                           F&& f) {
+  (f(std::integral_constant<int, Is>{}), ...);
 }
 
 // Everything a launch needs beside x, y and the stream, filled once per
 // operator (mirrored by tpufem_torch/_build.py:MatfreeLaunch).
 struct MatfreeLaunch {
-  const void* G;             // [C, 3, 3] float or double
-  const int* cd;             // [C, n]
-  const int* offsets;        // [ndofs + 1]
-  const int* slots;          // [C n]: slot c n + i, by dof, in plan order
-  const unsigned char* bc;   // [ndofs], 1 on a Dirichlet row; or null
-  void* yc;                  // [n, C] scratch: the cell values, slot-major
-  int device, C, n, ndofs;
+  const void* G6;                // [6, C] float or double, cluster order
+  const int4* clusters;          // [K]: first local, ends of the 3 runs
+  const int* gid;                // [P]: the dof of each local
+  const unsigned int* ld;        // [K, n / 2, B]: slot locals, 2 a word
+  const unsigned short* sum_idx; // [K, W]: cell values, summing order
+  const unsigned short* sum_end; // [P]: each local's end in sum_idx
+  const int* halo_dof;           // [H]
+  const int* halo_off;           // [H + 1]
+  const int* halo_src;           // the locals whose partials a halo dof sums
+  void* partials;                // [P] scratch, float or double
+  int device, C, n, B, K, H, max_locals, smem;
 };
 
-// a cell's N dofs in the widest loads its row's alignment allows
-template <int N>
-__device__ __forceinline__ void load_row(const int* __restrict__ p,
-                                         int (&d)[N]) {
-  if constexpr (N % 4 == 0) {
-    const int4* q = reinterpret_cast<const int4*>(p);
-#pragma unroll
-    for (int k = 0; k < N / 4; ++k) {
-      const int4 v = __ldg(q + k);
-      d[4 * k] = v.x;
-      d[4 * k + 1] = v.y;
-      d[4 * k + 2] = v.z;
-      d[4 * k + 3] = v.w;
-    }
-  } else {
-    static_assert(N % 2 == 0, "a cell has an even number of dofs");
-    const int2* q = reinterpret_cast<const int2*>(p);
-#pragma unroll
-    for (int k = 0; k < N / 2; ++k) {
-      const int2 v = __ldg(q + k);
-      d[2 * k] = v.x;
-      d[2 * k + 1] = v.y;
-    }
-  }
-}
-
+// y_c = sum_s G_s S_s u_c over the pairs i <= j of the symmetric tables;
+// a = fma(G_s, S_s[i][j], a) from 0 over the nonzero S_s[i][j] in s order
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-matfree_action_cells_kernel(const MatfreeLaunch L, const T* __restrict__ x) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= L.C) return;
-  int d[N];
-  load_row<N>(L.cd + static_cast<size_t>(c) * N, d);
-  T u[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) u[i] = __ldg(x + d[i]);
-  const T* __restrict__ g =
-      static_cast<const T*>(L.G) + static_cast<size_t>(c) * 9;
-  // G00, G11, G22, G01, G02, G12: the tables' order
-  const T gs[6] = {__ldg(g), __ldg(g + 4), __ldg(g + 8),
-                   __ldg(g + 1), __ldg(g + 2), __ldg(g + 5)};
-  constexpr int off = table_offset<N>();
-  T y[N];
+__device__ __forceinline__ void cell_values(const T (&g)[6], const T (&u)[N],
+                                            T (&y)[N]) {
+  constexpr auto idx = std::make_integer_sequence<int, N>{};
 #pragma unroll
   for (int i = 0; i < N; ++i) y[i] = T(0);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (j < i) continue;
-      T a = gs[0] * tab<T>(off + i * N + j);
-#pragma unroll
-      for (int s = 1; s < 6; ++s)
-        a = fma(gs[s], tab<T>(off + s * N * N + i * N + j), a);
-      y[i] = fma(a, u[j], y[i]);
-      if (j != i) y[j] = fma(a, u[i], y[j]);
-    }
-  }
-  T* __restrict__ yc = static_cast<T*>(L.yc);
-#pragma unroll
-  for (int i = 0; i < N; ++i) yc[static_cast<size_t>(i) * L.C + c] = y[i];
+  static_for(idx, [&](auto I) {
+    static_for(idx, [&](auto J) {
+      constexpr int i = decltype(I)::value, j = decltype(J)::value;
+      if constexpr (j >= i) {
+        T a = T(0);
+        static_for(std::make_integer_sequence<int, 6>{}, [&](auto S) {
+          constexpr double t = table<N>(decltype(S)::value, i, j);
+          if constexpr (t != 0.0) a = fma(g[decltype(S)::value], T(t), a);
+        });
+        y[i] = fma(a, u[j], y[i]);
+        if constexpr (j != i) y[j] = fma(a, u[i], y[j]);
+      }
+    });
+  });
+}
+
+// blocks an SM keeps resident: the registers of a thread's cell (x at its
+// dofs, its values, the metric) are 64 in float32, twice that in float64
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 2;
+
+__host__ __device__ constexpr int round16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// A block's shared memory, each array from a 16-byte boundary (mirrored
+// by tpufem_torch/fem/assemble.py:ClusterPlan.smem_bytes): the cell
+// values [n B], x at the locals, the locals' dofs and run ends
+// [max_locals], the summing order [W].
+template <typename T>
+struct Smem {
+  int xs, dofs, ends, sidx, bytes;
+  __host__ __device__ Smem(int n, int B, int max_locals, int W)
+      : xs(round16(n * B * static_cast<int>(sizeof(T)))),
+        dofs(xs + round16(max_locals * static_cast<int>(sizeof(T)))),
+        ends(dofs + round16(max_locals * 4)),
+        sidx(ends + round16(max_locals * 2)),
+        bytes(sidx + 2 * W) {}
+};
+
+__host__ __device__ constexpr int sum_idx_width(int n, int B) {
+  return (n * B + 7) & ~7;
 }
 
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-matfree_action_dofs_kernel(const MatfreeLaunch L, T* __restrict__ y) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= L.ndofs) return;
-  if (L.bc != nullptr && L.bc[d]) {
-    y[d] = T(0);
-    return;
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+matfree_action_clusters_kernel(const MatfreeLaunch L,
+                               const T* __restrict__ x, T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int B = L.B;
+  const int W = sum_idx_width(N, B);
+  const Smem<T> at(N, B, L.max_locals, W);
+  T* vals = reinterpret_cast<T*>(smem_raw);  // [N B]: value (c, i) at i B + c
+  T* xs = reinterpret_cast<T*>(smem_raw + at.xs);
+  int* dofs = reinterpret_cast<int*>(smem_raw + at.dofs);
+  unsigned short* ends = reinterpret_cast<unsigned short*>(smem_raw + at.ends);
+  unsigned short* sidx = reinterpret_cast<unsigned short*>(smem_raw + at.sidx);
+  const int4 cl = __ldg(L.clusters + blockIdx.x);
+  const int base = cl.x, nfree = cl.y, nzero = cl.z, nloc = cl.w;
+  // the locals' run ends and the summing order, copied to shared memory
+  // while x is read (16-byte copies: the plan pads a cluster's locals to
+  // 8 and its order to a multiple of 8)
+  for (int k = threadIdx.x; k < (nloc + 7) / 8; k += kThreads)
+    tpufem::cp_async16(ends + 8 * k, L.sum_end + base + 8 * k);
+  const unsigned short* order = L.sum_idx + static_cast<size_t>(blockIdx.x) * W;
+  for (int k = threadIdx.x; k < W / 8; k += kThreads)
+    tpufem::cp_async16(sidx + 8 * k, order + 8 * k);
+  // x at each local, four locals a thread in flight
+  for (int l0 = threadIdx.x; l0 < nloc; l0 += 4 * kThreads) {
+    int d[4];
+    T v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = l0 + q * kThreads;
+      d[q] = l < nloc ? __ldg(L.gid + base + l) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = d[q] >= 0 ? __ldg(x + d[q]) : T(0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = l0 + q * kThreads;
+      if (l < nloc) {
+        dofs[l] = d[q];
+        xs[l] = v[q];
+      }
+    }
   }
-  const int k0 = __ldg(L.offsets + d), k1 = __ldg(L.offsets + d + 1);
-  const T* yc = static_cast<const T*>(L.yc);
+  tpufem::cp_async_wait_all();
+  __syncthreads();
+  const int c0 = blockIdx.x * B;
+  const int ncell = min(B, L.C - c0);
+  const unsigned int* ld =
+      L.ld + static_cast<size_t>(blockIdx.x) * (N / 2) * B;
+  const T* G6 = static_cast<const T*>(L.G6) + c0;
+  for (int c = threadIdx.x; c < ncell; c += kThreads) {
+    T u[N];
+#pragma unroll
+    for (int m = 0; m < N / 2; ++m) {
+      const unsigned int w = __ldg(ld + m * B + c);
+      u[2 * m] = xs[w & 0xffffu];
+      u[2 * m + 1] = xs[w >> 16];
+    }
+    // G00, G11, G22, G01, G02, G12: the tables' order
+    T gs[6];
+#pragma unroll
+    for (int s = 0; s < 6; ++s)
+      gs[s] = __ldg(G6 + static_cast<size_t>(s) * L.C + c);
+    T v[N];
+    cell_values<T, N>(gs, u, v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) vals[i * B + c] = v[i];
+  }
+  __syncthreads();
+  T* part = static_cast<T*>(L.partials) + base;
+  for (int l = threadIdx.x; l < nloc; l += kThreads) {
+    if (l >= nfree && l < nzero) {  // a Dirichlet row
+      y[dofs[l]] = T(0);
+      continue;
+    }
+    const int b = l == 0 ? 0 : ends[l - 1];
+    const int e = ends[l];
+    T s = T(0);
+    for (int j = b; j < e; ++j) s += vals[sidx[j]];
+    if (l < nfree)
+      y[dofs[l]] = s;
+    else
+      part[l] = s;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+matfree_action_halo_kernel(const MatfreeLaunch L, T* __restrict__ y) {
+  const int h = blockIdx.x * kThreads + threadIdx.x;
+  if (h >= L.H) return;
+  const int k0 = __ldg(L.halo_off + h), k1 = __ldg(L.halo_off + h + 1);
+  const T* part = static_cast<const T*>(L.partials);
   T s = T(0);
 #pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    const int slot = __ldg(L.slots + k);
-    const int c = slot / N, i = slot - c * N;
-    s += yc[static_cast<size_t>(i) * L.C + c];
-  }
-  y[d] = s;
+  for (int k = k0; k < k1; ++k) s += part[__ldg(L.halo_src + k)];
+  y[__ldg(L.halo_dof + h)] = s;
+}
+
+// lets the cluster kernel take `smem` bytes of dynamic shared memory on
+// `device` (above 48 KB only by this opt-in)
+template <typename T, int N>
+cudaError_t allow_smem(int device, int smem) {
+  static int allowed[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= 48 * 1024 || smem <= allowed[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      matfree_action_clusters_kernel<T, N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) allowed[device] = smem;
+  return err;
 }
 
 template <typename T, int N>
 int launch_n(const MatfreeLaunch& L, const T* x, T* y, cudaStream_t stream) {
-  const int cell_blocks = (L.C + kThreads - 1) / kThreads;
-  const int dof_blocks = (L.ndofs + kThreads - 1) / kThreads;
-  matfree_action_cells_kernel<T, N>
-      <<<cell_blocks, kThreads, 0, stream>>>(L, x);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = allow_smem<T, N>(L.device, L.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  matfree_action_dofs_kernel<T, N>
-      <<<dof_blocks, kThreads, 0, stream>>>(L, y);
+  matfree_action_clusters_kernel<T, N>
+      <<<L.K, kThreads, L.smem, stream>>>(L, x, y);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || L.H == 0) return static_cast<int>(err);
+  matfree_action_halo_kernel<T>
+      <<<(L.H + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, y);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,10 +298,20 @@ int launch(const void* prepared, const void* x, void* y, void* stream) {
   if (prepared == nullptr || x == nullptr || y == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const MatfreeLaunch& L = *static_cast<const MatfreeLaunch*>(prepared);
-  if (L.G == nullptr || L.cd == nullptr || L.offsets == nullptr ||
-      L.slots == nullptr || L.yc == nullptr || L.C < 1 || L.ndofs < 1 ||
-      static_cast<long long>(L.C) * L.n > INT_MAX ||
-      reinterpret_cast<std::uintptr_t>(L.cd) % 16 != 0)
+  const long long need =
+      L.B < 1 || L.n < 1 || static_cast<long long>(L.n) * L.B > 65535
+          ? LLONG_MAX
+          : Smem<T>(L.n, L.B, L.max_locals, sum_idx_width(L.n, L.B)).bytes;
+  if (L.G6 == nullptr || L.clusters == nullptr || L.gid == nullptr ||
+      L.ld == nullptr || L.sum_idx == nullptr || L.sum_end == nullptr ||
+      L.partials == nullptr || L.C < 1 || L.K < 1 || L.B < 1 ||
+      L.H < 0 || (L.H > 0 && (L.halo_dof == nullptr ||
+                               L.halo_off == nullptr)) ||
+      static_cast<long long>(L.K) * L.B < L.C || L.max_locals % 8 != 0 ||
+      L.smem < need || need > static_cast<long long>(tpufem::kMaxSmem) ||
+      reinterpret_cast<std::uintptr_t>(L.clusters) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(L.sum_end) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(L.sum_idx) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   tpufem::DeviceScope scope(L.device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
@@ -215,22 +333,6 @@ int launch(const void* prepared, const void* x, void* y, void* stream) {
 }  // namespace
 
 extern "C" {
-
-// Fills `device`'s constant tables from `count` float64 values (P1, P2,
-// P3 in turn: tpufem_torch/fem/matfree_op.py:all_kernel_tables); the
-// float32 tables are those values rounded.
-int tpufem_matfree_tables(int device, const double* tables, int count) {
-  if (tables == nullptr || count != kTableCount)
-    return static_cast<int>(cudaErrorInvalidValue);
-  tpufem::DeviceScope scope(device);
-  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
-  float t32[kTableCount];
-  for (int k = 0; k < kTableCount; ++k) t32[k] = static_cast<float>(tables[k]);
-  cudaError_t err = cudaMemcpyToSymbol(kTab64, tables, sizeof(kTab64));
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(kTab32, t32, sizeof(kTab32));
-  return static_cast<int>(err);
-}
 
 int tpufem_matfree_action_f32(const void* prepared, const void* x, void* y,
                               void* stream) {

@@ -2,7 +2,8 @@
 elasticity element stiffness (numpy; counterpart of
 tpufem/fem/assemble.py:280-347 and tpufem/fem/kernels.py:73-77, 180-200),
 the cell -> dof scatter plan of the matrix-free action
-(tpufem/fem/assemble.py:228-270), and the assembled operator of the
+(tpufem/fem/assemble.py:228-270) and the cluster plan its kernel walks
+(csrc/matfree_action.cu), and the assembled operator of the
 unstructured path (tpufem/fem/assemble.py:38-75, 350-426).
 
 The structured path needs the element matrices of the six Kuhn tet
@@ -143,6 +144,230 @@ def scatter_plan(cell_dofs: np.ndarray, ndofs: int) -> ScatterPlan:
     np.cumsum(np.bincount(flat, minlength=ndofs), out=offsets[1:])
     return ScatterPlan(perm=perm.astype(np.int32),
                        offsets=offsets.astype(np.int32))
+
+
+# cells a cluster holds, by the dofs a cell has (orders 1-3)
+CLUSTER_CELLS = {4: 1024, 10: 512, 20: 256}
+# the shared memory a block may have on an H100 (227 KB)
+SMEM_BYTES = 232448
+
+
+def _round8(v):
+    return (v + 7) // 8 * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """The cells of ``cell_dofs`` [C, n] in clusters of ``cells`` (B)
+    cells, each cluster summing the dofs of its cells in shared memory
+    (the matrix-free kernel's plan, csrc/matfree_action.cu).
+
+    - ``order`` int64 [C]: the cells in cluster order (cluster k holds
+      order[k B:(k + 1) B]).
+    - A cluster's distinct dofs are its *locals*, in three runs: the dofs
+      in no other cluster and not Dirichlet (written to y by the
+      cluster), the Dirichlet dofs (written 0 by every cluster that has
+      them), the dofs in other clusters too (the *halo*: a partial sum a
+      cluster).  ``clusters`` int32 [K, 4]: each cluster's first local
+      in the per-local arrays, and the ends of its three runs (counts).
+      A cluster's locals start at a multiple of 8 (16-byte copies); the
+      places past its last local are padding.
+    - ``gid`` int32 [P]: the dof of each local.
+    - ``ld`` uint16 [K, n, B]: the local of slot (c, i), local dof i of
+      the cluster's cell c, for the gather of the cell's x.
+    - ``sum_idx`` uint16 [K, W] (W: n B rounded up to 8) and ``sum_end``
+      uint16 [P]: each local's cell values, as i B + c, in the order they
+      are summed (ascending c, then i), from ``sum_end`` of the local
+      before (0 for a cluster's first) to its own.
+    - ``halo_dof`` int32 [H]: the halo dofs, then the dofs in no cell
+      (their sums 0), ascending within each; ``halo_off`` int32 [H + 1]
+      and ``halo_src`` int32: each one's partial sums, by the local that
+      wrote them, in cluster order.
+    - ``max_locals``: the most locals a cluster has, rounded up to 8.
+    """
+
+    order: np.ndarray
+    cells: int
+    clusters: np.ndarray
+    gid: np.ndarray
+    ld: np.ndarray
+    sum_idx: np.ndarray
+    sum_end: np.ndarray
+    halo_dof: np.ndarray
+    halo_off: np.ndarray
+    halo_src: np.ndarray
+    max_locals: int
+
+    @property
+    def n(self) -> int:
+        """Dofs a cell."""
+        return self.ld.shape[1]
+
+    @property
+    def halo_share(self) -> float:
+        """Partial sums written and read, a share of the cell slots."""
+        return self.halo_src.size / max(self.order.size * self.n, 1)
+
+    def smem_bytes(self, itemsize: int) -> int:
+        """Shared memory of a block (csrc/matfree_action.cu:Smem): the
+        cell values, x at the locals, the locals' dofs and run ends and
+        the summing order, each from a 16-byte boundary."""
+        def r16(v):
+            return (v + 15) // 16 * 16
+        L = self.max_locals
+        return (r16(self.cells * self.n * itemsize) + r16(L * itemsize)
+                + r16(L * 4) + r16(L * 2) + 2 * self.sum_idx.shape[1])
+
+    def runs(self):
+        """(cluster, index in the per-local arrays, start, end in its
+        cluster's ``sum_idx``) of every local, int64 each."""
+        first = self.clusters[:, 0].astype(np.int64)
+        nloc = self.clusters[:, 3].astype(np.int64)
+        lcl = np.repeat(np.arange(first.size), nloc)
+        idx = np.repeat(first, nloc) + (np.arange(nloc.sum())
+                                        - np.repeat(np.cumsum(nloc) - nloc,
+                                                    nloc))
+        end = self.sum_end[idx].astype(np.int64)
+        start = np.where(idx == first[lcl], 0,
+                         self.sum_end[np.maximum(idx - 1, 0)].astype(
+                             np.int64))
+        return lcl, idx, start, end
+
+
+def cell_order(cell_dofs: np.ndarray) -> np.ndarray:
+    """The cells in an order of locality: reverse Cuthill-McKee of the
+    graph of the cells' first four dofs (the vertices of a Lagrange
+    space's cell), then the cells by their lowest renumbered vertex
+    (stable)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    cd = np.asarray(cell_dofs)
+    if cd.shape[0] == 0:
+        return np.zeros(0, dtype=np.int64)
+    verts = cd[:, :4].astype(np.int64)
+    present = np.zeros(int(verts.max()) + 1, dtype=bool)
+    present[verts.reshape(-1)] = True
+    local = (np.cumsum(present) - 1)[verts]        # rank among the vertices
+    V = int(present.sum())
+    # the graph's edges once each (and the diagonal), both ways
+    lo = np.minimum(local[:, [0, 0, 0, 1, 1, 2]], local[:, [1, 2, 3, 2, 3, 3]])
+    hi = np.maximum(local[:, [0, 0, 0, 1, 1, 2]], local[:, [1, 2, 3, 2, 3, 3]])
+    edges = np.unique(lo.reshape(-1) * V + hi.reshape(-1))
+    lo, hi = edges // V, edges % V
+    diag = np.arange(V)
+    graph = sp.csr_matrix(
+        (np.ones(2 * edges.size + V, dtype=np.int8),
+         (np.concatenate([lo, hi, diag]), np.concatenate([hi, lo, diag]))),
+        shape=(V, V))
+    rank = np.empty(V, dtype=np.int64)
+    rank[reverse_cuthill_mckee(graph, symmetric_mode=True)] = np.arange(V)
+    return np.argsort(rank[local].min(axis=1), kind="stable")
+
+
+def cluster_plan(cell_dofs: np.ndarray, ndofs: int,
+                 dirichlet: np.ndarray | None = None,
+                 cells: int | None = None) -> ClusterPlan:
+    """The cluster plan of ``cell_dofs`` [C, n] over ``ndofs`` dofs, with
+    the Dirichlet dofs ``dirichlet`` (indices), ``cells`` a cluster
+    (CLUSTER_CELLS by n where not given).  Raises ValueError, naming the
+    cluster, where a cluster's block would need more than SMEM_BYTES of
+    shared memory in float64."""
+    cd = np.asarray(cell_dofs).astype(np.int64)
+    C, n = cd.shape
+    B = int(cells if cells is not None else CLUSTER_CELLS.get(n, 256))
+    if B * n > 65535:
+        raise ValueError(f"clusters of {B} cells of {n} dofs: the plan "
+                         "indexes a cluster's cell values in 16 bits")
+    order = cell_order(cd)
+    K = -(-C // B)
+    cdo = cd[order]                                     # [C, n]
+    cl = np.arange(C, dtype=np.int64) // B
+    key = (cl[:, None] * ndofs + cdo).reshape(-1)        # slot order
+    # the slots by (cluster, dof), each pair's slots in slot order
+    by_pair = np.argsort(key, kind="stable")
+    sorted_key = key[by_pair]
+    starts = np.ones(key.size, dtype=bool)
+    starts[1:] = sorted_key[1:] != sorted_key[:-1]
+    pair_of_sorted = np.cumsum(starts) - 1
+    pairs = sorted_key[starts]
+    pair_of_slot = np.empty_like(pair_of_sorted)
+    pair_of_slot[by_pair] = pair_of_sorted
+    pair_cl = pairs // ndofs
+    pair_dof = pairs - pair_cl * ndofs
+    npairs = np.bincount(pair_cl, minlength=K)
+    first = np.zeros(K + 1, dtype=np.int64)
+    np.cumsum(npairs, out=first[1:])
+    pfirst = np.zeros(K + 1, dtype=np.int64)          # padded to 8s
+    np.cumsum(_round8(npairs), out=pfirst[1:])
+    halo = np.bincount(pair_dof, minlength=ndofs) > 1
+    bcmask = np.zeros(ndofs, dtype=bool)
+    if dirichlet is not None and np.size(dirichlet):
+        bcmask[np.asarray(dirichlet, dtype=np.int64)] = True
+    # the locals of a cluster: free interior, Dirichlet, free halo
+    group = np.where(bcmask[pair_dof], 1, np.where(halo[pair_dof], 2, 0))
+    by = np.lexsort((pair_dof, group, pair_cl))         # new local order
+    local_of_pair = np.empty_like(by)
+    local_of_pair[by] = np.arange(by.size)
+    # a local's place in the padded per-local arrays
+    at = np.arange(by.size) + (pfirst - first)[pair_cl[by]]
+    gid = np.zeros(pfirst[-1], dtype=np.int32)
+    gid[at] = pair_dof[by]
+    counts = np.zeros((K, 3), dtype=np.int64)
+    np.add.at(counts, (pair_cl, group), 1)
+    ends = np.cumsum(counts, axis=1)
+    clusters = np.stack([pfirst[:-1], ends[:, 0], ends[:, 1], ends[:, 2]],
+                        axis=1)
+    max_locals = int(_round8(npairs).max(initial=0))
+    # each slot's local, within its cluster
+    slot_local = (local_of_pair[pair_of_slot].reshape(C, n)
+                  - first[cl][:, None])
+    ld = np.zeros((K, n, B), dtype=np.uint16)
+    ld[cl, :, np.arange(C) - cl * B] = slot_local
+    # the summation order: slots by local, then ascending slot (c, i):
+    # the pairs' runs of by_pair placed in local order
+    runs = np.bincount(pair_of_sorted, minlength=pairs.size)
+    local_start = np.cumsum(runs[by]) - runs[by]         # by local
+    srt = np.empty_like(by_pair)
+    srt[local_start[local_of_pair[pair_of_sorted]]
+        + np.arange(key.size)
+        - np.flatnonzero(starts)[pair_of_sorted]] = by_pair
+    slot_cl = np.repeat(cl, n)
+    within = np.arange(C * n, dtype=np.int64) - slot_cl * (B * n)
+    c_loc, i_loc = within // n, within % n
+    sum_idx = np.zeros((K, _round8(B * n)), dtype=np.uint16)
+    pos = np.arange(C * n, dtype=np.int64) - slot_cl[srt] * (B * n)
+    sum_idx[slot_cl[srt], pos] = (i_loc * B + c_loc)[srt]
+    runs = runs[by]                                     # by local
+    cum = np.cumsum(runs)
+    sum_end = np.zeros(pfirst[-1], dtype=np.uint16)
+    sum_end[at] = cum - np.repeat(cum[first[:-1]] - runs[first[:-1]],
+                                  npairs)
+    # the halo: each halo dof's partials by local (cluster order), then
+    # the dofs in no cell
+    h_loc = np.flatnonzero(group[by] == 2)
+    h_srt = h_loc[np.argsort(pair_dof[by][h_loc], kind="stable")]
+    h_dofs, h_cnt = np.unique(pair_dof[by][h_srt], return_counts=True)
+    unused = np.flatnonzero(np.bincount(cd.reshape(-1), minlength=ndofs)
+                            == 0)
+    halo_dof = np.concatenate([h_dofs, unused])
+    halo_off = np.zeros(halo_dof.size + 1, dtype=np.int64)
+    np.cumsum(np.concatenate([h_cnt, np.zeros(unused.size, np.int64)]),
+              out=halo_off[1:])
+    plan = ClusterPlan(order=order, cells=B,
+                       clusters=clusters.astype(np.int32), gid=gid, ld=ld,
+                       sum_idx=sum_idx, sum_end=sum_end,
+                       halo_dof=halo_dof.astype(np.int32),
+                       halo_off=halo_off.astype(np.int32),
+                       halo_src=at[h_srt].astype(np.int32),
+                       max_locals=max_locals)
+    need = plan.smem_bytes(8)
+    if need > SMEM_BYTES:
+        k = int(np.argmax(npairs))
+        raise ValueError(
+            f"cluster {k} of {B} cells has {int(npairs[k])} dofs: its "
+            f"block needs {need} bytes of shared memory in float64, over "
+            f"the {SMEM_BYTES} a block can have")
+    return plan
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,11 @@ The operator keeps what tpufem's keeps, on one device: the per-cell
 metric G = |det J| J^-1 J^-T [C, 3, 3] (computed on the host in float64,
 stored in the solve's dtype), the cell dofs ``cd`` [C, n] int32, the
 Dirichlet dofs ``bc_flat`` and the scatter plan (fem.assemble.
-scatter_plan: the dof -> cell-slot CSR of tpufem's perm / segments).
-``apply`` is y = A x with the Dirichlet rows set to 0, the reference's
-``bc->set(y, 0)`` (cgpoisson_problem.cpp:207).
+scatter_plan: the dof -> cell-slot CSR of tpufem's perm / segments);
+beside them the kernel's host plan, ``cplan`` (fem.assemble.
+cluster_plan: the cells in clusters of B, each cluster's dofs, the
+order its sums take).  ``apply`` is y = A x with the Dirichlet rows set
+to 0, the reference's ``bc->set(y, 0)`` (cgpoisson_problem.cpp:207).
 
 Two forms of one function:
 
@@ -23,16 +25,19 @@ Two forms of one function:
 - the kernel (csrc/matfree_action.cu) computes, per cell, y_c = sum_ab
   G_ab K^ab u_c with six symmetric n x n reference tables (``K^aa`` and
   ``K^ab + K^ba``, a < b, from ``ReferenceTet.stiffness_tensors``, the
-  same quadrature), equal to D G D^T in exact arithmetic and fewer
-  operations at P3, in a first launch of one thread per cell, and sums
-  each dof's slots in plan order in a second launch of one thread per
-  dof.  No atomics: two launches give the same bits.
+  same quadrature) weighted by the six distinct metric entries, equal to
+  D G D^T in exact arithmetic and fewer operations at P3.  A block takes
+  a cluster: it computes its cells' values into shared memory and sums
+  each of the cluster's dofs there, in the plan's order, writing y where
+  no other cluster has the dof and a partial sum where one does; a
+  second launch sums each such dof's partials in cluster order.  No
+  atomics: two launches give the same bits.
 
 ``matfree_action`` takes the plain version only for an operator that
 lies on the CPU; on a CUDA operator it launches the kernel (one count in
-``matfree_action.launches`` per apply, which is two launches: the cells
-and the dofs) or raises.  The kernel and the plain version sum in
-different orders; they agree within ``matfree_action_bound``.
+``matfree_action.launches`` per apply, which is two launches: the
+clusters and the halo) or raises.  The kernel and the plain version sum
+in different orders; they agree within ``matfree_action_bound``.
 """
 
 from __future__ import annotations
@@ -40,17 +45,21 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import pathlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from tpufem_torch.fem.assemble import ScatterPlan, metric_np, scatter_plan
+from tpufem_torch.fem.assemble import (ClusterPlan, ScatterPlan,
+                                       cluster_plan, metric_np, scatter_plan)
 from tpufem_torch.fem.reference import ReferenceTet
 
 _DTYPES = (torch.float32, torch.float64)
 # (a, b) of the kernel's six tables, in its order
 TABLE_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+# their places in a row-major [3, 3] metric
+METRIC6 = tuple(3 * a + b for a, b in TABLE_PAIRS)
 ORDERS = (1, 2, 3)
 
 
@@ -79,10 +88,45 @@ def kernel_tables(order: int) -> np.ndarray:
     return np.where(upper, S, S.transpose(0, 2, 1))
 
 
-def all_kernel_tables() -> np.ndarray:
-    """Every order's tables, flat, in the kernel's constant-memory layout
-    (csrc/matfree_action.cu:table_offset): P1, then P2, then P3."""
-    return np.concatenate([kernel_tables(k).reshape(-1) for k in ORDERS])
+TABLES_HEADER = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
+    "matfree_tables.cuh"
+
+
+def tables_header() -> str:
+    """The kernel's tables as C++ (csrc/matfree_tables.cuh): the upper
+    triangles (i <= j, the entries the kernel reads; 0 below) of every
+    order's kernel_tables, as exact float64 hex literals, so that each
+    table value is a compile-time operand of its multiply-add and a zero
+    entry none."""
+    out = ["// Generated by tpufem_torch/fem/matfree_op.py:tables_header; "
+           "do not edit.",
+           "// The six symmetric reference tables of the matrix-free "
+           "kernel (kernel_tables),",
+           "// K^aa and K^ab + K^ba in (0,0) (1,1) (2,2) (0,1) (0,2) (1,2) "
+           "order, their upper",
+           "// triangles (i <= j, what the kernel reads; 0 below) as exact "
+           "float64 literals.",
+           "", "#pragma once", "", "namespace tpufem {", ""]
+    for k in ORDERS:
+        S = kernel_tables(k)
+        n = S.shape[1]
+        out.append(f"constexpr double kMatfreeTables{n}[6][{n}][{n}] = {{")
+        for s in range(6):
+            out.append("    {")
+            for i in range(n):
+                vals = [S[s, i, j].hex() if j >= i else "0"
+                        for j in range(n)]
+                out.append("        {" + ", ".join(vals) + "},")
+            out.append("    },")
+        out.append("};")
+        out.append("")
+    out.append("}  // namespace tpufem")
+    return "\n".join(out) + "\n"
+
+
+def write_tables_header() -> None:
+    """Writes tables_header() to csrc/matfree_tables.cuh."""
+    TABLES_HEADER.write_text(tables_header())
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +142,8 @@ class MatFreePoissonOp:
     (float32 or float64: the solve's dtype), ``cd`` [C, n] int32,
     ``bc_flat`` [nbc] int64 and ``bc_mask`` (bool [N], None where there is
     no Dirichlet dof), the scatter plan's ``perm`` and ``offsets``
-    (int32), the ``order`` and ``ndofs``."""
+    (int32), the ``order`` and ``ndofs``; on the host, the kernel's
+    cluster plan ``cplan``."""
 
     G: torch.Tensor
     cd: torch.Tensor
@@ -108,6 +153,7 @@ class MatFreePoissonOp:
     offsets: torch.Tensor
     order: int
     ndofs: int
+    cplan: ClusterPlan = dataclasses.field(repr=False)
     _launch: Optional[Callable] = dataclasses.field(default=None, repr=False)
 
     @classmethod
@@ -116,7 +162,8 @@ class MatFreePoissonOp:
                     device: torch.device,
                     plan: Optional[ScatterPlan] = None) -> "MatFreePoissonOp":
         """From host arrays: ``G`` is rounded to ``dtype``; ``plan`` is
-        built from ``cd`` where it is not given."""
+        built from ``cd`` where it is not given, and the cluster plan
+        from ``cd`` and ``bc_flat``."""
         if dtype not in _DTYPES:
             raise TypeError(f"a matrix-free operator of {dtype}: float32 or "
                             "float64")
@@ -147,7 +194,7 @@ class MatFreePoissonOp:
                    cd=dev(cd, np.int32), bc_flat=dev(bc, np.int64),
                    bc_mask=mask, perm=dev(plan.perm, np.int32),
                    offsets=dev(plan.offsets, np.int32), order=int(order),
-                   ndofs=int(ndofs))
+                   ndofs=int(ndofs), cplan=cluster_plan(cd, ndofs, bc))
 
     @classmethod
     def build(cls, space, bc, dtype: torch.dtype,
@@ -233,7 +280,11 @@ def matfree_action_bound(op: MatFreePoissonOp,
     """Per dof, how far the kernel and the plain version may differ: the
     terms of both forms (cell: n + 3q + 5 in the plain, n + 8 in the
     kernel's; the slots of the dof in each scatter) times eps, twice,
-    times the dof's magnitude (the plain version on |G|, |D| and |x|)."""
+    times the dof's magnitude (the plain version on |G|, |D| and |x|).
+    The kernel's scatter sums a dof's s slots in two levels, s_k of them
+    in each of its m clusters and then the m partials: a term passes at
+    most s_k - 1 + m - 1 <= s - 1 additions, as in one sum of s terms, so
+    the bound counts s."""
     n, q = action_tables(op.order)[2:]
     mag = _scatter(op, _cell_action(op, x.abs(), op.G.abs(), absolute=True))
     slots = (op.offsets[1:] - op.offsets[:-1]).to(op.dtype)
@@ -241,18 +292,36 @@ def matfree_action_bound(op: MatFreePoissonOp,
     return 2.0 * terms * torch.finfo(op.dtype).eps * mag
 
 
+def _run_sums(vals: np.ndarray, src: np.ndarray, start: np.ndarray,
+              end: np.ndarray) -> np.ndarray:
+    """For each run r, vals[src[start[r]:end[r]]] summed in order from 0
+    (the kernel's sequential sums), all runs at once."""
+    out = np.zeros(start.size, dtype=vals.dtype)
+    length = end - start
+    for k in range(int(length.max(initial=0))):
+        rows = np.flatnonzero(length > k)
+        out[rows] = out[rows] + vals[src[start[rows] + k]]
+    return out
+
+
 def matfree_action_walk(op: MatFreePoissonOp, x: np.ndarray) -> np.ndarray:
     """The kernel's two launches walked in plain numpy, in its dtype and
-    its order of operations: per cell the tables' form into slot-major
-    cell values yc[i C + c], then per dof its slots summed in plan order
-    (slot s = c n + i read at yc[i C + c]); the Dirichlet rows 0."""
+    its order of operations: per cell (in cluster order) the tables'
+    form over x at its locals into the cluster's values v[i B + c]; per
+    local its values summed in the plan's order from 0, written to y (a
+    dof in no other cluster), 0 (a Dirichlet dof) or a partial sum (the
+    halo); per halo dof its partials summed in cluster order; 0 for a
+    dof in no cell."""
     npdt = np.float32 if op.dtype == torch.float32 else np.float64
+    p = op.cplan
     S = kernel_tables(op.order).astype(npdt)               # [6, n, n]
-    G = op.G.cpu().numpy().reshape(-1, 9)
-    Gs = np.stack([G[:, 3 * a + b] for a, b in TABLE_PAIRS], axis=1)
-    cd = op.cd.cpu().numpy()
-    C, n = cd.shape
-    u = np.asarray(x, dtype=npdt)[cd]                      # [C, n]
+    Gs = op.G.cpu().numpy().reshape(-1, 9)[p.order][:, list(METRIC6)]
+    K, n, B = p.ld.shape
+    C = p.order.size
+    cl = np.arange(C) // B
+    loc = p.ld[cl, :, np.arange(C) - cl * B].astype(np.int64)  # [C, n]
+    first = p.clusters[:, 0].astype(np.int64)
+    u = np.asarray(x, dtype=npdt)[p.gid[first[cl][:, None] + loc]]
     y = np.zeros((C, n), dtype=npdt)
     for i in range(n):
         for j in range(i, n):
@@ -262,32 +331,73 @@ def matfree_action_walk(op: MatFreePoissonOp, x: np.ndarray) -> np.ndarray:
             y[:, i] = y[:, i] + a * u[:, j]
             if j != i:
                 y[:, j] = y[:, j] + a * u[:, i]
-    yc = np.ascontiguousarray(y.T).reshape(-1)             # slot-major
-    perm = op.perm.cpu().numpy().astype(np.int64)
-    offsets = op.offsets.cpu().numpy()
-    src = (perm % n) * C + perm // n
+    vals = np.zeros((K * B, n), dtype=npdt)
+    vals[:C] = y
+    vals = vals.reshape(K, B, n).transpose(0, 2, 1).reshape(K, n * B)
+    lcl, idx, start, end = p.runs()
+    W = p.sum_idx.shape[1]
+    src = (p.sum_idx.astype(np.int64)
+           + (np.arange(K) * n * B)[:, None]).reshape(-1)
+    sums = _run_sums(vals.reshape(-1), src, start + lcl * W, end + lcl * W)
+    l_in = idx - first[lcl]
     out = np.zeros(op.ndofs, dtype=npdt)
-    vals = yc[src]
-    for k in range(int(np.diff(offsets).max(initial=0))):
-        rows = np.flatnonzero(offsets[1:] - offsets[:-1] > k)
-        out[rows] = out[rows] + vals[offsets[rows] + k]
-    if op.bc_mask is not None:
-        out[op.bc_mask.cpu().numpy()] = 0.0
+    free = l_in < p.clusters[lcl, 1]
+    zero = ~free & (l_in < p.clusters[lcl, 2])
+    out[p.gid[idx[free]]] = sums[free]
+    out[p.gid[idx[zero]]] = 0.0
+    partials = np.zeros(p.gid.size, dtype=npdt)
+    partials[idx] = sums
+    off = p.halo_off.astype(np.int64)
+    out[p.halo_dof] = _run_sums(partials, p.halo_src.astype(np.int64),
+                                off[:-1], off[1:])
     return out
 
 
-# devices whose constant tables are filled: the tables live in the
-# device's constant memory, one copy for the whole process
-_TABLES_SET = set()
+def matfree_launches(op: MatFreePoissonOp) -> int:
+    """Kernel launches an apply makes: the clusters, then the halo where
+    the plan has one."""
+    return 1 + (op.cplan.halo_dof.size > 0)
+
+
+def pack_matfree_launch(op: MatFreePoissonOp):
+    """(the kernel's MatfreeLaunch for the CUDA operator ``op``, the
+    tensors its pointers point into): the cluster plan and the metric's
+    six distinct entries in cluster order ([6, C]) shipped to the card,
+    and the partial sums' scratch."""
+    from tpufem_torch import _build
+    p = op.cplan
+
+    def dev(a, t):
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(t)).to(op.device)
+
+    order = torch.from_numpy(p.order).to(op.device)
+    G6 = op.G.reshape(-1, 9)[order][:, list(METRIC6)].t().contiguous()
+    ld32 = (p.ld[:, 0::2, :].astype(np.uint32)
+            | (p.ld[:, 1::2, :].astype(np.uint32) << 16))
+    arrays = dict(clusters=dev(p.clusters, np.int32), gid=dev(p.gid, np.int32),
+                  ld=dev(ld32, np.int32), sum_idx=dev(p.sum_idx, np.int16),
+                  sum_end=dev(p.sum_end, np.int16),
+                  halo_dof=dev(p.halo_dof, np.int32),
+                  halo_off=dev(p.halo_off, np.int32),
+                  halo_src=dev(p.halo_src, np.int32))
+    partials = torch.empty(max(p.gid.size, 1), dtype=op.dtype,
+                           device=op.device)
+    args = _build.MatfreeLaunch(
+        G6=G6.data_ptr(), partials=partials.data_ptr(),
+        **{k: v.data_ptr() for k, v in arrays.items()},
+        device=op.device.index, C=op.ncells, n=p.n, B=p.cells,
+        K=int(p.clusters.shape[0]), H=int(p.halo_dof.size),
+        max_locals=p.max_locals, smem=p.smem_bytes(op.G.element_size()))
+    return args, (G6, partials, arrays)
 
 
 def prepare_matfree_action(op: MatFreePoissonOp
                            ) -> Callable[[torch.Tensor], torch.Tensor]:
     """A launcher ``x -> y`` of the kernel on the CUDA operator ``op``,
-    with its pointers, dims, the slot-major scratch of the cell values
-    and the entry point fixed once (the device's constant tables filled
-    at its first operator); a call checks x and passes x, y and the
-    stream.  Counts its applies in ``matfree_action.launches``."""
+    with its MatfreeLaunch (pack_matfree_launch) and the entry point
+    fixed once; a call checks x and passes x, y and the stream.  Counts
+    its applies in ``matfree_action.launches``."""
     from tpufem_torch import _build
     lib = _build.load().lib
     fn = {torch.float32: lib.tpufem_matfree_action_f32,
@@ -296,31 +406,13 @@ def prepare_matfree_action(op: MatFreePoissonOp
             f"{op.ncells} cells, {op.ndofs} dofs")
     if op.order not in ORDERS:
         raise ValueError(f"{what}: the kernel has tables for orders 1-3")
-    for name in ("G", "cd", "perm", "offsets"):
-        t = getattr(op, name)
-        if t.device != op.device or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is not a contiguous tensor on "
-                             f"{op.device}")
-    if op.cd.data_ptr() % 16:
-        raise ValueError(f"{what}: cd must start on a 16-byte boundary")
-    index = op.device.index
-    if index not in _TABLES_SET:
-        tables = np.ascontiguousarray(all_kernel_tables(), dtype=np.float64)
-        rc = lib.tpufem_matfree_tables(index, tables.ctypes.data,
-                                       int(tables.size))
-        if rc != 0:
-            _build.raise_on(lib, rc, f"{what}: filling the tables")
-        _TABLES_SET.add(index)
-    scratch = torch.empty(op.ncells * op.n, dtype=op.dtype, device=op.device)
-    mask = op.bc_mask.to(torch.uint8) if op.bc_mask is not None else None
-    args = _build.MatfreeLaunch(
-        G=op.G.data_ptr(), cd=op.cd.data_ptr(), offsets=op.offsets.data_ptr(),
-        slots=op.perm.data_ptr(),
-        bc=0 if mask is None else mask.data_ptr(), yc=scratch.data_ptr(),
-        device=index, C=op.ncells, n=op.n, ndofs=op.ndofs)
+    if not op.G.is_contiguous() or op.G.device != op.device:
+        raise ValueError(f"{what}: G is not a contiguous tensor on "
+                         f"{op.device}")
+    args, keep = pack_matfree_launch(op)
     addr = ctypes.addressof(args)
     raw_stream = _build.raw_stream_getter()
-    dtype, device, N = op.dtype, op.device, op.ndofs
+    dtype, device, N, index = op.dtype, op.device, op.ndofs, op.device.index
 
     def launch(x: torch.Tensor) -> torch.Tensor:
         if (x.dtype != dtype or x.device != device or x.shape != (N,)
@@ -336,7 +428,7 @@ def prepare_matfree_action(op: MatFreePoissonOp
         return y
 
     # what ``addr`` points into
-    launch.keep = (args, op.G, op.cd, op.offsets, op.perm, mask, scratch)
+    launch.keep = (args, keep)
     return launch
 
 
