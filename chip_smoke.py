@@ -2335,23 +2335,21 @@ def saamg_phase(cli, gpu: str):
 def matfree_work(op):
     """(bytes, flops, the plan's bytes) of one matrix-free apply: the
     metric as its six distinct entries, the cell dofs, x and y once each
-    (what y = A x must move, the bound's bytes); the kernel's 4 n^2 + 3 n
-    multiply-adds a cell; apart, what the design's plan adds: the cluster
-    plan's slot locals and summing order (2 bytes a slot each), its
-    locals' dofs and run ends, the halo lists and the partial sums
-    written and read (an operator of the two-launch design: its slot
-    list and offsets)."""
+    (what y = A x must move, the bound's bytes); the multiply-adds a cell
+    of the tables' form with their zero entries left out
+    (matfree_op.kernel_multiply_adds: P1 37, P2 277, P3 1,417); apart,
+    what the design's plan adds: the cluster plan's slot locals and
+    summing order (2 bytes a slot each), its locals' dofs and run ends,
+    the halo lists and the partial sums written and read."""
+    from tpufem_torch.fem.matfree_op import kernel_multiply_adds
     item = op.G.element_size()
     C, n, N = op.ncells, op.n, op.ndofs
     nbytes = C * 6 * item + C * n * 4 + 2 * N * item
-    p = getattr(op, "cplan", None)
-    if p is None:
-        plan = C * n * 4 + (N + 1) * 4
-    else:
-        plan = (p.ld.nbytes + p.sum_idx.nbytes + p.gid.nbytes
-                + p.sum_end.nbytes + p.clusters.nbytes + p.halo_dof.nbytes
-                + p.halo_off.nbytes + p.halo_src.nbytes * (4 + 2 * item) // 4)
-    return nbytes, 2 * (4 * n * n + 3 * n) * C, plan
+    p = op.cplan
+    plan = (p.ld.nbytes + p.sum_idx.nbytes + p.gid.nbytes
+            + p.sum_end.nbytes + p.clusters.nbytes + p.halo_dof.nbytes
+            + p.halo_off.nbytes + p.halo_src.nbytes * (4 + 2 * item) // 4)
+    return nbytes, 2 * kernel_multiply_adds(op.order) * C, plan
 
 
 def matfree_kernel_phase(ops, gpu: str):

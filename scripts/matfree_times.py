@@ -9,30 +9,29 @@ into a git-ignored directory and run them in turns in one call on the
 card (A, B, B, A):
 
     python scripts/matfree_times.py [--tree DIR] [--json PATH]
-        [--no-library] [--cli] [--quick] [--sizes O:N,...] [--cells N:B,...]
-        [--sass] [--split] [--variants] [--ncu]
+        [--no-library] [--cli] [--no-kernel] [--quick] [--sizes O:N,...]
+        [--cells N:B,...] [--sass]
 
 The operators: the spoke mesh (strong scaling) at P1 500k (2,644,284
-cells), P2 and P3 150k (745,612 cells), float32 and float64, built as the
-cgpoisson path builds them (``--sizes`` others, ``--cells`` other cluster
-sizes).  Each is held to its plain version (within matfree_action_bound,
-the same bits on two launches) and timed: per call (CUDA events, median
-of 11 means of 20 back-to-back calls), device time per call by
-chip_smoke.device_ms (an L2 flush before each call, the kernel's own
-profiler spans counted: all its launches, then each launch alone), the
-wrapper's host cost per queued call, the bound (chip_smoke.matfree_work),
-the cluster plan's halo share and largest cluster, and
-``torch.sparse.mm`` of the assembled CSR of the same operator (float32;
-``--no-library`` skips it).  ``--cli`` also runs ``python -m tpufem_torch
---problem_type cgpoisson --mesh_type unstructured`` at the three sizes,
-float32, and prints their Gdof/s and seconds per solve; ``--quick``
-times float32 only.  ``--sass`` prints each matfree kernel's SASS
-instructions by opcode (cuobjdump) and ptxas's lines; ``--split`` cuts
-the two-launch design's P3 cell launch into its loads and stores alone
-and its products alone, ``--variants`` times the cluster design's
-variants (CLUSTER_VARIANTS), both from edited copies of the tree's
-source; ``--ncu`` asks ncu for the P3 cell launch's warp states.  The
-methods are this repository's chip_smoke.py's, whichever tree is timed.
+cells), P2 and P3 150k (745,612 cells), float32 and float64, built as
+the cgpoisson path builds them (``--sizes`` others, for the CLI runs
+too; ``--cells`` other cluster sizes). Each is held to its plain version
+(within matfree_action_bound, the same bits on two launches) and timed:
+per call (CUDA events, median of 11 means of 20 back-to-back calls),
+device time per call by chip_smoke.device_ms (an L2 flush before each
+call, the kernel's own profiler spans counted: both launches, then each
+alone), the wrapper's host cost per queued call, the bound
+(chip_smoke.matfree_work), the cluster plan's halo share and largest
+cluster, and ``torch.sparse.mm`` of the assembled CSR of the same
+operator (float32; ``--no-library`` skips it). ``--cli`` also runs
+``python -m tpufem_torch --problem_type cgpoisson --mesh_type
+unstructured`` at those sizes, float32, and prints their Gdof/s,
+seconds per solve and setup stages (mesh, operator, RHS: the CLI's ZZZ
+timers); ``--no-kernel`` runs only those, which any tree of the port can
+(the kernel rows need the cluster design); ``--quick`` times float32
+only. ``--sass`` prints each matfree kernel's SASS instructions by
+opcode (cuobjdump) and ptxas's lines. The methods are this repository's
+chip_smoke.py's, whichever tree is timed.
 """
 
 from __future__ import annotations
@@ -42,7 +41,6 @@ import importlib.util
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -121,24 +119,14 @@ def operators(dtypes, library: bool, dev, sizes=SIZES):
     return out
 
 
-def _launch_parts(root):
-    """(label, kernel name) of each launch of the tree's design."""
-    with open(os.path.join(root, "tpufem_torch", "csrc",
-                           "matfree_action.cu")) as f:
-        src = f.read()
-    if "matfree_action_clusters_kernel" in src:
-        return (("clusters", "matfree_action_clusters"),
-                ("halo", "matfree_action_halo"))
-    return (("cells", "matfree_action_cells"), ("dofs", "matfree_action_dofs"))
-
-
-def kernel_rows(sm, ops, tag, gpu, root):
+def kernel_rows(sm, ops, tag, gpu):
     import torch
-    from tpufem_torch.fem import matfree_op
     from tpufem_torch.fem.matfree_op import (matfree_action,
                                              matfree_action_bound,
-                                             matfree_apply_plain)
-    parts = _launch_parts(root)
+                                             matfree_apply_plain,
+                                             matfree_launches)
+    parts = (("clusters", "matfree_action_clusters"),
+             ("halo", "matfree_action_halo"))
     rows, ok = [], True
     for name, op, L in ops:
         dt = str(op.dtype).split(".")[1]
@@ -157,15 +145,14 @@ def kernel_rows(sm, ops, tag, gpu, root):
         b_ms, b_by = sm.bound_ms(nbytes, flops)
         ms = sm.median_ms(lambda: op.apply(x))
         host = sm.host_ms(lambda: op.apply(x))
-        launches = (matfree_op.matfree_launches(op)
-                    if hasattr(matfree_op, "matfree_launches") else 2)
+        launches = matfree_launches(op)
         dev, note = sm.device_ms(lambda: op.apply(x), "matfree_action", b_ms,
                                  f"matfree_action {name} {dt}",
                                  launches=launches)
         part_ms = {label: sm.device_ms(lambda: op.apply(x), kname, 0.0,
                                        f"{label} {name} {dt}")[0]
                    for label, kname in parts[:launches]}
-        plan = getattr(op, "cplan", None)
+        plan = op.cplan
         lib_ms = None
         if L is not None:
             lib_ms, _ = sm.library_ms(L, x, yp)
@@ -174,8 +161,7 @@ def kernel_rows(sm, ops, tag, gpu, root):
                    max_abs_err=float(err.max()), within_bound=held,
                    same_bits=same, ms=ms, device_ms=dev, device_note=note,
                    launch_ms=part_ms, launches=launches,
-                   halo_share=None if plan is None else plan.halo_share,
-                   max_locals=None if plan is None else plan.max_locals,
+                   halo_share=plan.halo_share, max_locals=plan.max_locals,
                    host_ms=host, bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes,
                    plan_bytes=plan_bytes,
@@ -186,258 +172,14 @@ def kernel_rows(sm, ops, tag, gpu, root):
         print(f"[{tag}] matfree_action {name} {dt}: {op.ncells} cells, "
               f"{op.ndofs} dofs | device {sm.fmt_dev(dev, note)} ("
               + ", ".join(f"{k} {sm.fmt_ms(v)}" for k, v in part_ms.items())
-              + (f"; halo share {plan.halo_share:.3f}, largest cluster "
-                 f"{plan.max_locals} dofs" if plan is not None else "")
+              + f"; halo share {plan.halo_share:.3f}, largest cluster "
+              f"{plan.max_locals} dofs"
               + f"), per call "
               f"{ms:.4f} ms, host cost {host:.4f} ms | bound {b_ms:.4f} ms "
               f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP): "
               f"{share} of it | torch.sparse.mm {sm.fmt_ms(lib_ms)} | within "
               f"bound {held}, same bits {same}  [{gpu}]", flush=True)
     return rows, ok
-
-
-# The split of the P3 cell launch of the two-launch design (a thread a
-# cell, cell values slot-major, then a thread a dof over the plan): how a
-# temporary copy of the tree's csrc/matfree_action.cu is cut to its loads
-# and stores alone (cd, x, G read, the cell values stored, no products)
-# or its products alone (u and G made from the cell's index, the 20
-# values summed and stored only under a condition that never holds).
-_CELL_LOADS = """  int d[N];
-  load_row<N>(L.cd + static_cast<size_t>(c) * N, d);
-  T u[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) u[i] = __ldg(x + d[i]);
-  const T* __restrict__ g =
-      static_cast<const T*>(L.G) + static_cast<size_t>(c) * 9;
-  // G00, G11, G22, G01, G02, G12: the tables' order
-  const T gs[6] = {__ldg(g), __ldg(g + 4), __ldg(g + 8),
-                   __ldg(g + 1), __ldg(g + 2), __ldg(g + 5)};
-"""
-_CELL_PRODUCTS_START = "  constexpr int off = table_offset<N>();"
-_CELL_STORES = """  T* __restrict__ yc = static_cast<T*>(L.yc);
-#pragma unroll
-  for (int i = 0; i < N; ++i) yc[static_cast<size_t>(i) * L.C + c] = y[i];
-"""
-
-
-def _cell_split_source(src: str, phase: int):
-    """The two-launch source cut to ``phase`` (0 whole, 1 loads and stores
-    alone, 2 products alone), or None where the tree has another form."""
-    if (_CELL_LOADS not in src or _CELL_PRODUCTS_START not in src
-            or _CELL_STORES not in src):
-        return None
-    if phase == 1:
-        a = src.index(_CELL_PRODUCTS_START)
-        b = src.index(_CELL_STORES)
-        src = (src[:a] + "  T y[N];\n#pragma unroll\n  for (int i = 0; i < N; "
-               "++i) y[i] = u[i] * gs[i % 6];\n" + src[b:])
-    elif phase == 2:
-        src = src.replace(_CELL_LOADS, """  T u[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) u[i] = T(c & 1023) * T(1e-3) + T(i);
-  const T gs[6] = {T(1) + T(c & 7), T(2), T(3) + T(c & 3), T(0.5), T(0.25),
-                   T(0.125)};
-""").replace(_CELL_STORES, """  T s = y[0];
-#pragma unroll
-  for (int i = 1; i < N; ++i) s += y[i];
-  if (s == T(-1.2345e30)) static_cast<T*>(L.yc)[c] = s;
-""")
-    return src
-
-
-def split_rows(sm, root, op, tag, gpu):
-    """The P3 cell launch of the two-launch design, float32, built alone
-    whole, with its loads and stores alone and with its products alone:
-    device ms of the cell launch after an L2 flush, and ptxas's line."""
-    import ctypes
-    import numpy as np
-    import torch
-    from tpufem_torch import _build
-    csrc = os.path.join(root, "tpufem_torch", "csrc")
-    with open(os.path.join(csrc, "matfree_action.cu")) as f:
-        src = f.read()
-    if _cell_split_source(src, 0) is None:
-        print(f"[{tag}] --split: csrc/matfree_action.cu is not the "
-              "two-launch form", flush=True)
-        return []
-    from tpufem_torch.fem.matfree_op import all_kernel_tables
-    dev = op.device
-    gen = torch.Generator(device=dev).manual_seed(15)
-    x = torch.randn(op.ndofs, generator=gen, device=dev)
-    y = torch.empty_like(x)
-    scratch = torch.empty(op.ncells * op.n, device=dev)
-    mask = None if op.bc_mask is None else op.bc_mask.to(torch.uint8)
-    args = _build.MatfreeLaunch(
-        G=op.G.data_ptr(), cd=op.cd.data_ptr(), offsets=op.offsets.data_ptr(),
-        slots=op.perm.data_ptr(), bc=0 if mask is None else mask.data_ptr(),
-        yc=scratch.data_ptr(), device=dev.index, C=op.ncells, n=op.n,
-        ndofs=op.ndofs)
-    tables = np.ascontiguousarray(all_kernel_tables(), dtype=np.float64)
-    nbytes, flops, _ = _smoke().matfree_work(op)
-    rows = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for f in os.listdir(csrc):
-            if f.endswith(".cuh"):
-                shutil.copy(os.path.join(csrc, f), tmp)
-        for phase, what in ((0, "whole"), (1, "loads and stores alone"),
-                            (2, "products alone")):
-            cu = os.path.join(tmp, f"split{phase}.cu")
-            so = os.path.join(tmp, f"split{phase}.so")
-            with open(cu, "w") as f:
-                f.write(_cell_split_source(src, phase))
-            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                                   "-shared", "-o", so, cu],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed: {proc.stderr}")
-            ptx = [u for n, u in _ptxas(proc.stdout + proc.stderr)
-                   if "cells" in n and "IfLi20E" in n]
-            lib = ctypes.CDLL(so)
-            lib.tpufem_matfree_tables.argtypes = [ctypes.c_int,
-                                                  ctypes.c_void_p,
-                                                  ctypes.c_int]
-            rc = lib.tpufem_matfree_tables(dev.index, tables.ctypes.data,
-                                           int(tables.size))
-            if rc != 0:
-                raise RuntimeError(f"split {what}: tables, cuda error {rc}")
-            fn = lib.tpufem_matfree_action_f32
-            fn.argtypes = [ctypes.c_void_p] * 4
-            fn.restype = ctypes.c_int
-
-            def call():
-                rc = fn(ctypes.addressof(args), x.data_ptr(), y.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"split {what}: cuda error {rc}")
-
-            ms, note = sm.device_ms(call, "matfree_action_cells", 0.0,
-                                    f"P3 cell launch {what}")
-            rows.append(dict(kernel="matfree_action cells P3 split",
-                             name=what, device_ms=ms, device_note=note,
-                             ptxas=ptx, bytes=nbytes, flops=flops))
-            print(f"[{tag}] P3 150k float32 cell launch, {what}: device "
-                  f"{sm.fmt_dev(ms, note)}; ptxas {ptx}  [{gpu}]",
-                  flush=True)
-    return rows
-
-
-# Variants of the cluster design, each a temporary copy of the tree's
-# csrc/matfree_action.cu edited as its text says: its products cut out
-# (each cell value u_i G_s, no tables), its products alone (no x staged,
-# no sums: the cell values kept only under a condition that never
-# holds), and blocks of 512 or 1024 threads (the same cells a thread:
-# clusters 2x or 4x as large, half or a quarter of the blocks an SM).
-# name -> (edits, factor on the cells a cluster).
-_PHASE1 = "  for (int l0 = threadIdx.x; l0 < nloc; l0 += 4 * kThreads) {"
-_PHASE3 = """  T* part = static_cast<T*>(L.partials) + base;
-  for (int l = threadIdx.x; l < nloc; l += kThreads) {"""
-_PRODUCTS = "    cell_values<T, N>(gs, u, v);"
-_THREADS = "constexpr int kThreads = 256;"
-_MIN_BLOCKS = "sizeof(T) == 4 ? 4 : 2;"
-CLUSTER_VARIANTS = {
-    "whole": ((), 1),
-    "no products": (((_PRODUCTS, "#pragma unroll\n    for (int i = 0; i < "
-                      "N; ++i) v[i] = u[i] * gs[i % 6];"),), 1),
-    "products alone": (((_PHASE1, _PHASE1.replace("l0 < nloc", "l0 < 0")),
-                        (_PHASE3, _PHASE3.replace(
-                            "  for (int l", "  if (vals[threadIdx.x] == "
-                            "T(-1.2345e30)) y[0] = vals[threadIdx.x];\n  for "
-                            "(int l").replace("l < nloc", "l < 0"))), 1),
-    "512 threads": (((_THREADS, _THREADS.replace("256", "512")),
-                     (_MIN_BLOCKS, "sizeof(T) == 4 ? 2 : 1;")), 2),
-    "1024 threads": (((_THREADS, _THREADS.replace("256", "1024")),
-                      (_MIN_BLOCKS, "sizeof(T) == 4 ? 1 : 1;")), 4),
-}
-
-
-def variant_rows(sm, root, ops, tag, gpu):
-    """The cluster design's variants (CLUSTER_VARIANTS) on the float32
-    operators: device ms of the cluster launch and of the whole apply
-    after an L2 flush, ptxas's line, within the bound of the plain
-    version where the products run."""
-    import ctypes
-    import numpy as np
-    import torch
-    from tpufem_torch import _build
-    from tpufem_torch.fem.assemble import cluster_plan
-    from tpufem_torch.fem.matfree_op import (matfree_action_bound,
-                                             matfree_apply_plain,
-                                             pack_matfree_launch)
-    csrc = os.path.join(root, "tpufem_torch", "csrc")
-    with open(os.path.join(csrc, "matfree_action.cu")) as f:
-        src = f.read()
-    if _THREADS not in src or _PHASE1 not in src or _PHASE3 not in src:
-        print(f"[{tag}] --variants: csrc/matfree_action.cu is not the "
-              "cluster form", flush=True)
-        return []
-    rows = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for f in os.listdir(csrc):
-            if f.endswith(".cuh"):
-                shutil.copy(os.path.join(csrc, f), tmp)
-        for vname, (edits, grow) in CLUSTER_VARIANTS.items():
-            text = src
-            for old, new in edits:
-                if old not in text:
-                    raise RuntimeError(f"variant {vname}: {old!r} not found")
-                text = text.replace(old, new)
-            tag_v = vname.replace(" ", "_")
-            cu = os.path.join(tmp, f"{tag_v}.cu")
-            so = os.path.join(tmp, f"{tag_v}.so")
-            with open(cu, "w") as f:
-                f.write(text)
-            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                                   "-shared", "-o", so, cu],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed: {proc.stderr[-3000:]}")
-            ptx = {n: u for n, u in _ptxas(proc.stdout + proc.stderr)
-                   if "clusters" in n and "If" in n}
-            lib = ctypes.CDLL(so)
-            fn = lib.tpufem_matfree_action_f32
-            fn.argtypes = [ctypes.c_void_p] * 4
-            fn.restype = ctypes.c_int
-            for name, op, _ in ops:
-                if op.dtype != torch.float32:
-                    continue
-                plan = op.cplan
-                if grow != 1:
-                    op.cplan = cluster_plan(op.cd.cpu().numpy(), op.ndofs,
-                                            op.bc_flat.cpu().numpy(),
-                                            cells=plan.cells * grow)
-                args, keep = pack_matfree_launch(op)
-                x = torch.randn(op.ndofs, device=op.device,
-                                generator=torch.Generator(
-                                    device=op.device).manual_seed(15))
-                y = torch.empty_like(x)
-
-                def call():
-                    rc = fn(ctypes.addressof(args), x.data_ptr(),
-                            y.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
-                    if rc != 0:
-                        raise RuntimeError(f"{vname}: cuda error {rc}")
-
-                call()
-                held = None
-                if vname in ("whole", "512 threads", "1024 threads"):
-                    err = (y - matfree_apply_plain(op, x)).abs()
-                    held = bool((err <= matfree_action_bound(op, x)).all())
-                part, _ = sm.device_ms(call, "matfree_action_clusters", 0.0,
-                                       f"{vname} clusters {name}")
-                whole, _ = sm.device_ms(call, "matfree_action", 0.0,
-                                        f"{vname} {name}", launches=2)
-                op.cplan = plan
-                del keep
-                used = [u for n, u in ptx.items() if f"ILi{op.n}E" in n]
-                rows.append(dict(kernel="matfree_action variant",
-                                 variant=vname, name=name, clusters_ms=part,
-                                 device_ms=whole, within_bound=held,
-                                 ptxas=used))
-                print(f"[{tag}] variant {vname}, {name} float32: clusters "
-                      f"{sm.fmt_ms(part)}, whole {sm.fmt_ms(whole)}; within "
-                      f"bound {held}; ptxas {used}  [{gpu}]", flush=True)
-    return rows
 
 
 def _compile_alone(root) -> str:
@@ -486,65 +228,41 @@ def sass_rows(kern, tag, gpu):
     return rows
 
 
-def ncu_rows(root, tag, gpu):
-    """ncu's warp-state sections for the P3 cell launch, where ncu is
-    installed and runs."""
-    from tpufem_torch import _build
-    ncu = shutil.which("ncu") or os.path.join(
-        os.path.dirname(_build._nvcc()), "ncu")
-    if not os.path.exists(ncu):
-        print(f"[{tag}] ncu: not installed on this host  [{gpu}]",
-              flush=True)
-        return [dict(kernel="ncu", note="not installed")]
-    cmd = [ncu, "--kernel-name", "regex:matfree_action_cells",
-           "--launch-count", "1", "--section", "WarpStateStats",
-           "--section", "SchedulerStats", sys.executable,
-           os.path.abspath(__file__), "--tree", root, "--ncu-target"]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=180)
-        text = (proc.stdout + proc.stderr)[-6000:]
-        note = f"rc {proc.returncode}"
-    except subprocess.TimeoutExpired:
-        text, note = "", "timed out after 180 s"
-    print(f"[{tag}] ncu ({note}):\n{text}", flush=True)
-    return [dict(kernel="ncu", note=note, output=text)]
-
-
-def ncu_target():
-    """One apply of the P3 150k float32 operator (what ncu profiles)."""
-    import torch
-    (_, op, _), = operators([torch.float32], False, torch.device("cuda", 0),
-                            sizes=((3, 150000),))
-    x = torch.ones(op.ndofs, device=op.device)
-    op.apply(x)
-    torch.cuda.synchronize()
-
-
-def cli_rows(tag, gpu):
-    """The cgpoisson CLI runs on the spoke, f32: Gdof/s, s per solve."""
+def cli_rows(tag, gpu, sizes=SIZES):
+    """The cgpoisson CLI runs on the spoke at ``sizes``, f32: Gdof/s, s
+    per solve and the setup stages (the CLI's ZZZ timers: mesh,
+    operator, RHS)."""
     import torch
     from tpufem_torch import cli
     from tpufem_torch.fem.matfree_op import matfree_action
+    from tpufem_torch.timing import REGISTRY
     out = []
-    for order, nd in SIZES:
+    for order, nd in sizes:
         matfree_action.launches = 0
+        REGISTRY.reset()
+        t0 = time.perf_counter()
         res = cli.main(["--problem_type", "cgpoisson", "--mesh_type",
                         "unstructured", "--order", str(order), "--ndofs",
                         str(nd), "--scaling_type", "strong", "--dtype",
                         "float32", "--device", "cuda"])
         torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
         s = res.problem.solver_function
+        stages = {k: REGISTRY.get(f"ZZZ {v}") for k, v in (
+            ("mesh", "Create Mesh"), ("operator", "Assemble matrix"),
+            ("rhs", "Assemble vector"))}
         out.append(dict(tree=tag, order=order, ndofs=res.problem.space.ndofs,
                         iterations=res.iterations, norm=res.norm, rel=s.rel,
                         gdofs=s.gdofs, solve_s=s.solve_s,
-                        launches=matfree_action.launches))
+                        launches=matfree_action.launches, run_s=run_s,
+                        **{f"{k}_s": v for k, v in stages.items()}))
         print(f"[{tag}] cgpoisson spoke P{order} {nd}: {res.iterations} "
               f"iterations, norm {res.norm!r}, rel {s.rel!r}; {s.gdofs:.4f} "
               f"Gdof/s, {s.solve_s:.6f} s per solve, "
               f"{s.solve_s / res.iterations * 1e3:.4f} ms a step; "
-              f"matfree_action {matfree_action.launches}  [{gpu}]",
-              flush=True)
+              f"matfree_action {matfree_action.launches}; setup: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+              + f", whole CLI run {run_s:.3f} s  [{gpu}]", flush=True)
         del res
     return out
 
@@ -561,17 +279,10 @@ def main() -> int:
     p.add_argument("--quick", action="store_true", help="float32 only")
     p.add_argument("--sass", action="store_true",
                    help="instructions in each matfree kernel's SASS")
-    p.add_argument("--split", action="store_true",
-                   help="the two-launch design's P3 cell launch cut to its "
-                        "loads and stores alone and its products alone")
-    p.add_argument("--variants", action="store_true",
-                   help="the cluster design's variants (CLUSTER_VARIANTS)")
-    p.add_argument("--ncu", action="store_true",
-                   help="ncu's warp states of the P3 cell launch")
-    p.add_argument("--ncu-target", action="store_true",
-                   help=argparse.SUPPRESS)
+    p.add_argument("--no-kernel", action="store_true",
+                   help="no kernel rows: the CLI runs alone (with --cli)")
     p.add_argument("--sizes", default="1:500000,2:150000,3:150000",
-                   help="order:--ndofs of each operator")
+                   help="order:--ndofs of each operator and CLI run")
     p.add_argument("--cells", metavar="N:B,...",
                    help="cells a cluster for a cell of N dofs, in place of "
                         "fem.assemble.CLUSTER_CELLS")
@@ -587,9 +298,6 @@ def main() -> int:
         print(f"matfree_times: imported {tpufem_torch.__file__}, not the "
               f"tree {root}", file=sys.stderr)
         return 1
-    if args.ncu_target:
-        ncu_target()
-        return 0
     from tpufem_torch import _build
     tag = os.path.relpath(root, ROOT)
     sm = _smoke()
@@ -619,20 +327,13 @@ def main() -> int:
               else [torch.float32, torch.float64])
     sizes = tuple(tuple(int(v) for v in t.split(":"))
                   for t in args.sizes.split(","))
-    ops = operators(dtypes, not args.no_library, dev, sizes)
-    rows, ok = kernel_rows(sm, ops, tag, gpu, root)
-    if args.split:
-        p3 = [op for name, op, _ in ops
-              if op.order == 3 and op.dtype == torch.float32]
-        if p3:
-            extra += split_rows(sm, root, p3[0], tag, gpu)
-    if args.variants:
-        extra += variant_rows(sm, root, ops, tag, gpu)
-    del ops
-    torch.cuda.empty_cache()
-    if args.ncu:
-        extra += ncu_rows(root, tag, gpu)
-    runs = cli_rows(tag, gpu) if args.cli else []
+    rows, ok = [], True
+    if not args.no_kernel:
+        ops = operators(dtypes, not args.no_library, dev, sizes)
+        rows, ok = kernel_rows(sm, ops, tag, gpu)
+        del ops
+        torch.cuda.empty_cache()
+    runs = cli_rows(tag, gpu, sizes) if args.cli else []
     clocks_after = sm_clocks()
     print(f"[{tag}] clocks before {clocks_before}, after {clocks_after}  "
           f"[{gpu}]", flush=True)

@@ -11,8 +11,10 @@ import torch
 
 from tpufem_torch.fem.assemble import SMEM_BYTES, cluster_plan, metric_np
 from tpufem_torch.fem.dirichlet import DirichletBC
-from tpufem_torch.fem.matfree_op import (METRIC6, TABLES_HEADER,
-                                         MatFreePoissonOp, kernel_tables,
+from tpufem_torch.fem.matfree_op import (METRIC6, TABLE_PAIRS,
+                                         TABLE_ZERO, TABLES_HEADER,
+                                         MatFreePoissonOp,
+                                         kernel_multiply_adds, kernel_tables,
                                          matfree_action_bound,
                                          matfree_action_walk,
                                          matfree_apply_plain, matfree_launches,
@@ -279,3 +281,40 @@ def test_kernel_header_holds_the_tables():
         upper = np.triu(np.ones((n, n), dtype=bool))
         assert np.array_equal(got[:, upper], S[:, upper])
         assert np.all(got[:, ~upper] == 0)
+
+
+def test_cpu_operator_builds_its_plan_when_read():
+    """A CPU operator builds no cluster plan for its plain version; the
+    first read builds it from the operator's cell and Dirichlet dofs
+    (the plan a CUDA operator builds with itself) and keeps it."""
+    cd, N, bc, mesh = _space(2)
+    op = MatFreePoissonOp.from_arrays(metric_np(mesh.cell_coords()), cd, bc,
+                                      N, 2, torch.float64, CPU)
+    matfree_apply_plain(op, torch.ones(N, dtype=torch.float64))
+    assert op._cplan is None
+    p = op.cplan
+    assert op.cplan is p
+    want = _plan(2)
+    for name in ("order", "clusters", "gid", "ld", "sum_idx", "sum_end",
+                 "halo_dof", "halo_off", "halo_src"):
+        assert np.array_equal(getattr(p, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_table_zeros_are_quadrature_rounding(order):
+    """The kernel's tables set to 0 exactly the entries that quadrature
+    leaves at rounding level (under TABLE_ZERO of the largest, with the
+    others at least 1e-4 of it: no entry near the cut) and keep the
+    others to the bit; the multiply-adds a cell count what is left."""
+    K = ReferenceTet(order).stiffness_tensors
+    raw = np.stack([K[a, a] if a == b else K[a, b] + K[b, a]
+                    for a, b in TABLE_PAIRS])
+    n = raw.shape[1]
+    upper = np.triu(np.ones((n, n), dtype=bool))
+    S, R = kernel_tables(order)[:, upper], raw[:, upper]
+    big = np.abs(R).max()
+    zero = S == 0
+    assert np.all(np.abs(R[zero]) < TABLE_ZERO * big)
+    assert np.array_equal(S[~zero], R[~zero])
+    assert np.all(np.abs(R[~zero]) >= 1e-4 * big)
+    assert kernel_multiply_adds(order) == {1: 37, 2: 277, 3: 1417}[order]

@@ -92,8 +92,8 @@ class MatfreeLaunch(ctypes.Structure):
                            "sum_end", "halo_dof", "halo_off", "halo_src",
                            "partials")]
                 + [(k, ctypes.c_int)
-                   for k in ("device", "C", "n", "B", "K", "H", "max_locals",
-                             "smem")])
+                   for k in ("device", "C", "n", "B", "K", "H",
+                             "max_locals")])
 
 
 class PermApplyLaunch(ctypes.Structure):

@@ -17,19 +17,22 @@
 // weighted by the cell's six distinct metric entries: for each pair i <=
 // j, a = sum_s G_s S_s[i][j], then y_i += a u_j and y_j += a u_i.  The
 // same function in exact arithmetic, and 4 n^2 + 3 n multiply-adds a
-// cell against D G D^T's 6 n q + 9 q (P3: 1,660 against 3,483).  The
+// cell against D G D^T's 6 n q + 9 q (P3: 1,660 against 3,483), of which
+// the zero table entries drop some (P3: 1,417 left).  The
 // tables (matfree_tables.cuh, generated from tpufem_torch/fem/
 // matfree_op.py:kernel_tables) are compile-time constants: the loops
 // unroll for each n (4, 10, 20), every nonzero table value becomes an
 // immediate operand of its multiply-add (float32; float64 through the
 // constant bank) and a zero one no instruction (P3: 243 of the 1,260
-// values read are 0), so the product issues no load and no uniform-
-// register move for the tables.
+// upper-triangle values are 0, set so from the quadrature's ~1e-15
+// residues by kernel_tables), so the product issues no load and no
+// uniform-register move for the tables.
 //
 // What bounds it on an H100: bytes at P1 and P2 (the metric, six values
 // a cell, the cells' dofs, x and y: the spoke 500k P1 operator, 2,644,284
-// cells, needs 110 MB in float32), the multiply-adds at P3 (745,612
-// cells x 1,660 at 150k).
+// cells, needs 110 MB in float32) and at P3 about as much as the
+// multiply-adds (745,612 cells x 1,417 at 150k: 2.11 GFLOP against
+// 106 MB).
 //
 // Design: cell clusters summed in shared memory (the host plan is
 // tpufem_torch/fem/assemble.py:cluster_plan).  The cells are ordered for
@@ -92,6 +95,14 @@ __host__ __device__ constexpr double table(int s, int i, int j) {
   return Tables<N>::v[s][i][j];
 }
 
+// whether pair (i, j) has a nonzero table entry (else it adds nothing)
+template <int N>
+__host__ __device__ constexpr bool pair_used(int i, int j) {
+  for (int s = 0; s < 6; ++s)
+    if (table<N>(s, i, j) != 0.0) return true;
+  return false;
+}
+
 // f(std::integral_constant<int, I>) for I = 0 .. sizeof...(Is) - 1, in order
 template <typename F, int... Is>
 __device__ __forceinline__ void static_for(std::integer_sequence<int, Is...>,
@@ -112,11 +123,12 @@ struct MatfreeLaunch {
   const int* halo_off;           // [H + 1]
   const int* halo_src;           // the locals whose partials a halo dof sums
   void* partials;                // [P] scratch, float or double
-  int device, C, n, B, K, H, max_locals, smem;
+  int device, C, n, B, K, H, max_locals;
 };
 
-// y_c = sum_s G_s S_s u_c over the pairs i <= j of the symmetric tables;
-// a = fma(G_s, S_s[i][j], a) from 0 over the nonzero S_s[i][j] in s order
+// y_c = sum_s G_s S_s u_c over the pairs i <= j of the symmetric tables
+// that have a nonzero entry; a = fma(G_s, S_s[i][j], a) from 0 over the
+// nonzero S_s[i][j] in s order
 template <typename T, int N>
 __device__ __forceinline__ void cell_values(const T (&g)[6], const T (&u)[N],
                                             T (&y)[N]) {
@@ -126,7 +138,7 @@ __device__ __forceinline__ void cell_values(const T (&g)[6], const T (&u)[N],
   static_for(idx, [&](auto I) {
     static_for(idx, [&](auto J) {
       constexpr int i = decltype(I)::value, j = decltype(J)::value;
-      if constexpr (j >= i) {
+      if constexpr (j >= i && pair_used<N>(i, j)) {
         T a = T(0);
         static_for(std::make_integer_sequence<int, 6>{}, [&](auto S) {
           constexpr double t = table<N>(decltype(S)::value, i, j);
@@ -148,10 +160,12 @@ __host__ __device__ constexpr int round16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
-// A block's shared memory, each array from a 16-byte boundary (mirrored
-// by tpufem_torch/fem/assemble.py:ClusterPlan.smem_bytes): the cell
+// A block's shared memory, each array from a 16-byte boundary: the cell
 // values [n B], x at the locals, the locals' dofs and run ends
-// [max_locals], the summing order [W].
+// [max_locals], the summing order [W].  The launch takes this size; the
+// host plan refuses a cluster over the limit by the same layout
+// (tpufem_torch/fem/assemble.py:ClusterPlan.smem_bytes), and a launch
+// over kMaxSmem is refused here.
 template <typename T>
 struct Smem {
   int xs, dofs, ends, sidx, bytes;
@@ -281,11 +295,12 @@ cudaError_t allow_smem(int device, int smem) {
 }
 
 template <typename T, int N>
-int launch_n(const MatfreeLaunch& L, const T* x, T* y, cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, N>(L.device, L.smem);
+int launch_n(const MatfreeLaunch& L, int smem, const T* x, T* y,
+             cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, N>(L.device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   matfree_action_clusters_kernel<T, N>
-      <<<L.K, kThreads, L.smem, stream>>>(L, x, y);
+      <<<L.K, kThreads, smem, stream>>>(L, x, y);
   err = cudaGetLastError();
   if (err != cudaSuccess || L.H == 0) return static_cast<int>(err);
   matfree_action_halo_kernel<T>
@@ -308,7 +323,7 @@ int launch(const void* prepared, const void* x, void* y, void* stream) {
       L.H < 0 || (L.H > 0 && (L.halo_dof == nullptr ||
                                L.halo_off == nullptr)) ||
       static_cast<long long>(L.K) * L.B < L.C || L.max_locals % 8 != 0 ||
-      L.smem < need || need > static_cast<long long>(tpufem::kMaxSmem) ||
+      need > static_cast<long long>(tpufem::kMaxSmem) ||
       reinterpret_cast<std::uintptr_t>(L.clusters) % 16 != 0 ||
       reinterpret_cast<std::uintptr_t>(L.sum_end) % 16 != 0 ||
       reinterpret_cast<std::uintptr_t>(L.sum_idx) % 16 != 0)
@@ -318,13 +333,14 @@ int launch(const void* prepared, const void* x, void* y, void* stream) {
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(need);
   switch (L.n) {
     case 4:
-      return launch_n<T, 4>(L, xt, yt, s);
+      return launch_n<T, 4>(L, smem, xt, yt, s);
     case 10:
-      return launch_n<T, 10>(L, xt, yt, s);
+      return launch_n<T, 10>(L, smem, xt, yt, s);
     case 20:
-      return launch_n<T, 20>(L, xt, yt, s);
+      return launch_n<T, 20>(L, smem, xt, yt, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,8 +12,10 @@ Dirichlet dofs ``bc_flat`` and the scatter plan (fem.assemble.
 scatter_plan: the dof -> cell-slot CSR of tpufem's perm / segments);
 beside them the kernel's host plan, ``cplan`` (fem.assemble.
 cluster_plan: the cells in clusters of B, each cluster's dofs, the
-order its sums take).  ``apply`` is y = A x with the Dirichlet rows set
-to 0, the reference's ``bc->set(y, 0)`` (cgpoisson_problem.cpp:207).
+order its sums take), built with a CUDA operator and, for a CPU one,
+only where something reads it (the walk; the plain version does not).
+``apply`` is y = A x with the Dirichlet rows set to 0, the reference's
+``bc->set(y, 0)`` (cgpoisson_problem.cpp:207).
 
 Two forms of one function:
 
@@ -75,17 +77,39 @@ def action_tables(order: int):
     return D, wts, n, q
 
 
+# below this share of the tables' largest entry, an entry is the
+# quadrature's rounding of an exact 0 (at P3 such entries reach 1.9e-15
+# of it, and the smallest other entry is 6.9e-4 of it)
+TABLE_ZERO = 1e-12
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_tables(order: int) -> np.ndarray:
     """[6, n, n] float64, the kernel's symmetric tables in TABLE_PAIRS
     order: K^aa, and K^ab + K^ba for a < b, with K^ab_ij = sum_q w_q
-    d_a phi_i(q) d_b phi_j(q); the upper triangle (the kernel reads no
-    other) mirrored, so that each is symmetric to the bit."""
+    d_a phi_i(q) d_b phi_j(q); entries under TABLE_ZERO of the tables'
+    largest set to 0 (the kernel does no multiply-add for them: 243 of
+    the 1,260 in the upper triangles at P3, 153 of 330 at P2, 39 of 60 at
+    P1); the upper triangle (the kernel reads no other) mirrored, so that
+    each is symmetric to the bit."""
     K = ReferenceTet(order).stiffness_tensors  # [3, 3, n, n]
     S = np.stack([K[a, a] if a == b else K[a, b] + K[b, a]
                   for a, b in TABLE_PAIRS])
+    S = np.where(np.abs(S) < TABLE_ZERO * np.abs(S).max(), 0.0, S)
     upper = np.triu(np.ones(S.shape[1:], dtype=bool))
     return np.where(upper, S, S.transpose(0, 2, 1))
+
+
+def kernel_multiply_adds(order: int) -> int:
+    """Multiply-adds a cell of the tables' form: one a nonzero upper
+    table entry (the pair's weight a = sum_s G_s S_s[i][j]), then y_i +=
+    a u_j and, off the diagonal, y_j += a u_i for each pair with a
+    nonzero entry (P1 37, P2 277, P3 1,417)."""
+    S = kernel_tables(order)
+    upper = np.triu(np.ones(S.shape[1:], dtype=bool))
+    used = (S != 0).any(axis=0) & upper
+    return int((S[:, upper] != 0).sum() + 2 * used.sum()
+               - np.trace(used))
 
 
 TABLES_HEADER = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
@@ -143,7 +167,8 @@ class MatFreePoissonOp:
     ``bc_flat`` [nbc] int64 and ``bc_mask`` (bool [N], None where there is
     no Dirichlet dof), the scatter plan's ``perm`` and ``offsets``
     (int32), the ``order`` and ``ndofs``; on the host, the kernel's
-    cluster plan ``cplan``."""
+    cluster plan ``cplan``, built at the first read where it was not
+    given."""
 
     G: torch.Tensor
     cd: torch.Tensor
@@ -153,7 +178,8 @@ class MatFreePoissonOp:
     offsets: torch.Tensor
     order: int
     ndofs: int
-    cplan: ClusterPlan = dataclasses.field(repr=False)
+    _cplan: Optional[ClusterPlan] = dataclasses.field(default=None,
+                                                      repr=False)
     _launch: Optional[Callable] = dataclasses.field(default=None, repr=False)
 
     @classmethod
@@ -162,8 +188,9 @@ class MatFreePoissonOp:
                     device: torch.device,
                     plan: Optional[ScatterPlan] = None) -> "MatFreePoissonOp":
         """From host arrays: ``G`` is rounded to ``dtype``; ``plan`` is
-        built from ``cd`` where it is not given, and the cluster plan
-        from ``cd`` and ``bc_flat``."""
+        built from ``cd`` where it is not given; on a CUDA device the
+        cluster plan from ``cd`` and ``bc_flat`` too (the kernel's; a CPU
+        operator builds it only where it is read)."""
         if dtype not in _DTYPES:
             raise TypeError(f"a matrix-free operator of {dtype}: float32 or "
                             "float64")
@@ -194,7 +221,9 @@ class MatFreePoissonOp:
                    cd=dev(cd, np.int32), bc_flat=dev(bc, np.int64),
                    bc_mask=mask, perm=dev(plan.perm, np.int32),
                    offsets=dev(plan.offsets, np.int32), order=int(order),
-                   ndofs=int(ndofs), cplan=cluster_plan(cd, ndofs, bc))
+                   ndofs=int(ndofs),
+                   _cplan=(cluster_plan(cd, ndofs, bc)
+                           if torch.device(device).type == "cuda" else None))
 
     @classmethod
     def build(cls, space, bc, dtype: torch.dtype,
@@ -205,6 +234,20 @@ class MatFreePoissonOp:
         return cls.from_arrays(metric_np(space.mesh.cell_coords()),
                                space.cell_dofs, bc.flat_dofs(),
                                space.ndofs_scalar, space.order, dtype, device)
+
+    @property
+    def cplan(self) -> ClusterPlan:
+        """The kernel's cluster plan (fem.assemble.cluster_plan of the
+        cell dofs and the Dirichlet dofs), built at the first read where
+        the operator was not given one."""
+        if self._cplan is None:
+            self._cplan = cluster_plan(self.cd.cpu().numpy(), self.ndofs,
+                                       self.bc_flat.cpu().numpy())
+        return self._cplan
+
+    @cplan.setter
+    def cplan(self, plan: ClusterPlan) -> None:
+        self._cplan, self._launch = plan, None
 
     @property
     def device(self) -> torch.device:
@@ -388,7 +431,7 @@ def pack_matfree_launch(op: MatFreePoissonOp):
         **{k: v.data_ptr() for k, v in arrays.items()},
         device=op.device.index, C=op.ncells, n=p.n, B=p.cells,
         K=int(p.clusters.shape[0]), H=int(p.halo_dof.size),
-        max_locals=p.max_locals, smem=p.smem_bytes(op.G.element_size()))
+        max_locals=p.max_locals)
     return args, (G6, partials, arrays)
 
 
