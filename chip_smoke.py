@@ -150,6 +150,22 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    steps (the bs = 3 hierarchy on csr_spmv, its norm against tpufem's;
    the system is singular and CG diverges, as in tpufem); and tpufem's
    float64 runs at 3,000 dofs (SPOKE_F64_GOLDS).
+16. sharded runs (``--num_shards``, the shards of the process as one
+   stacked tensor on the card; tpufem_torch/parallel): Poisson P1 and P2
+   and elasticity P1 500k f32 over 4 slabs, each against
+   ``--num_shards 1`` in the phase (iterations within 1, solutions within
+   SHARD_F32_X_TOL, the median of 3 warm solves of the same RHS on both
+   sides), each of which must launch K1 / dia_zones / the three-component
+   K1; cgpoisson P3 150k over 4 slabs, which must launch dia_zones (100
+   steps, Gdof/s, tpufem's sharded f32 run, SHARD_CG_REF); tpufem's
+   sharded float64 goldens (SHARD_GOLDS, to the
+   iteration and rel 1e-9); the spoke's row-sharded Poisson P1 150k over
+   2 shards, which must launch csr_spmv, certified in float64 through the
+   sharded solver against the single-device run (SPOKE_SHARD_NORM_TOL);
+   the process-group form, one rank over NCCL (poisson100k-8shard); K1,
+   the three-component K1, dia_zones and csr_spmv against their plain
+   versions on the shard shapes.  Every kernel's launches counted from
+   zero around each run and printed.
 
 Device times come from the profiler's spans of the kernel itself, each
 timed call after a read of 256 MB that evicts the L2 (``device_ms``);
@@ -438,6 +454,38 @@ SPOKE_PK_REF = {
 # S`` for S = 1..10), and the port's card runs sit 1.71e-3 off.  Held to
 # tpufem's float32 norm within about 5x the largest of those moves:
 SPOKE_ELAST_NORM_TOL = 1e-2
+# Sharded runs (phase 16): --num_shards N on the one card, the shards of a
+# process as one stacked tensor (tpufem_torch/parallel).  The float32 runs
+# are held to the port's own single-device run of the same arguments:
+# iterations within 1 (tpufem's dryrun_multichip rule), and the solution
+# (the single run's uncertified solve) within SHARD_F32_X_TOL in norm-wise
+# difference; on the CPU the two sit 2.1e-7 (Poisson P1 200k) and 3.8e-6
+# (elasticity P1 100k) apart
+SHARD_F32_X_TOL = 1e-4
+SHARD_ARGS = ["--scaling_type", "strong", "--dtype", "float32",
+              "-ksp_rtol", "1e-8", "-ksp_max_it", "100", "--device", "cuda"]
+# tpufem's sharded float64 goldens (tests/test_golden.py): (argv,
+# iterations, norm), held to the iteration and rel 1e-9
+SHARD_GOLDS = (
+    (["--problem_type", "poisson", "--ndofs", "100000", "--scaling_type",
+      "strong", "--num_shards", "8", "--dtype", "float64", "-ksp_rtol",
+      "1e-8", "--device", "cuda"], 11, 68.43884037046897),
+    (["--problem_type", "elasticity", "--ndofs", "10000", "--scaling_type",
+      "weak", "--num_shards", "4", "--dtype", "float64", "--device",
+      "cuda"], 20, 4.3635484081745004e-05))
+# the spoke's row-sharded Poisson P1 150k, f32, at the 120 cap, against
+# the port's single-device run: each solution certified in float64 (the
+# sharded one by refinement through the sharded solver), true_rel <= 1e-8,
+# passes within 1 of each other, and the certified norms within
+# SPOKE_SHARD_NORM_TOL (two solutions each within 1e-8 of the system's
+# residual; on the CPU at 20k dofs 5.4e-8 apart)
+SPOKE_SHARD_NORM_TOL = 1e-4
+# tpufem's own sharded cgpoisson P3 150k over 4 slabs, f32 on the CPU (x64
+# off; its lattice, 16x16x24, is not the one-shard run's), from
+#   python scripts/sharded_reference.py --cli --case cgpoisson-p3-150k-4-f32
+# (ndofs, iterations, norm), the norm held within CG_F32_NORM_TOL
+SHARD_CG_REF = (175273, 100, 80.32685852050781)
+
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -2624,6 +2672,331 @@ def spoke_pk_phase(cli, gpu: str):
     return n_mf, rows, worst, n_csr, n_dense
 
 
+def shard_counters():
+    """The launch counters of the kernels a sharded run may reach."""
+    from tpufem_torch.fem.csr_spmv import csr_spmv
+    from tpufem_torch.fem.dense_gemv import dense_gemv_bf16
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    from tpufem_torch.fem.perm_apply import perm_apply
+    from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_bs3
+    return {"stencil_p1": stencil_apply, "stencil_p1_bs3": stencil_apply_bs3,
+            "dia_zones": dia_zones_apply, "perm_apply": perm_apply,
+            "csr_spmv": csr_spmv, "dense_gemv_bf16": dense_gemv_bf16}
+
+
+def shard_run(cli, name: str, argv, gpu: str):
+    """One run through the CLI with every kernel's count set to 0 just
+    before and read just after: (result, launches, seconds)."""
+    import torch
+    counters = shard_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = {k: c.launches for k, c in counters.items()}
+    check(res.x.shape == (res.problem.space.ndofs,)
+          and bool(torch.isfinite(res.x).all()),
+          f"{name}: the solution is not a finite vector of ndofs")
+    solver = res.problem.solver_function
+    extra = ""
+    if hasattr(solver, "sh"):
+        extra = (f", warm solve {solver.solve_s:.4f} s, rel {solver.rel:.3e}"
+                 + (f", {solver.gdofs:.4f} Gdof/s" if solver.gdofs else ""))
+    print(f"{name}: {res.iterations} iterations, norm {res.norm!r}, "
+          f"{res.problem.space.ndofs} dofs{extra}, CLI run {dt:.2f} s; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in n.items() if v)
+          + f"  [{gpu}]", flush=True)
+    return res, n, dt
+
+
+def slab_kernel_rows(sh, name: str, gpu: str):
+    """The kernel of a sharded solver's finest slab operator against its
+    plain version on the shard shapes the sharded path gives it, with
+    times and the bound: (kernel name, row).  K1 and its three-component
+    form (f32) within their tolerances, ``dia_zones`` (the P2 / P3 const
+    DIA) to the plain version's bits."""
+    import torch
+    from tpufem_torch.fem import stencil as st
+    from tpufem_torch.fem.dia_zones import (dia_zones_apply,
+                                            dia_zones_apply_plain)
+    op = sh.levels[0].op
+    if getattr(op, "zone_pack", None) is not None:
+        kernel, pack = "dia_zones", op.zone_pack
+        dev, dtype = pack.fields.device, pack.fields.dtype
+        gen = torch.Generator(device=dev).manual_seed(16)
+        x = torch.randn(pack.ndofs, generator=gen, device=dev, dtype=dtype)
+        yk, yp = dia_zones_apply(x, pack), dia_zones_apply_plain(x, pack)
+        abs_err = float((yk - yp).abs().max())
+        check(bool(torch.equal(yk, yp)), f"{name}: the slab kernel "
+              f"dia_zones is not its plain version's bits (max abs err "
+              f"{abs_err:.3e})")
+        ms = median_ms(lambda: dia_zones_apply(x, pack))
+        plain_ms = median_ms(lambda: dia_zones_apply_plain(x, pack), reps=3,
+                             samples=3)
+        b_ms, b_by = bound_ms(*dia_zones_work(pack))
+        lay = op.layout
+        shape, width = f"{lay.Nx}x{lay.Ny}x{lay.Nz} P{lay.order}", \
+            len(pack.terms)
+    else:
+        comps = 3 if op.bs > 1 else 1
+        kernel = "stencil_p1_bs3" if comps == 3 else "stencil_p1"
+        apply, plain, tol = ((st.stencil_apply_bs3,
+                              st.stencil_apply_bs3_plain, TOL_BS3_F32)
+                             if comps == 3 else
+                             (st.stencil_apply, st.stencil_apply_plain,
+                              TOL_F32))
+        args = (op.fields, op.offsets, op.grid_dims)
+        dev = op.fields.device
+        gen = torch.Generator(device=dev).manual_seed(16)
+        x = torch.randn(comps * op.fields.shape[2] * op.fields.shape[3]
+                        * op.grid_dims[0], generator=gen, device=dev,
+                        dtype=op.fields.dtype)
+        yk, yp = op.apply(x), plain(x, *args)
+        bound = plain(x.abs(), op.fields.abs(), *args[1:])
+        err = (yk - yp).abs()
+        abs_err = float(err.max())
+        check(bool((err <= tol * bound).all()),
+              f"{name}: the slab kernel disagrees with its plain version "
+              f"(max abs err {abs_err:.3e})")
+        ms = median_ms(lambda: op.apply(x))
+        plain_ms = median_ms(lambda: plain(x, *args), reps=10, samples=5)
+        b_ms, b_by = bound_ms(*stencil_work(op.fields, op.grid_dims, comps))
+        shape, width = "x".join(map(str, op.grid_dims)), op.fields.shape[1]
+    row = dict(name=name, shape=shape, R=width, max_abs_err=abs_err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"slab kernel {kernel} {name} {shape} R={width}: abs "
+          f"{abs_err:.3e} | kernel {ms:.4f} ms per call, plain "
+          f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})  [{gpu}]",
+          flush=True)
+    return kernel, row
+
+
+def warm_median_s(solve, n: int = 3) -> float:
+    """The median seconds of ``n`` warm solves ``solve()`` of one RHS,
+    after one untimed."""
+    import torch
+    solve()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def rowshard_kernel_row(sh, name: str, gpu: str):
+    """csr_spmv on the row-sharded block-diagonal operator of every local
+    shard against its plain version (within csr_spmv_bound)."""
+    import torch
+    from tpufem_torch.fem.csr_spmv import csr_spmv_bound, csr_spmv_plain
+    A = sh.data["A"]
+    gen = torch.Generator(device=A.device).manual_seed(16)
+    x = torch.randn(A.ncols, generator=gen, device=A.device,
+                    dtype=torch.float64).to(A.out_dtype)
+    y, yp = A.matvec(x), csr_spmv_plain(A, x)
+    err = (y - yp).abs()
+    abs_err = float(err.max())
+    check(bool((err <= csr_spmv_bound(A, x)).all()),
+          f"{name}: csr_spmv disagrees with its plain version on the "
+          f"block-diagonal shard rows (max abs err {abs_err:.3e})")
+    ms = median_ms(lambda: A.matvec(x))
+    plain_ms = median_ms(lambda: csr_spmv_plain(A, x), reps=5, samples=5)
+    b_ms, b_by = bound_ms(*csr_work(A))
+    row = dict(name=name, n=A.n, nnz=A.nnz, max_abs_err=abs_err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"rowshard csr_spmv {name} ({A.n} rows, {A.nnz} entries): abs "
+          f"{abs_err:.3e} | kernel {ms:.4f} ms per call, plain "
+          f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})  [{gpu}]",
+          flush=True)
+    return row
+
+
+def certify_rowshard(res, rtol: float):
+    """A row-sharded spoke solution certified in float64 against the
+    assembled CSR, refined through the sharded solver itself (at most 3
+    passes): the CertifyResult."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from tpufem_torch.fem.assemble import assemble_csr_np
+    from tpufem_torch.la.refine import Certifier
+    from tpufem_torch.problems.poisson import assemble_poisson_rhs_np
+    sh = res.problem.solver_function.sh
+    space, bc = res.problem.space, res.problem.bc
+    csr = assemble_csr_np(space, bc, "poisson")
+    M = sp.csr_matrix((csr[2], csr[1], csr[0]))
+    b64 = assemble_poisson_rhs_np(space)
+    b64 = b64 - b64.mean()  # the compatible RHS of the Neumann system
+
+    def corr(r):
+        s = float(np.linalg.norm(r))
+        b = torch.from_numpy(sh.gmap.distribute(r / s)[sh.comm.local]
+                             .astype(np.float32)).to(sh.comm.device)
+        x, it, _ = sh._run(b)
+        return sh.collect(x).astype(np.float64) * s, it
+
+    return Certifier(lambda v: M @ v, b64, rtol).certify(
+        res.x.cpu().numpy(), corr, max_passes=3)
+
+
+def sharded_phase(cli, gpu: str):
+    """Phase 16: --num_shards on the one card.  Poisson P1 and P2 and
+    elasticity P1 500k f32 over 4 slabs against --num_shards 1, the warm
+    solves of both timed alike; cgpoisson P3 150k over 4 slabs (100
+    steps, Gdof/s, tpufem's f32 run); tpufem's sharded
+    float64 goldens; the spoke's row-sharded Poisson P1 150k over 2 shards
+    against the single-device run, both certified; the process-group form
+    with one rank over NCCL (the poisson100k-8shard golden); the slab and
+    row-sharded kernels against their plain versions on their shard
+    shapes.  Returns (launches by kernel, kernel rows)."""
+    import socket
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tpufem_torch.problems import sharded
+    total = {k: 0 for k in shard_counters()}
+
+    def add(n):
+        for k, v in n.items():
+            total[k] += v
+
+    rows = {"stencil_p1": [], "stencil_p1_bs3": [], "dia_zones": [],
+            "csr_spmv": []}
+    for problem, order, kernel in (("poisson", 1, "stencil_p1"),
+                                   ("poisson", 2, "dia_zones"),
+                                   ("elasticity", 1, "stencil_p1_bs3")):
+        what = f"{problem} P{order} 500k"
+        argv = SHARD_ARGS + ["--problem_type", problem, "--ndofs", "500000",
+                             "--order", str(order)]
+        r1, n1, _ = shard_run(cli, f"{what}, 1 shard",
+                              argv + ["--num_shards", "1"], gpu)
+        solver1 = r1.problem.solver_function
+        x1, it1, _ = solver1.run(r1.problem.u, r1.problem.b)
+        warm1 = warm_median_s(
+            lambda: solver1.run(r1.problem.u, r1.problem.b))
+        r4, n4, _ = shard_run(cli, f"{what}, 4 shards",
+                              argv + ["--num_shards", "4"], gpu)
+        add(n4)
+        sh = r4.problem.solver_function.sh
+        warm4 = warm_median_s(lambda: sh._run(sh.b_local))
+        diff = float((r4.x - x1).norm() / x1.norm())
+        print(f"{what}: 4 shards {r4.iterations} iterations against 1 "
+              f"shard {r1.iterations}; solutions off by {diff:.3e} (tol "
+              f"{SHARD_F32_X_TOL:.0e}); warm uncertified solve of the same "
+              f"RHS (median of 3): 4 shards {warm4:.4f} s, 1 shard "
+              f"{warm1:.4f} s ({warm4 / warm1:.2f}x); the 1-shard run "
+              f"certified {r1.true_rel!r} in {r1.refine_passes} pass(es)  "
+              f"[{gpu}]", flush=True)
+        check(abs(r4.iterations - r1.iterations) <= 1,
+              f"{what}: 4 shards {r4.iterations} iterations, 1 shard "
+              f"{r1.iterations}")
+        check(diff <= SHARD_F32_X_TOL,
+              f"{what}: 4-shard solution off by {diff:.3e}")
+        check(n4[kernel] > 0, f"{what}, 4 shards: {kernel} never launched")
+        k, row = slab_kernel_rows(sh, f"{what} slab", gpu)
+        check(k == kernel, f"{what}: the slab operator is {k}, not {kernel}")
+        rows[k].append(row)
+        del r1, r4, x1, solver1, sh
+        torch.cuda.empty_cache()
+
+    argv = (CG_ARGS + ["--order", "3", "--ndofs", "150000", "--num_shards",
+                       "4"])
+    r, n, _ = shard_run(cli, "cgpoisson P3 150k, 4 shards", argv, gpu)
+    add(n)
+    nd_ref, it_ref, norm_ref = SHARD_CG_REF
+    off = abs(r.norm - norm_ref) / norm_ref
+    print(f"cgpoisson P3 150k, 4 shards: {r.problem.space.ndofs} dofs, "
+          f"{r.iterations} steps, {r.problem.solver_function.gdofs:.4f} "
+          f"Gdof/s, norm off tpufem's f32 sharded run by {off:.2e} (tol "
+          f"{CG_F32_NORM_TOL:.0e})  [{gpu}]", flush=True)
+    check(r.problem.space.ndofs == nd_ref and r.iterations == it_ref,
+          f"cgpoisson P3 150k sharded: {r.problem.space.ndofs} dofs, "
+          f"{r.iterations} steps")
+    check(off <= CG_F32_NORM_TOL, f"cgpoisson P3 150k sharded: norm off "
+          f"tpufem's by {off:.2e}")
+    check(n["dia_zones"] > 0, "cgpoisson P3 150k, 4 shards: dia_zones never "
+          "launched")
+    k, row = slab_kernel_rows(r.problem.solver_function.sh,
+                              "cgpoisson P3 150k slab", gpu)
+    check(k == "dia_zones", f"cgpoisson P3 150k: the slab operator is {k}")
+    rows[k].append(row)
+    del r
+    torch.cuda.empty_cache()
+
+    for argv, it, norm in SHARD_GOLDS:
+        r, n, _ = shard_run(cli, "golden " + " ".join(argv[1:8:2]), argv,
+                            gpu)
+        add(n)
+        rel = abs(r.norm - norm) / norm
+        check(r.iterations == it and rel <= 1e-9,
+              f"sharded golden {argv}: {r.iterations} iterations (golden "
+              f"{it}), norm off by {rel:.2e}")
+        check(n["stencil_p1"] + n["stencil_p1_bs3"] > 0,
+              f"sharded golden {argv}: K1 never launched")
+        print(f"  golden held: {it} iterations, norm rel {rel:.2e}",
+              flush=True)
+
+    argv = SPOKE_ARGS + ["--ndofs", "150000"]
+    r1, n1, _ = shard_run(cli, "spoke P1 150k, 1 device", argv, gpu)
+    r2, n2, _ = shard_run(cli, "spoke P1 150k, 2 shards",
+                          argv + ["--num_shards", "2"], gpu)
+    add(n2)
+    check(n2["csr_spmv"] > 0, "spoke 150k, 2 shards: csr_spmv never "
+          "launched")
+    cert = certify_rowshard(r2, 1e-8)
+    n64 = float(np.linalg.norm(cert.x64))
+    off = abs(n64 - r1.norm) / r1.norm
+    print(f"spoke P1 150k: 2 shards {r2.iterations} iterations (cap), "
+          f"certified true_rel {cert.true_rel:.3e} in {cert.passes} "
+          f"pass(es), norm {n64!r}; 1 device {r1.iterations}, true_rel "
+          f"{r1.true_rel:.3e} in {r1.refine_passes} pass(es), norm "
+          f"{r1.norm!r}; certified norms off by {off:.2e} (tol "
+          f"{SPOKE_SHARD_NORM_TOL:.0e})  [{gpu}]", flush=True)
+    check(r2.iterations == 120 and r1.iterations == 120,
+          "spoke 150k: not at the 120-iteration cap")
+    check(cert.true_rel <= 1e-8 and abs(cert.passes - r1.refine_passes) <= 1,
+          f"spoke 150k sharded: true_rel {cert.true_rel}, {cert.passes} "
+          f"passes against {r1.refine_passes}")
+    check(off <= SPOKE_SHARD_NORM_TOL, f"spoke 150k sharded: certified "
+          f"norm off by {off:.2e}")
+    rows["csr_spmv"].append(rowshard_kernel_row(
+        r2.problem.solver_function.sh, "spoke 150k, 2 shards", gpu))
+    del r1, r2, cert
+    torch.cuda.empty_cache()
+
+    # the process-group form, one rank over NCCL
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        argv, it, norm = SHARD_GOLDS[0]
+        r, n, _ = shard_run(cli, "NCCL group of 1 rank, golden", argv, gpu)
+        add(n)
+        comm = r.problem.solver_function.sh.comm
+        rel = abs(r.norm - norm) / norm
+        check(comm.group and dist.get_backend() == "nccl",
+              "the NCCL run did not use the process group")
+        check(r.iterations == it and rel <= 1e-9,
+              f"NCCL golden: {r.iterations} iterations, norm off by "
+              f"{rel:.2e}")
+        print(f"NCCL process group (1 rank, 8 shards): {r.iterations} "
+              f"iterations, norm rel {rel:.2e}  [{gpu}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print("phase 16 launches: " + ", ".join(f"{k} {v}" for k, v in
+                                            total.items()), flush=True)
+    return total, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2889,6 +3262,12 @@ def main() -> int:
     print(f"phase 15: {time.perf_counter() - t15:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
 
+    # -- 16. sharded runs: --num_shards on the one card ----------------------
+    t16 = time.perf_counter()
+    shard_launches, shard_rows = sharded_phase(cli, gpu)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -3044,6 +3423,12 @@ def main() -> int:
          "call_minus_device_ms": mf["call_minus_device_ms"],
          "operators": mf_rows},
     ]
+    # the sharded runs' launches (phase 16, counted from zero around each
+    # run) and the slab / shard-row shapes each kernel was held on there
+    for k in kernels:
+        k["launches_sharded"] = shard_launches.get(k["name"], 0)
+        if shard_rows.get(k["name"]):
+            k["sharded"] = shard_rows[k["name"]]
     print(f"device_ms: {len(REFUSED_PROFILES)} profile(s) refused for a "
           f"wrong count of kernel spans, {EVENT_TIMES[0]} device time(s) "
           f"taken by CUDA events instead", flush=True)

@@ -1295,3 +1295,104 @@ def test_matfree_entry_and_cgpoisson_on_the_card(device):
                     "--device", "cuda"])
     assert res.iterations == 100 and matfree_action.launches >= 100
     assert abs(res.norm - 251.62201939995953) <= 1e-9 * 251.62201939995953
+
+
+# -- sharded runs: the slab and row-sharded solvers on the card ----------
+
+
+@pytest.mark.parametrize("problem,order,precond,dims,S", [
+    ("poisson", 1, True, (8, 8, 16), 4),
+    ("elasticity", 1, True, (8, 8, 16), 4),
+    ("poisson", 2, False, (6, 6, 8), 4), ("poisson", 3, True, (8, 8, 16), 4),
+    ("poisson", 2, True, (8, 8, 24), 4), ("poisson", 3, True, (8, 8, 12), 2)],
+    ids=["poisson-1-True", "elasticity-1-True", "poisson-2-False",
+         "poisson-3-True", "poisson-2-True-const", "poisson-3-True-const"])
+def test_slab_sharded_solve_on_the_card(device, problem, order, precond, dims,
+                                        S):
+    """A small float64 slab-sharded solve (S shards on the one card, the
+    slab operators' kernels: K1, its three-component form, dia_zones;
+    slabs of 6 planes: the P2 / P3 const DIA) against the same solve on
+    the CPU (the plain versions): the same iterations and solutions to
+    rounding."""
+    from tpufem_torch.fem.stencil import stencil_apply_bs3
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    from tpufem_torch.parallel.slab import ShardedCubeSolver
+    kw = dict(problem=problem, order=order, dtype=torch.float64,
+              rtol=1e-8 if precond else 1e-6, maxit=60 if precond else 400,
+              precond=precond, gather_limit=500)
+    counters = (stencil_apply, stencil_apply_bs3, dia_zones_apply)
+    for c in counters:
+        c.launches = 0
+    sh = ShardedCubeSolver.build(BoxTetMesh(*dims), S, device=device, **kw)
+    xg, itg, _ = sh.solve()
+    launched = [c.launches for c in counters]
+    xc, itc, _ = ShardedCubeSolver.build(BoxTetMesh(*dims), S,
+                                         device=torch.device("cpu"),
+                                         **kw).solve()
+    assert itg == itc if precond else abs(itg - itc) <= 1
+    assert np.abs(xg - xc).max() <= 1e-9 * np.abs(xc).max()
+    k = {("poisson", 1): 0, ("elasticity", 1): 1, ("poisson", 2): 2}.get(
+        (problem, order))
+    if getattr(sh.levels[0].op, "zone_pack", None) is not None:
+        k = 2
+    if k is not None:
+        assert launched[k] > 0, launched
+    if precond:
+        assert launched[0 if problem == "poisson" else 1] > 0
+
+
+def test_dryrun_multichip_on_the_card(device, capsys):
+    """The dryrun_multichip twin's four sharded paths, 8 shards on the
+    one card against one (it asserts convergence and parity)."""
+    from tpufem_torch.entry import dryrun_multichip
+    dryrun_multichip(8, device)
+    out = capsys.readouterr().out
+    assert out.count("dryrun_multichip[") == 4
+
+
+def test_rowshard_solve_on_the_card(device):
+    """The row-sharded P2 solve (8 shards, the distributed level 1 and
+    the replicated one) on csr_spmv against the CPU's."""
+    from tpufem_torch.config import SolverOptions
+    from tpufem_torch.fem.assemble import assemble_csr_np
+    from tpufem_torch.fem.csr_spmv import csr_spmv
+    from tpufem_torch.parallel.rowshard import ShardedEllSolver
+    from tpufem_torch.problems.poisson import assemble_poisson_rhs_np
+    mesh = BoxTetMesh(8, 9, 10)
+    space = FunctionSpace(mesh, 2)
+    bc = DirichletBC.from_space(space,
+                                mesh.locate_boundary_facets(poisson_bc_marker))
+    csr = assemble_csr_np(space, bc, "poisson")
+    b = assemble_poisson_rhs_np(space)
+    b[bc.flat_dofs()] = 0.0
+    for opts in ({}, dict(amg_dense_level_limit=0, amg_coarse_eq_limit=50)):
+        out = []
+        for dev in (device, torch.device("cpu")):
+            csr_spmv.launches = 0
+            sh = ShardedEllSolver.build(space, bc, csr, b, 8,
+                                        SolverOptions(**opts),
+                                        dtype=torch.float64, device=dev)
+            out.append(sh.solve() + (csr_spmv.launches,))
+        (xg, itg, _, n), (xc, itc, _, _) = out
+        assert n > 0 and itg == itc
+        assert np.abs(xg - xc).max() <= 1e-9 * np.abs(xc).max()
+
+
+def test_sharded_goldens_on_the_card(device):
+    """tpufem's sharded float64 goldens through the CLI on the card."""
+    from tpufem_torch import cli
+    from tpufem_torch.problems import sharded
+    orig, sharded.TIMING_REPS = sharded.TIMING_REPS, 0
+    try:
+        for args, it, norm in (
+                ("--problem_type poisson --ndofs 100000 --scaling_type "
+                 "strong --num_shards 8 -ksp_rtol 1e-8", 11,
+                 68.43884037046897),
+                ("--problem_type elasticity --ndofs 10000 --scaling_type "
+                 "weak --num_shards 4", 20, 4.3635484081745004e-05)):
+            r = cli.main(args.split() + ["--dtype", "float64",
+                                         "--device", "cuda"])
+            assert r.iterations == it
+            assert abs(r.norm - norm) <= 1e-9 * norm
+    finally:
+        sharded.TIMING_REPS = orig

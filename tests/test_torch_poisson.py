@@ -171,15 +171,23 @@ def test_cuda_device_without_gpu_raises():
      None),
     (["--mesh_type", "unstructured"], None),
     (["--order", "2", "-pc_type", "amg"], None),
-    (["--num_shards", "2"], "ROADMAP M16"),
+    # ported since: the slab-sharded path (certifying nothing, as tpufem's)
+    (["--num_shards", "2"], "sharded"),
     (["-pc_type", "amg", "-amg_brick", "off"], None),
 ], ids=["cgpoisson_unstructured", "elasticity_order2", "elasticity_amg",
         "unstructured", "order2", "shards", "amg"])
 def test_unported_options_raise(argv, raises):
     """What is not ported raises naming its ROADMAP item (or, where tpufem
     has no such path either, saying so); what has been ported since runs
-    a small certified solve."""
+    a small certified solve (the sharded path, as tpufem's, certifies
+    nothing)."""
     argv = ["--ndofs", "3000", "--device", "cpu"] + argv
+    if raises == "sharded":
+        res = cli.main(argv + ["--dtype", "float64"])
+        assert 0 < res.iterations < 100 and res.true_rel is None
+        assert type(res.problem.solver_function.sh).__name__ == \
+            "ShardedCubeSolver"
+        return
     if raises == "matrix-free":
         res = cli.main(argv + ["--dtype", "float64"])
         assert res.iterations == 100 and res.true_rel is None

@@ -194,11 +194,18 @@ def test_spoke_f32_certified_at_the_bench_cap(extra):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--num_shards", "2"], "M16"),
+    (["--num_shards", "2"], None),   # ported since: the row-sharded path
     (["--output", "out"], "M17"),
     (["--memory_profiling"], "M17"),
 ], ids=["num_shards", "output", "memory_profiling"])
 def test_unported_spoke_paths_raise(argv, item):
+    argv = ["--mesh_type", "unstructured", "--ndofs", "3000",
+            "--device", "cpu"] + argv
+    if item is None:
+        res = cli.main(argv + ["--dtype", "float64", "-ksp_max_it", "40"])
+        assert 0 < res.iterations <= 40 and np.isfinite(res.norm)
+        assert type(res.problem.solver_function.sh).__name__ == \
+            "ShardedEllSolver"
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["--mesh_type", "unstructured", "--ndofs", "3000",
-                  "--device", "cpu"] + argv)
+        cli.main(argv)

@@ -268,6 +268,34 @@ def test_saamg_runs_with_tpufem_unimportable():
     assert "JAX_LOADED False" in out.stdout
 
 
+def test_sharded_runs_with_tpufem_unimportable():
+    """--num_shards (the slab path, the row-sharded spoke) with
+    ``tpufem`` unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['tpufem'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from tpufem_torch.cli import main\n"
+        "from tpufem_torch.problems import sharded\n"
+        "sharded.TIMING_REPS = 0\n"
+        "a = main(['--ndofs', '3000', '--num_shards', '2', '--dtype',"
+        " 'float64', '--device', 'cpu'])\n"
+        "assert type(a.problem.solver_function.sh).__name__ =="
+        " 'ShardedCubeSolver'\n"
+        "u = main(['--mesh_type', 'unstructured', '--ndofs', '1500',"
+        " '--num_shards', '2', '--dtype', 'float64', '--device', 'cpu'])\n"
+        "assert type(u.problem.solver_function.sh).__name__ =="
+        " 'ShardedEllSolver'\n"
+        "assert a.iterations > 0 and u.iterations > 0\n"
+        "print('JAX_LOADED', any(m == 'jax' or m.startswith('jax.')"
+        " for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX_LOADED False" in out.stdout
+
+
 def test_native_source_is_tpufem_byte_for_byte():
     """tpufem_torch/native/fastsetup.cpp is tpufem's source, and the
     library builds from it into a directory keyed by its hash."""

@@ -17,9 +17,14 @@ tpufem's generic SA-AMG (la.amg).  ``--mesh_type unstructured`` builds
 tpufem's spoke mesh and runs on it Poisson P1-P3 (assembled CSR, SA-AMG,
 the constant nullspace deflated), elasticity (block CSR, SA-AMG with the
 rigid-body modes) and the matrix-free cgpoisson P1-P3 (the gather /
-metric action / scatter kernel).  Not ported yet (each raises
-NotImplementedError naming its ROADMAP item): more than one shard,
---output and --memory_profiling.
+metric action / scatter kernel).  ``--num_shards N`` (N > 1) runs what
+tpufem runs: the cube on z-slabs, CG + distributed GMG at every order
+(parallel.slab), and the row-sharded CG + SA-AMG on the spoke and on
+cubes too small for slabs (parallel.rowshard); a process holds its
+shards on its one device, and processes join over torch.distributed
+(parallel.multihost: MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE).
+Not ported yet (each raises NotImplementedError naming its ROADMAP
+item): --output and --memory_profiling.
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda [--order 2|3]
@@ -31,12 +36,15 @@ Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           unstructured --ndofs 150000 --scaling_type strong --device cuda
       python -m tpufem_torch --problem_type cgpoisson --mesh_type \\
           unstructured --order 3 --ndofs 150000 --scaling_type strong
+      python -m tpufem_torch --ndofs 500000 --scaling_type strong \\
+          --num_shards 4 --device cuda
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import os
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -49,8 +57,12 @@ from tpufem_torch.logutil import init_logging, int64_to_human
 from tpufem_torch.mesh.spoke import create_spoke_mesh
 from tpufem_torch.mesh.structured import (BoxTetMesh,
                                           compute_box_size_structured)
-from tpufem_torch.problems import cgpoisson, common, elasticity, poisson
+from tpufem_torch.parallel.multihost import init_from_env
+from tpufem_torch.problems import (cgpoisson, common, elasticity, poisson,
+                                   sharded)
 from tpufem_torch.timing import Timer, list_timings
+
+logger = logging.getLogger("tpufem_torch")
 
 
 class SolveResult(NamedTuple):
@@ -163,7 +175,6 @@ def resolve_device(name: str) -> torch.device:
 
 def _check_scope(cfg: Config) -> None:
     unported = [
-        (cfg.num_shards > 1, f"--num_shards {cfg.num_shards}: ROADMAP M16"),
         (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
         (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),
     ]
@@ -197,23 +208,45 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    init_logging(rank=0)
+    # the process group (the MPI_Init analogue, tpufem/cli.py:112-119):
+    # joined where MASTER_ADDR / WORLD_SIZE are set, else one process
+    proc_id, proc_count = init_from_env(device)
+    if device.type == "cuda" and proc_count > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
+    init_logging(rank=proc_id)
+    num_shards = cfg.num_shards or proc_count
 
     if device.type == "cuda":
         from tpufem_torch import _build
         with Timer("ZZZ Build kernels"):
             _build.load()
 
+    # multi-shard execution (tpufem/cli.py:130-149): the cube on z-slabs
+    # at every order; unstructured meshes, and cubes too small for a
+    # sharded multigrid chain, on the row-sharded assembled path
+    use_sharded = num_shards > 1 and cfg.mesh_type == "cube"
+    use_rowshard = num_shards > 1 and not use_sharded
+    if num_shards > 1 and num_shards % proc_count:
+        raise SystemExit(f"num_shards={num_shards} over {proc_count} "
+                         "processes: each process holds as many shards")
+    if cfg.scatterer == "p2p":
+        logger.info("scatterer=p2p: slab halos use one exchange a direction "
+                    "either way; schedule identical to 'neighbor'")
+    if cfg.subcomm_partition:
+        logger.info("subcomm_partition: no-op (each process builds only "
+                    "its own shards)")
+
     strong = cfg.scaling_type == "strong"
     with Timer("ZZZ Create Mesh"):
         if cfg.mesh_type == "cube":
             nx, ny, nz, r = compute_box_size_structured(
-                cfg.ndofs, strong, cfg.dofs_per_node, cfg.order, 1)
+                cfg.ndofs, strong, cfg.dofs_per_node, cfg.order, num_shards)
             mesh = BoxTetMesh(nx, ny, nz)
             print(f"UnitCube ({nx >> r}x{ny >> r}x{nz >> r}) to be "
                   f"refined {r} times", flush=True)
         else:
-            mesh = create_spoke_mesh(cfg.ndofs, strong, cfg.dofs_per_node, 1)
+            mesh = create_spoke_mesh(cfg.ndofs, strong, cfg.dofs_per_node,
+                                     num_shards)
 
     with Timer("ZZZ Create facets and facet->cell connectivity"):
         if cfg.mesh_type == "cube":
@@ -221,9 +254,29 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
         else:
             common.facet_to_cell(mesh.cell_faces(), mesh.boundary_faces())
 
-    problems = {"poisson": poisson.problem, "cgpoisson": cgpoisson.problem,
-                "elasticity": elasticity.problem}
-    prob = problems[cfg.problem_type](mesh, cfg.order, cfg, device)
+    if use_sharded and cfg.problem_type != "cgpoisson":
+        from tpufem_torch.parallel.slab import slab_gmg_viable
+        if not slab_gmg_viable(
+                mesh, num_shards, bs=cfg.dofs_per_node,
+                coarse_limit=int(cfg.solver.get("amg_coarse_eq_limit")),
+                max_levels=int(cfg.solver.get("amg_max_levels")),
+                precond=cfg.solver.get("pc_type") != "none"):
+            logger.info("cube mesh %dx%dx%d too small for a sharded "
+                        "multigrid chain over %d slabs; using the "
+                        "row-sharded path", mesh.Nx, mesh.Ny, mesh.Nz,
+                        num_shards)
+            use_sharded, use_rowshard = False, True
+    if use_sharded:
+        prob = sharded.problem(mesh, cfg.order, cfg, cfg.problem_type,
+                               num_shards, device)
+    elif use_rowshard:
+        prob = sharded.problem_rowshard(mesh, cfg.order, cfg,
+                                        cfg.problem_type, num_shards, device)
+    else:
+        problems = {"poisson": poisson.problem,
+                    "cgpoisson": cgpoisson.problem,
+                    "elasticity": elasticity.problem}
+        prob = problems[cfg.problem_type](mesh, cfg.order, cfg, device)
 
     num_dofs = prob.space.ndofs
     num_cells = mesh.num_cells_global
@@ -239,12 +292,13 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     print(f"  dtype:           {cfg.dtype}")
     print(f"  Problem type:    {cfg.problem_type}")
     print(f"  Scaling type:    {cfg.scaling_type}")
-    print("  Num processes:   1")
-    print("  Num shards:      1")
+    print(f"  Num processes:   {proc_count}")
+    print(f"  Num shards:      {num_shards}")
     print(f"  Num cells:       {num_cells}{int64_to_human(num_cells)}")
     print(f"  Total degrees of freedom:               "
           f"{num_dofs}{int64_to_human(num_dofs)}")
-    print(f"  Average degrees of freedom per shard:   {num_dofs}")
+    print(f"  Average degrees of freedom per shard:   "
+          f"{num_dofs // num_shards}")
     print(line, flush=True)
 
     trace_dir, trace_cm = _log_view(cfg, device)
@@ -257,7 +311,11 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
 
     list_timings()
     solver = prob.solver_function
-    sol_norm = float(norm(x, solver.acc_dtype))
+    # across processes the sharded solve reports the owned-masked norm
+    # itself (x stays sharded)
+    sol_norm = getattr(solver, "solution_norm", None)
+    if sol_norm is None:
+        sol_norm = float(norm(x, solver.acc_dtype))
     print(f"*** Number of Krylov iterations: {num_iter}")
     print(f"*** Solution norm:  {sol_norm}", flush=True)
     true_rel = getattr(solver, "true_rel", None)

@@ -153,12 +153,15 @@ class DiaOperator:
               bc_dofs: Optional[np.ndarray] = None,
               dtype: torch.dtype = torch.float32, mode: str = "auto",
               device: Optional[torch.device] = None,
-              bake_bc: bool = True, planar: bool = False) -> "DiaOperator":
+              bake_bc: bool = True, planar: bool = False,
+              h_override=None) -> "DiaOperator":
         """``mode``: "const" | "dense" | "auto" (const for P1 on lattices
         with >= 6 cubes per axis, dense otherwise).  ``bake_bc=False``
         records the BC mask without eliminating rows/cols in the weights.
         ``device=None`` keeps the operator on the host (numpy twins
-        only).  ``planar``: the component-planar layout (bs = 3)."""
+        only).  ``planar``: the component-planar layout (bs = 3).
+        ``h_override`` gives the cube size (hx, hy, hz) where it is not
+        the mesh's own 1 / N (a z-slab of a larger lattice)."""
         npdtype = np_dtype(dtype)
         if mode == "auto":
             mode = ("const" if order == 1
@@ -166,10 +169,10 @@ class DiaOperator:
         op = None
         if mode == "const":
             op = cls._build_const(mesh, order, problem, bc_dofs, npdtype,
-                                  bake_bc)
+                                  bake_bc, h_override)
         if op is None:
             op = cls._build_dense(mesh, order, problem, bc_dofs, npdtype,
-                                  bake_bc=bake_bc)
+                                  h_override=h_override, bake_bc=bake_bc)
         return op._make_planar(planar)._finalize(device)
 
     def _make_planar(self, planar: bool) -> "DiaOperator":
@@ -184,12 +187,12 @@ class DiaOperator:
     def try_const(cls, mesh: BoxTetMesh, order: int, problem: str,
                   bc_dofs: Optional[np.ndarray] = None,
                   dtype: torch.dtype = torch.float32, bake_bc: bool = True,
-                  device: Optional[torch.device] = None
+                  device: Optional[torch.device] = None, h_override=None
                   ) -> Optional["DiaOperator"]:
         """Const-mode build (no dense fallback) or None: the scalar P2/P3
         path; callers fall back to StructuredOperator."""
         op = cls._build_const(mesh, order, problem, bc_dofs,
-                              np_dtype(dtype), bake_bc)
+                              np_dtype(dtype), bake_bc, h_override)
         return None if op is None else op._finalize(device)
 
     def _finalize(self, device: Optional[torch.device]) -> "DiaOperator":
@@ -291,7 +294,8 @@ class DiaOperator:
 
     @classmethod
     def _build_const(cls, mesh, order, problem, bc_dofs, npdtype,
-                     bake_bc: bool = True) -> Optional["DiaOperator"]:
+                     bake_bc: bool = True,
+                     h_override=None) -> Optional["DiaOperator"]:
         """O(1) constant-weight build via a surrogate lattice, for every
         typed dof grid of the layout; None when the weight structure is
         not shell-representable (the caller falls back)."""
@@ -303,7 +307,8 @@ class DiaOperator:
         Nx, Ny, Nz = mesh.Nx, mesh.Ny, mesh.Nz
         if min(Nx, Ny, Nz) < 2 * (M + 1):
             return None
-        h = (1.0 / Nx, 1.0 / Ny, 1.0 / Nz)
+        h = (tuple(h_override) if h_override is not None
+             else (1.0 / Nx, 1.0 / Ny, 1.0 / Nz))
         sdims = (min(Nx, _SURR), min(Ny, _SURR), min(Nz, _SURR))
         smesh = BoxTetMesh(*sdims)
         slay = grid_layout(smesh, order)

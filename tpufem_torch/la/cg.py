@@ -28,32 +28,38 @@ def cg_solve(action: Callable[[torch.Tensor], torch.Tensor],
              rtol: float = 1e-8,
              maxit: int = 100,
              acc_dtype: Optional[torch.dtype] = None,
+             dot_fn: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                       torch.Tensor]] = None,
              ) -> Tuple[torch.Tensor, int, float]:
     """Solve A x = b.  Returns (x, iterations, ||r|| / ||r0||).
 
-    ``acc_dtype`` is the accumulation dtype of the dots (default b's)."""
+    ``acc_dtype`` is the accumulation dtype of the dots (default b's);
+    ``dot_fn`` replaces the dot itself (the sharded solvers' owned-masked
+    sum over every shard, tpufem/la/cg.py:24-31)."""
     M = precond if precond is not None else (lambda v: v)
+    if dot_fn is None:
+        dot_fn = lambda u, v: dot(u, v, acc_dtype)  # noqa: E731
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
     else:
         x = x0
         r = b - action(x0)
-    rnorm0 = dot(r, r, acc_dtype)
+    rnorm0 = dot_fn(r, r)
     thresh = rtol * rtol * rnorm0
     p = rz_prev = None
     rnorm = rnorm0
     k = 0
     while k < maxit and bool(rnorm > thresh):
         z = M(r)
-        rz = dot(r, z, acc_dtype)
+        rz = dot_fn(r, z)
         p = z if k == 0 else z + (rz / rz_prev).to(b.dtype) * p
         y = action(p)
-        alpha = (rz / dot(p, y, acc_dtype)).to(b.dtype)
+        alpha = (rz / dot_fn(p, y)).to(b.dtype)
         x = x + alpha * p
         r = r - alpha * y
         rz_prev = rz
-        rnorm = dot(r, r, acc_dtype)
+        rnorm = dot_fn(r, r)
         k += 1
     rel = float(torch.sqrt(rnorm / rnorm0))
     return x, k, rel
