@@ -166,6 +166,18 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    the three-component K1, dia_zones and csr_spmv against their plain
    versions on the shard shapes.  Every kernel's launches counted from
    zero around each run and printed.
+17. ``--output`` and ``--memory_profiling``: Poisson P1 500k f32 with
+   both flags (at least one ``[MEM]`` line; RSS and the device's
+   ``bytes_in_use`` at the end of the solve), the spoke's cgpoisson P3
+   150k (the order >= 2 datasets: the dofs, their coordinates, the cell
+   map) and elasticity P1 500k over 4 slabs (the collected vector,
+   node-interleaved) against a one-shard run (within SHARD_F32_X_TOL of
+   its uncertified solve), each with its kernel's launches counted from
+   zero around it: the file re-read, values bit for bit the run's x
+   moved to the host, topology and geometry the mesh's, with the bytes
+   and the ZZZ Output seconds.  Where h5py is not installed the phase
+   says so first, checks that ``--output`` raises naming it, and checks
+   the datasets the writer would write instead.
 
 Device times come from the profiler's spans of the kernel itself, each
 timed call after a read of 256 MB that evicts the L2 (``device_ms``);
@@ -184,6 +196,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -2997,6 +3010,216 @@ def sharded_phase(cli, gpu: str):
     return total, rows
 
 
+def output_counters():
+    """The launch counters of the kernels phase 17's runs reach."""
+    from tpufem_torch.fem.matfree_op import matfree_action
+    return dict(shard_counters(), matfree_action=matfree_action)
+
+
+class MemLines(logging.Handler):
+    """In its ``with`` block, keeps the ``[MEM]`` lines of the port's
+    logger."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("[MEM]"):
+            self.lines.append(msg)
+
+    def __enter__(self):
+        from tpufem_torch.logutil import init_logging
+        init_logging(rank=0)  # the CLI's set-up, before this handler
+        logging.getLogger("tpufem_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("tpufem_torch").removeHandler(self)
+
+
+def output_run(cli, name: str, argv, kernel: str, out_dir, gpu: str):
+    """One CLI run of phase 17, every kernel's count set to 0 just before
+    it and read just after (``kernel`` must have launched).  With
+    ``out_dir`` it runs with ``--output out_dir`` and re-reads the file;
+    without (no h5py on this host) it builds the datasets the writer
+    would write (io.xdmf.xdmf_datasets) from the host copy of x.  Either
+    way the values (and, at order >= 2, the dofs) must be the run's x
+    moved to the host, in tpufem's layout, bit for bit, and the topology
+    and geometry the mesh's.  Returns (result, launches, values)."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+    from tpufem_torch.io import read_xdmf, xdmf_datasets
+    from tpufem_torch.timing import REGISTRY
+    counters = output_counters()
+    REGISTRY.reset()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv + (["--output", out_dir] if out_dir else []))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n = {k: c.launches for k, c in counters.items()}
+    check(n[kernel] > 0, f"{name}: {kernel} never launched")
+    space = res.problem.space
+    mesh, bs = space.mesh, space.bs
+    x = res.x.cpu().numpy()
+    check(x.shape == (space.ndofs,) and bool(np.isfinite(x).all()),
+          f"{name}: the solution is not a finite vector of ndofs")
+    if out_dir:
+        files = glob.glob(os.path.join(out_dir, "*.xdmf"))
+        check(len(files) == 1, f"{name}: {files} written")
+        got = read_xdmf(files[0])
+        data = {"/mesh/topology": got["topology"],
+                "/mesh/geometry": got["geometry"],
+                "/function/values": got["values"]}
+        for key in ("dofs", "dof_coords", "cell_dofs"):
+            if key in got:
+                data[f"/function/{key}"] = got[key]
+        nbytes = sum(os.path.getsize(os.path.join(out_dir, f))
+                     for f in os.listdir(out_dir))
+        out_s = REGISTRY.get("ZZZ Output")
+        how = (f"written to {os.path.basename(files[0])} and its .h5 and "
+               f"re-read: {nbytes} bytes on disk, ZZZ Output {out_s:.3f} s")
+    else:
+        t0 = time.perf_counter()
+        data, _ = xdmf_datasets(mesh, res.x.detach().cpu().numpy(), bs,
+                                space)
+        out_s = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in data.values())
+        how = (f"datasets built, not written (no h5py): {nbytes} bytes, "
+               f"host copy and datasets {out_s:.3f} s")
+    nv = mesh.num_vertices_global
+
+    def same(key, want):
+        a = data[key]
+        check(a.dtype == want.dtype and a.shape == want.shape
+              and a.tobytes() == want.tobytes(),
+              f"{name}: {key} is not the run's, bit for bit")
+
+    same("/function/values", x.reshape(-1, bs)[:nv])
+    same("/mesh/topology", np.asarray(mesh.cells(), dtype=np.int64))
+    same("/mesh/geometry", mesh.vertex_coords(np.arange(nv, dtype=np.int64)))
+    extra = ""
+    if space.order >= 2:
+        same("/function/dofs", x.reshape(-1, bs))
+        same("/function/cell_dofs", np.asarray(space.cell_dofs, np.int64))
+        extra = (f", dofs {data['/function/dofs'].shape}, cell_dofs "
+                 f"{data['/function/cell_dofs'].shape}")
+    else:
+        check("/function/dofs" not in data, f"{name}: dofs at order 1")
+    print(f"{name}: {res.iterations} iterations, {space.ndofs} dofs, "
+          f"{mesh.num_cells_global} cells, {nv} vertices{extra}; {how}; "
+          f"values, topology and geometry the run's bit for bit; CLI run "
+          f"{run_s:.2f} s; launches " + ", ".join(
+              f"{k} {v}" for k, v in n.items() if v) + f"  [{gpu}]",
+          flush=True)
+    return res, n, data["/function/values"]
+
+
+def output_phase(cli, gpu: str):
+    """Phase 17: --output and --memory_profiling on the card.  Poisson P1
+    500k f32 with both flags ([MEM] lines, RSS and the device's bytes in
+    use at the end of the solve), the spoke's cgpoisson P3 150k (the
+    order >= 2 datasets) and elasticity P1 500k over 4 slabs (the
+    collected vector, node-interleaved) against a one-shard run, each
+    file re-read and compared with the run's x bit for bit.  Where h5py
+    is missing the phase says so first, checks that --output raises
+    naming it, and builds the datasets the writer would write instead.
+    Returns the launches by kernel."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tpufem_torch.memprof import device_memory_stats, read_statm
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    if not have_h5py:
+        print("phase 17: h5py is not installed on this host, so --output "
+              "cannot write here; the runs build the datasets the writer "
+              "would write and check those, and --output must raise "
+              "naming h5py", flush=True)
+        err = None
+        try:
+            cli.main(["--ndofs", "3000", "--device", "cuda", "--output",
+                      tempfile.gettempdir()])
+        except ImportError as e:
+            err = e
+        check(err is not None and "h5py" in str(err)
+              and "--output" in str(err),
+              f"--output without h5py did not raise naming it ({err!r})")
+        print(f"--output without h5py raises: {err}", flush=True)
+    total = {k: 0 for k in output_counters()}
+
+    def add(n):
+        for k, v in n.items():
+            total[k] += v
+
+    with tempfile.TemporaryDirectory(prefix="tpufem_torch-output-") as tmp:
+        def out(name):
+            return os.path.join(tmp, name) if have_h5py else None
+
+        with MemLines() as mem:
+            res, n, _ = output_run(
+                cli, "Poisson P1 500k --output --memory_profiling",
+                MAIN_ARGS + ["--memory_profiling"], "stencil_p1",
+                out("poisson"), gpu)
+            vms, rss = read_statm()
+            dev = device_memory_stats(torch.device("cuda", 0))
+        add(n)
+        check(len(mem.lines) >= 1, "--memory_profiling logged no [MEM] line")
+        check(dev.get("bytes_in_use", 0) > 0, f"device_memory_stats: {dev}")
+        print(f"--memory_profiling: {len(mem.lines)} [MEM] lines, the last "
+              f"'{mem.lines[-1]}'; at the end of the solve RSS "
+              f"{rss / 2**30:.3f} GiB, VSIZE {vms / 2**30:.3f} GiB, device "
+              f"bytes_in_use {dev['bytes_in_use']} (peak "
+              f"{dev['peak_bytes_in_use']}, reserved {dev['bytes_reserved']}"
+              f")  [{gpu}]", flush=True)
+        del res
+        torch.cuda.empty_cache()
+
+        res, n, _ = output_run(
+            cli, "spoke cgpoisson P3 150k --output",
+            SPOKE_CG_ARGS + ["--order", "3", "--ndofs", "150000"],
+            "matfree_action", out("spoke"), gpu)
+        add(n)
+        del res
+        torch.cuda.empty_cache()
+
+        argv = SHARD_ARGS + ["--problem_type", "elasticity", "--ndofs",
+                             "500000"]
+        r1, n1, v1 = output_run(cli, "elasticity P1 500k, 1 shard --output",
+                                argv + ["--num_shards", "1"],
+                                "stencil_p1_bs3", out("elasticity-1"), gpu)
+        # the one-shard run writes its certified x; the sharded path
+        # certifies nothing, so it is held, as in phase 16, to the
+        # one-shard run's uncertified solve
+        x1, _, _ = r1.problem.solver_function.run(r1.problem.u, r1.problem.b)
+        x1 = x1.cpu().numpy().reshape(-1, 3)
+        r4, n4, v4 = output_run(cli, "elasticity P1 500k, 4 slabs --output",
+                                argv + ["--num_shards", "4"],
+                                "stencil_p1_bs3", out("elasticity-4"), gpu)
+        add(n4)
+        diff = float(np.linalg.norm(v4 - x1) / np.linalg.norm(x1))
+        diff_file = float(np.linalg.norm(v4 - v1) / np.linalg.norm(v1))
+        print(f"elasticity P1 500k: the 4-slab file's vectors off the "
+              f"one-shard uncertified solve by {diff:.3e} (tol "
+              f"{SHARD_F32_X_TOL:.0e}), off the one-shard file (certified) "
+              f"by {diff_file:.3e}  [{gpu}]", flush=True)
+        check(diff <= SHARD_F32_X_TOL, f"elasticity 4 slabs: the file's "
+              f"vectors off the one-shard solve by {diff:.3e}")
+        del r1, r4, x1
+        torch.cuda.empty_cache()
+    print("phase 17 launches: " + ", ".join(f"{k} {v}" for k, v in
+                                            total.items() if v), flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3268,6 +3491,12 @@ def main() -> int:
     print(f"phase 16: {time.perf_counter() - t16:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
 
+    # -- 17. --output and --memory_profiling --------------------------------
+    t17 = time.perf_counter()
+    output_launches = output_phase(cli, gpu)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -3423,10 +3652,12 @@ def main() -> int:
          "call_minus_device_ms": mf["call_minus_device_ms"],
          "operators": mf_rows},
     ]
-    # the sharded runs' launches (phase 16, counted from zero around each
-    # run) and the slab / shard-row shapes each kernel was held on there
+    # the sharded runs' launches (phase 16) and phase 17's (each counted
+    # from zero around each run), and the slab / shard-row shapes each
+    # kernel was held on in phase 16
     for k in kernels:
         k["launches_sharded"] = shard_launches.get(k["name"], 0)
+        k["launches_output"] = output_launches.get(k["name"], 0)
         if shard_rows.get(k["name"]):
             k["sharded"] = shard_rows[k["name"]]
     print(f"device_ms: {len(REFUSED_PROFILES)} profile(s) refused for a "

@@ -1396,3 +1396,67 @@ def test_sharded_goldens_on_the_card(device):
             assert abs(r.norm - norm) <= 1e-9 * norm
     finally:
         sharded.TIMING_REPS = orig
+
+
+# -- --output, --memory_profiling and the reduced ZZZ table on the card ----
+
+
+@pytest.mark.parametrize("args", [
+    "--ndofs 20000", "--problem_type elasticity --ndofs 10000"],
+    ids=["poisson", "elasticity"])
+def test_output_on_the_card(device, args, tmp_path):
+    """--output of a card run: the file re-read (where h5py is installed;
+    elsewhere --output raises naming it, and the datasets the writer
+    would write are built instead) holds the run's x moved to the host,
+    node-interleaved for elasticity, bit for bit, and the mesh."""
+    import importlib.util
+    from tpufem_torch import cli
+    from tpufem_torch.io import read_xdmf, xdmf_datasets
+    argv = args.split() + ["--dtype", "float32", "--device", "cuda"]
+    out = tmp_path / "out"
+    if importlib.util.find_spec("h5py") is not None:
+        res = cli.main(argv + ["--output", str(out)])
+        got = read_xdmf(str(out / "solution-1.xdmf"))
+        values, topology = got["values"], got["topology"]
+    else:
+        with pytest.raises(ImportError, match=r"--output.*h5py"):
+            cli.main(argv + ["--output", str(out)])
+        assert not out.exists()
+        res = cli.main(argv)
+        data, _ = xdmf_datasets(res.problem.space.mesh, res.x.cpu().numpy(),
+                                res.problem.space.bs, res.problem.space)
+        values, topology = data["/function/values"], data["/mesh/topology"]
+    space = res.problem.space
+    x = res.x.cpu().numpy()
+    assert res.x.device.type == "cuda" and x.shape == (space.ndofs,)
+    nv = space.mesh.num_vertices_global
+    assert values.tobytes() == x.reshape(-1, space.bs)[:nv].tobytes()
+    assert np.array_equal(topology, space.mesh.cells())
+
+
+def test_device_memory_stats_on_the_card(device):
+    """tpufem's keys from the caching allocator: bytes_in_use counts a
+    live tensor."""
+    from tpufem_torch.memprof import device_memory_stats
+    x = torch.ones(1 << 20, device=device)
+    stats = device_memory_stats(device)
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        device).total_memory
+    assert device_memory_stats(torch.device("cpu")) == {}
+
+
+def test_reduced_table_of_a_sharded_card_run(device, capsys):
+    """--num_shards 2 on the card prints tpufem's reduced ZZZ table."""
+    from tpufem_torch import cli
+    from tpufem_torch.problems import sharded
+    orig, sharded.TIMING_REPS = sharded.TIMING_REPS, 0
+    try:
+        cli.main(["--ndofs", "20000", "--num_shards", "2", "--device",
+                  "cuda"])
+    finally:
+        sharded.TIMING_REPS = orig
+    out = capsys.readouterr().out
+    assert "wall min" in out and "wall max" in out
+    assert "(reduced over 2 shards; SPMD lockstep" in out

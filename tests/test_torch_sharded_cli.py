@@ -3,10 +3,11 @@ CLI: tpufem's two sharded goldens (tests/test_golden.py) and its sharded
 CLI cases (tests/test_cli.py), float64, to its iteration counts and
 norms (tpufem's values pinned by ``scripts/sharded_reference.py --cli``),
 the routes (slabs, the row-sharded path where the cube is too small for
-a sharded multigrid chain, GMG for ``-pc_type amg`` on the cube), and
-the summary and scope."""
+a sharded multigrid chain, GMG for ``-pc_type amg`` on the cube), the
+summary, and tpufem's reduced ZZZ table."""
 
 import logging
+import re
 
 import numpy as np
 import pytest
@@ -110,9 +111,65 @@ def test_weak_scaling_iterations_flat():
 
 @pytest.mark.parametrize("flag,item", [("--output /tmp/x", "M17"),
                                        ("--memory_profiling", "M17")])
-def test_scope_keeps_only_m17(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run(f"--ndofs 1000 --num_shards 2 {flag}")
+def test_scope_keeps_only_m17(flag, item, tmp_path, caplog, capsys):
+    """The two flags of ROADMAP M17, which once raised here, are ported:
+    a sharded run writes the collected solution (into tmp_path in place
+    of /tmp/x) or logs [MEM] lines, and prints the reduced table."""
+    flag = flag.replace("/tmp/x", str(tmp_path / "x"))
+    with caplog.at_level(logging.INFO, logger="tpufem_torch"):
+        res = run(f"--ndofs 1000 --num_shards 2 {flag}")
+    assert "(reduced over 2 shards; " in capsys.readouterr().out
+    if flag.startswith("--output"):
+        from tpufem_torch.io import read_xdmf
+        got = read_xdmf(str(tmp_path / "x" / "solution-2.xdmf"))
+        assert np.array_equal(got["values"][:, 0], res.x.numpy())
+    else:
+        assert "[MEM] VSIZE = " in caplog.text
+
+
+# rows of a timing registry, as both packages keep them: (name, elapsed)
+TIMING_ROWS = [("ZZZ Create Mesh", 0.125), ("ZZZ Assemble matrix", 1.5),
+               ("ZZZ Solve", 2.0625), ("ZZZ Solve", 1.0),
+               ("ZZZ Output", 0.03125)]
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_timing_table_matches_tpufem(ranks):
+    """The same rows give tpufem's table text for text: the reduced form
+    (min / avg / max, each this process's time, and the closing line)
+    for ranks > 1; at one rank tpufem's table, whose note on ZZZ Solve
+    the port ends without tpufem's XLA compilation clause."""
+    from tpufem.timing import TimingRegistry as TpuRegistry
+    from tpufem.timing import list_timings as tpu_list_timings
+    from tpufem_torch.timing import TimingRegistry, list_timings
+    mine, ref = TimingRegistry(), TpuRegistry()
+    for name, dt in TIMING_ROWS:
+        mine.add(name, dt)
+        ref.add(name, dt)
+    got = list_timings(mine, ranks=ranks)
+    want = tpu_list_timings(ref, ranks=ranks)
+    if ranks > 1:
+        assert got == want
+        assert got.splitlines()[-1].startswith(f"(reduced over {ranks} shards")
+        return
+    assert got.splitlines()[:-1] == want.splitlines()[:-1]
+    assert got.splitlines()[-1] == ("(ZZZ Solve includes preconditioner "
+                                    "setup — see 'ZZZ PC setup')")
+
+
+def test_sharded_run_prints_the_reduced_table(capsys):
+    """--num_shards 2 prints tpufem's reduced ZZZ table; one shard the
+    single-process one."""
+    run("--ndofs 3000 --num_shards 2")
+    out = capsys.readouterr().out
+    assert re.search(r"^Summary +reps +wall min +wall avg +wall max$", out,
+                     re.M)
+    assert "(reduced over 2 shards; SPMD lockstep — one program, " \
+        "identical per-shard times)" in out
+    run("--ndofs 3000 --num_shards 1")
+    out = capsys.readouterr().out
+    assert re.search(r"^Summary +reps +wall avg +wall tot$", out, re.M)
+    assert "reduced over" not in out
 
 
 def test_dryrun_multichip_twin(capsys):

@@ -5,6 +5,8 @@ runs are pinned as constants (its ``python -m tpufem ... --num_shards 1``
 on this mesh); the pieces are compared live."""
 
 import hashlib
+import logging
+import re
 
 import jax
 import jax.numpy as jnp
@@ -195,17 +197,30 @@ def test_spoke_f32_certified_at_the_bench_cap(extra):
 
 @pytest.mark.parametrize("argv,item", [
     (["--num_shards", "2"], None),   # ported since: the row-sharded path
-    (["--output", "out"], "M17"),
-    (["--memory_profiling"], "M17"),
+    (["--output", "out"], "M17"),    # ported since: the XDMF output
+    (["--memory_profiling"], "M17"),  # ported since: the [MEM] sampler
 ], ids=["num_shards", "output", "memory_profiling"])
-def test_unported_spoke_paths_raise(argv, item):
+def test_unported_spoke_paths_raise(argv, item, tmp_path, monkeypatch,
+                                    caplog):
+    """The spoke paths once unported all run now: --num_shards on the
+    row-sharded path, --output (ROADMAP M17: the file, in the run's
+    directory, holds the mesh and the solution) and --memory_profiling
+    (M17: [MEM] lines)."""
+    monkeypatch.chdir(tmp_path)
     argv = ["--mesh_type", "unstructured", "--ndofs", "3000",
             "--device", "cpu"] + argv
-    if item is None:
+    with caplog.at_level(logging.INFO, logger="tpufem_torch"):
         res = cli.main(argv + ["--dtype", "float64", "-ksp_max_it", "40"])
-        assert 0 < res.iterations <= 40 and np.isfinite(res.norm)
+    assert 0 < res.iterations <= 40 and np.isfinite(res.norm)
+    if item is None:
         assert type(res.problem.solver_function.sh).__name__ == \
             "ShardedEllSolver"
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(argv)
+    elif "--output" in argv:
+        from tpufem_torch.io import read_xdmf
+        got = read_xdmf(str(tmp_path / "out" / "solution-1.xdmf"))
+        assert np.array_equal(got["topology"],
+                              res.problem.space.mesh.cells())
+        assert np.array_equal(got["values"][:, 0], res.x.numpy())
+    else:
+        assert re.search(r"\[MEM\] VSIZE = \d+\.\d{3} GB, RSS = "
+                         r"\d+\.\d{3} GB", caplog.text)

@@ -296,6 +296,79 @@ def test_sharded_runs_with_tpufem_unimportable():
     assert "JAX_LOADED False" in out.stdout
 
 
+def test_xdmf_template_and_datasets_equal_tpufem(tmp_path):
+    """The XDMF template is tpufem's, and the datasets and attributes the
+    port writes are the ones tpufem's writer creates (P2: the full-order
+    datasets too)."""
+    h5py = pytest.importorskip("h5py")
+    from tpufem.io import xdmf as tpu_xdmf
+    from tpufem_torch.io import xdmf
+    assert xdmf._XDMF_TEMPLATE == tpu_xdmf._XDMF_TEMPLATE
+    mesh = structured.BoxTetMesh(2, 2, 3)
+    tmesh = tpu_structured.BoxTetMesh(2, 2, 3)
+    space = FunctionSpace(mesh, 2)
+    u = np.zeros(space.ndofs)
+    tpu_xdmf.write_xdmf(str(tmp_path / "ref.xdmf"), tmesh, u, bs=1,
+                        space=TpuSpace(tmesh, 2))
+    names = []
+    with h5py.File(tmp_path / "ref.h5", "r") as f:
+        f.visititems(lambda name, obj: names.append("/" + name)
+                     if isinstance(obj, h5py.Dataset) else None)
+        attrs = sorted(f.attrs)
+    data, mine_attrs = xdmf.xdmf_datasets(mesh, u, 1, space)
+    assert sorted(data) == sorted(names) == sorted([
+        "/mesh/topology", "/mesh/geometry", "/function/values",
+        "/function/dofs", "/function/dof_coords", "/function/cell_dofs"])
+    assert sorted(mine_attrs) == attrs == ["bs", "order"]
+
+
+def test_output_and_memory_profiling_run_with_tpufem_unimportable(tmp_path):
+    """--output and --memory_profiling (the slab path and the spoke) with
+    ``tpufem`` unimportable: the files re-read and [MEM] lines logged."""
+    code = (
+        "import sys\n"
+        "sys.modules['tpufem'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from tpufem_torch.cli import main\n"
+        "from tpufem_torch.io import read_xdmf\n"
+        "from tpufem_torch.problems import sharded\n"
+        "sharded.TIMING_REPS = 0\n"
+        f"out = {str(tmp_path)!r}\n"
+        "a = main(['--ndofs', '3000', '--num_shards', '2', '--dtype',"
+        " 'float64', '--device', 'cpu', '--output', out + '/a',"
+        " '--memory_profiling'])\n"
+        "u = main(['--mesh_type', 'unstructured', '--ndofs', '1500',"
+        " '--order', '2', '--dtype', 'float64', '--device', 'cpu',"
+        " '--output', out + '/u'])\n"
+        "fa = read_xdmf(out + '/a/solution-2.xdmf')\n"
+        "fu = read_xdmf(out + '/u/solution-1.xdmf')\n"
+        "assert (fa['values'][:, 0] == a.x.numpy()).all()\n"
+        "assert (fu['dofs'][:, 0] == u.x.numpy()).all()\n"
+        "print('JAX_LOADED', any(m == 'jax' or m.startswith('jax.')"
+        " for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX_LOADED False" in out.stdout
+    assert "[MEM] VSIZE = " in out.stderr
+
+
+def test_hostmem_is_tpufems_tune_allocator():
+    """The port's hostmem: tpufem's mallopt settings (its prefault and
+    warm_vm are not ported: README, "Not ported")."""
+    import inspect
+    from tpufem import hostmem as tpu_hostmem
+    from tpufem_torch import hostmem
+    for name in ("_M_TRIM_THRESHOLD", "_M_MMAP_THRESHOLD"):
+        assert getattr(hostmem, name) == getattr(tpu_hostmem, name)
+    assert inspect.getsource(hostmem.tune_allocator) == \
+        inspect.getsource(tpu_hostmem.tune_allocator)
+    assert not hasattr(hostmem, "prefault")
+    assert not hasattr(hostmem, "warm_vm")
+    assert hostmem.tune_allocator() and hostmem.tune_allocator()
+
+
 def test_native_source_is_tpufem_byte_for_byte():
     """tpufem_torch/native/fastsetup.cpp is tpufem's source, and the
     library builds from it into a directory keyed by its hash."""

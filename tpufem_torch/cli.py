@@ -23,8 +23,11 @@ tpufem runs: the cube on z-slabs, CG + distributed GMG at every order
 cubes too small for slabs (parallel.rowshard); a process holds its
 shards on its one device, and processes join over torch.distributed
 (parallel.multihost: MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE).
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): --output and --memory_profiling.
+``--output DIR`` writes the mesh and the solution as XDMF with an HDF5
+sidecar (io.xdmf, ``DIR/solution-<num_shards>.xdmf``) in tpufem's dof
+order and node-interleaved layout; across processes it raises, as
+tpufem cannot gather such a solution either.  ``--memory_profiling``
+logs ``[MEM]`` lines every 100 ms while the run lasts (memprof).
 
 Run:  python -m tpufem_torch --problem_type poisson --ndofs 500000 \\
           --scaling_type strong --device cuda [--order 2|3]
@@ -50,10 +53,12 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from tpufem_torch import __version__
+from tpufem_torch import __version__, hostmem
 from tpufem_torch.config import Config, SolverOptions
+from tpufem_torch.io import import_h5py, write_xdmf
 from tpufem_torch.la.vector import norm
 from tpufem_torch.logutil import init_logging, int64_to_human
+from tpufem_torch.memprof import MemoryProfiler
 from tpufem_torch.mesh.spoke import create_spoke_mesh
 from tpufem_torch.mesh.structured import (BoxTetMesh,
                                           compute_box_size_structured)
@@ -173,16 +178,6 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def _check_scope(cfg: Config) -> None:
-    unported = [
-        (bool(cfg.output), "--output (XDMF): ROADMAP M17"),
-        (cfg.memory_profiling, "--memory_profiling: ROADMAP M17"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
-
-
 def _log_view(cfg: Config, device: torch.device):
     """(trace directory or None, context of the solve): ``-log_view``
     traces the solve with torch.profiler into the given directory, or
@@ -203,7 +198,6 @@ def _log_view(cfg: Config, device: torch.device):
 
 def solve(cfg: Config, device: torch.device) -> SolveResult:
     """Run one configuration on ``device``."""
-    _check_scope(cfg)
     # full-precision float32 matmuls (tpufem's Precision.HIGHEST)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -215,17 +209,18 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
         device = torch.device("cuda", torch.cuda.current_device())
     init_logging(rank=proc_id)
     num_shards = cfg.num_shards or proc_count
+    if cfg.output:
+        import_h5py()  # raise before the run, not at its end
+
+    # glibc's allocator tuned for the setup's large temporaries, as
+    # tpufem's preamble does (tpufem/cli.py:116-124; hostmem)
+    hostmem.tune_allocator()
 
     if device.type == "cuda":
         from tpufem_torch import _build
         with Timer("ZZZ Build kernels"):
             _build.load()
 
-    # multi-shard execution (tpufem/cli.py:130-149): the cube on z-slabs
-    # at every order; unstructured meshes, and cubes too small for a
-    # sharded multigrid chain, on the row-sharded assembled path
-    use_sharded = num_shards > 1 and cfg.mesh_type == "cube"
-    use_rowshard = num_shards > 1 and not use_sharded
     if num_shards > 1 and num_shards % proc_count:
         raise SystemExit(f"num_shards={num_shards} over {proc_count} "
                          "processes: each process holds as many shards")
@@ -236,6 +231,21 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
         logger.info("subcomm_partition: no-op (each process builds only "
                     "its own shards)")
 
+    # the sampler runs from here to the end of the run, as tpufem's
+    # (tpufem/cli.py:151-154), and stops however the run ends
+    with (MemoryProfiler() if cfg.memory_profiling
+          else contextlib.nullcontext()):
+        return _run(cfg, device, num_shards, proc_count)
+
+
+def _run(cfg: Config, device: torch.device, num_shards: int,
+         proc_count: int) -> SolveResult:
+    """The mesh, the problem, the solve and the report of ``solve``."""
+    # multi-shard execution (tpufem/cli.py:130-149): the cube on z-slabs
+    # at every order; unstructured meshes, and cubes too small for a
+    # sharded multigrid chain, on the row-sharded assembled path
+    use_sharded = num_shards > 1 and cfg.mesh_type == "cube"
+    use_rowshard = num_shards > 1 and not use_sharded
     strong = cfg.scaling_type == "strong"
     with Timer("ZZZ Create Mesh"):
         if cfg.mesh_type == "cube":
@@ -309,7 +319,12 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
         prof.export_chrome_trace(os.path.join(trace_dir, "solve.trace.json"))
         print(f"-log_view: profiler trace written to {trace_dir}", flush=True)
 
-    list_timings()
+    if cfg.output:
+        with Timer("ZZZ Output"):
+            write_output(cfg.output, mesh, prob.space, x, num_shards,
+                         proc_count)
+
+    list_timings(ranks=num_shards)
     solver = prob.solver_function
     # across processes the sharded solve reports the owned-masked norm
     # itself (x stays sharded)
@@ -329,6 +344,27 @@ def solve(cfg: Config, device: torch.device) -> SolveResult:
     return SolveResult(iterations=num_iter, norm=sol_norm, true_rel=true_rel,
                        refine_passes=passes, refine_iterations=extra,
                        problem=prob, x=x)
+
+
+def write_output(out_dir: str, mesh, space, x: torch.Tensor,
+                 num_shards: int, proc_count: int) -> str:
+    """tpufem's ``--output`` step (tpufem/cli.py:257-264): the mesh and
+    the host copy of ``x`` to ``out_dir/solution-<num_shards>.xdmf``;
+    returns that path.  ``x`` is the solve's global vector in tpufem's
+    dof order (elasticity node-interleaved; a sharded run's collected
+    vector).  Across processes no process holds it, and tpufem's
+    ``np.asarray`` of its global array fails there too: this raises
+    before anything is written."""
+    if proc_count > 1:
+        raise ValueError(
+            f"--output across {proc_count} processes: each process holds "
+            "only its own shards of the solution, and tpufem cannot gather "
+            "a multi-process solution either; run --num_shards in one "
+            "process to write it")
+    os.makedirs(out_dir, exist_ok=True)
+    fn = os.path.join(out_dir, f"solution-{num_shards}.xdmf")
+    write_xdmf(fn, mesh, x.detach().cpu().numpy(), bs=space.bs, space=space)
+    return fn
 
 
 def main(argv: Optional[List[str]] = None) -> SolveResult:

@@ -38,10 +38,25 @@ class TimingRegistry:
     def reset(self) -> None:
         self._data.clear()
 
-    def table(self) -> str:
-        """Render the timing table (the ``list_timings`` analogue; one
-        process, so there are no min/avg/max columns over ranks)."""
+    def table(self, ranks: int = 1) -> str:
+        """Render the timing table (the ``list_timings`` analogue,
+        reference main.cpp:226 reduces min/avg/max over MPI ranks).
+
+        tpufem's table (tpufem/timing.py:39-58): for ``ranks`` > 1 the
+        reduced columns, each holding this process's time, as tpufem's
+        do (its shards run in lockstep; nothing is reduced across
+        processes in either package)."""
         name_w = max([len("Summary")] + [len(k) for k, _, _ in self.rows()]) + 2
+        if ranks > 1:
+            lines = [f"{'Summary':<{name_w}}{'reps':>6}  {'wall min':>12}"
+                     f"  {'wall avg':>12}  {'wall max':>12}"]
+            for name, reps, tot in self.rows():
+                avg = tot / max(reps, 1)
+                lines.append(f"{name:<{name_w}}{reps:>6}  {avg:>12.6f}"
+                             f"  {avg:>12.6f}  {avg:>12.6f}")
+            lines.append(f"(reduced over {ranks} shards; SPMD lockstep — "
+                         "one program, identical per-shard times)")
+            return "\n".join(lines)
         lines = [
             f"{'Summary':<{name_w}}{'reps':>6}  {'wall avg':>12}  {'wall tot':>12}",
         ]
@@ -90,7 +105,8 @@ class Timer:
         self.stop()
 
 
-def list_timings(registry: Optional[TimingRegistry] = None) -> str:
-    s = (registry or REGISTRY).table()
+def list_timings(registry: Optional[TimingRegistry] = None,
+                 ranks: int = 1) -> str:
+    s = (registry or REGISTRY).table(ranks=ranks)
     print(s, flush=True)
     return s
