@@ -178,6 +178,28 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    and the ZZZ Output seconds.  Where h5py is not installed the phase
    says so first, checks that ``--output`` raises naming it, and checks
    the datasets the writer would write instead.
+18. tpufem's strong-scaling rows (bench.py:347-466): ``cgpoisson_p1_2m``
+   (2,113,665 dofs), ``poisson_p1_10m`` (9,828,225, CG + GMG to rtol
+   1e-8), ``cgpoisson_p1_10m`` and ``elasticity_10m`` (10,031,427, the
+   planar bs = 3 operator, ``-ksp_max_it 200``), f32 through the CLI,
+   each problem freed before the next: K1 (the three-component K1) counted
+   from zero around each run; the cgpoisson rows' 100 steps held to
+   tpufem's float32 runs within LARGE_CG_NORM_TOL / LARGE_CG_REL_TOL
+   (its one-ulp spread), the GMG rows certified (true_rel <= 1e-8) within
+   one iteration and one refinement pass of tpufem's (LARGE_GMG_REF);
+   the ZZZ stages, first and warm solves, PC setup, certification and the
+   device's bytes in use printed; K1 against its plain version on the
+   Poisson 10M operators and the three-component K1 on the elasticity
+   10M ones (zone form, f32 / f64).
+19. ``-use_conv 1`` (fem/conv_op.py, cuDNN's conv3d and torch.einsum,
+   TF32 shown off): cgpoisson P2 / P3 500k, each of which must take the
+   channel-resident conv operator, launch no K3, K4, K5 or dia_zones
+   (counted from zero around each run), run 100 iterations and agree
+   with tpufem's float32 conv run (CG_CONV_NORM_TOL / CG_CONV_REL_TOL,
+   its one-ulp spread); its apply equals the strip apply of the same
+   matrix within TOL_APPLY and a converged solve the strip form's within
+   CG_F32_X_TOL; the time of an apply (and of the bulk conv3d alone)
+   beside K3's and the bound; the float64 P3 9,025-dof golden.
 
 Device times come from the profiler's spans of the kernel itself, each
 timed call after a read of 256 MB that evicts the L2 (``device_ms``);
@@ -249,6 +271,17 @@ CGPOISSON_REF = {
                                        77.29297299152508),
     (3, 10000, "weak", "float64"): (9025, 100, 0.00014496547881479667,
                                     20.20326073714228),
+    # -use_conv 1, the channel convolution (phase 19): the same script
+    # with --conv
+    (2, 500000, "strong", "float32", "conv"): (510705, 100,
+                                               0.6791812181472778,
+                                               121.7066438903169),
+    (3, 500000, "strong", "float32", "conv"): (516913, 100,
+                                               0.8679696917533875,
+                                               95.35603450568507),
+    (3, 10000, "weak", "float64", "conv"): (9025, 100,
+                                            0.0001449655950137895,
+                                            20.203260737146813),
     # -use_strip 0, the baked DIA operator: scripts/poisson_pk_reference.py
     # --problem_type cgpoisson --order 3 --ndofs 500000 --dtype float32
     (3, 500000, "strong", "float32", "dia"): (516913, 100,
@@ -285,6 +318,18 @@ CG_FLAT_NORM_TOL, CG_FLAT_REL_TOL = 3e-2, 0.15
 # form's solve of the same system within CG_F32_X_TOL (on an H100 5.4e-6
 # at P2 500k and 5.5e-6 at P3 500k)
 CONVERGED_RTOL, CONVERGED_KMAX = 1e-6, 3000
+# the conv form (-use_conv 1) in float32 is more sensitive still: its bulk
+# convolution and its boundary contractions cancel on the Dirichlet rows
+# only to float32 rounding, and tpufem's own conv runs end 9.3% (P2) and
+# 10.2% (P3) off its strip runs in norm; when every entry of its RHS
+# moves by one ulp (cgpoisson_reference.py --conv --ulp_seed S) its norm
+# moves by up to CONV_SPREAD_NORM and its rel by up to CONV_SPREAD_REL.
+# A conv run is held to tpufem's conv run within twice those moves, and,
+# converged, to the strip form's solve within CG_F32_X_TOL (same_matrix)
+# (S = 1..10: norm 7.7e-2 at P2, 4.4e-2 at P3; rel 1.67 at P2, 0.152 at P3)
+CONV_SPREAD_NORM, CONV_SPREAD_REL = 7.7e-2, 1.67
+CG_CONV_NORM_TOL = 2 * CONV_SPREAD_NORM
+CG_CONV_REL_TOL = 2 * CONV_SPREAD_REL
 # |K5 - plain| <= tol * sum |WT| |x|: K = 480 terms in two orders
 TOL_FLAT_F32 = 3e-5   # 480 * 2^-24
 TOL_FLAT_F64 = 1e-13  # 480 * 2^-53 = 5.3e-14
@@ -499,6 +544,52 @@ SPOKE_SHARD_NORM_TOL = 1e-4
 # (ndofs, iterations, norm), the norm held within CG_F32_NORM_TOL
 SHARD_CG_REF = (175273, 100, 80.32685852050781)
 
+# tpufem's strong-scaling rows (bench.py:347-466, the reference's
+# strong-scaling problem, README.md:555), f32 through the port's CLI
+# (phase 18): (key, argv, ndofs, lattice (Nx, Ny, Nz)).  Each row's
+# problem is freed before the next (tpufem notes an 8-10 GB host working
+# set at 10M, bench.py:371-372).
+LARGE_ARGS = ["--scaling_type", "strong", "--dtype", "float32",
+              "--device", "cuda"]
+LARGE_ROWS = (
+    ("cgpoisson_p1_2m", ["--problem_type", "cgpoisson", "--ndofs",
+                         "2000000"], 2113665, (112, 128, 144)),
+    ("poisson_p1_10m", ["--problem_type", "poisson", "--ndofs", "10000000",
+                        "-pc_type", "gmg", "-ksp_rtol", "1e-8",
+                        "-ksp_max_it", "100"], 9828225, (208, 208, 224)),
+    ("cgpoisson_p1_10m", ["--problem_type", "cgpoisson", "--ndofs",
+                          "10000000"], 9828225, (208, 208, 224)),
+    ("elasticity_10m", ["--problem_type", "elasticity", "--ndofs",
+                        "10000000", "-pc_type", "gmg", "-ksp_rtol", "1e-8",
+                        "-ksp_max_it", "200"], 10031427, (128, 160, 160)),
+)
+# tpufem's own float32 CPU runs of these rows (jax 0.9.0, numpy 2.0.2,
+# scipy 1.17.0; x64 off, as tpufem's CLI runs float32), from
+#   python scripts/cgpoisson_reference.py --order 1 --ndofs N \
+#       --scaling_type strong --dtype float32
+# key -> (iterations, rel, norm), and
+#   python scripts/poisson_pk_reference.py [--problem_type elasticity] \
+#       --order 1 --ndofs 10000000 --scaling_type strong \
+#       --dtype float32 [--ksp_max_it 200]
+# key -> (iterations, norm, true_rel, refinement passes).  BENCH.json's
+# round 5 (on a TPU: counts and residuals only) has 9 its / 3.901e-10 / 1
+# pass and 17 / 3.214e-11 / 3.
+LARGE_CG_REF = {
+    "cgpoisson_p1_2m": (100, 0.6587634086608887, 207.52679836491063),
+    "cgpoisson_p1_10m": (100, 0.8980990052223206, 295.8105151770892),
+}
+LARGE_GMG_REF = {
+    "poisson_p1_10m": (9, 666.9845581054688, 1.393e-10, 1),
+    "elasticity_10m": (17, 0.0006753992638550699, 3.098e-11, 3),
+}
+# The cgpoisson rows' 100 unconverged float32 steps move with rounding:
+# when every nonzero entry of tpufem's RHS moves by one ulp
+# (``cgpoisson_reference.py ... --ulp_seed S``), its norm moves by up to
+# 1.45e-5 (2M) and 1.68e-5 (10M), its recurrence rel by up to 4.8e-5 and
+# 1.0e-4 (S = 1..10 each).  Held to tpufem's values within about 5x the
+# largest of those moves:
+LARGE_CG_NORM_TOL, LARGE_CG_REL_TOL = 1e-4, 5e-4
+
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -693,7 +784,7 @@ def library_ms(A, x, y_ref):
     return median_ms(lambda: torch.sparse.mm(A, x[:, None])), err
 
 
-def kernel_phase(problem, gpu: str, comps: int = 1):
+def kernel_phase(problem, gpu: str, comps: int = 1, large: bool = False):
     """The kernel against its plain version on the operators the main
     path ran: the CG matrix, every smoothed GMG level and the RHS mass
     operator (zone form, K1), and the CG matrix in full-field form (K2),
@@ -701,7 +792,11 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
     the three-component form on the elasticity path's operators (its RHS
     mass operator is scalar and was held in phase 3's form).  On the CG
     matrix also torch.sparse.mm of its CSR (``library_ms``; planar order
-    for comps = 3).  Returns (rows, worst abs error)."""
+    for comps = 3).  ``large`` (phase 18's 2M and 10M rows): the zone
+    form only, without the full-field form and the CSR, whose host
+    export takes longer than the rest of the row; a matrix-free
+    cgpoisson problem has its one operator and no levels.  Returns
+    (rows, worst abs error)."""
     import numpy as np
     import torch
     from tpufem_torch.fem import stencil as st
@@ -718,29 +813,33 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
         kernel = "stencil_p1_bs3_kernel"
 
     solver = problem.solver_function
-    ops = [("CG matrix", solver.A)]
-    ops += [(f"GMG level {i}", lv.op) for i, lv in enumerate(solver.pc.levels)]
+    A = solver.A if hasattr(solver, "A") else solver.op
+    ops = [("CG matrix", A)]
+    if hasattr(solver, "pc"):
+        ops += [(f"GMG level {i}", lv.op)
+                for i, lv in enumerate(solver.pc.levels)]
     if comps == 1:
         ops.append(("RHS mass", problem.rhs_op))
     check(all(op.fields.shape[1] == 7 for _, op in ops),
           "a main-path operator is not in zone form")
     cases = [(f"{name} {'x'.join(map(str, op.grid_dims))}", op.fields,
               op.offsets, op.grid_dims) for name, op in ops]
-    A = solver.A
-    cases.append((f"CG matrix full-field (K2) "
-                  f"{'x'.join(map(str, A.grid_dims))}",
-                  full_fields(A.fields, A.grid_dims[0]), A.offsets,
-                  A.grid_dims))
     device = A.fields.device
-    csr = A.to_scipy()
-    if comps == 3:
-        perm = np.arange(csr.shape[0]).reshape(-1, 3).T.reshape(-1)
-        csr = csr[perm][:, perm]
+    csr = None
+    if not large:
+        cases.append((f"CG matrix full-field (K2) "
+                      f"{'x'.join(map(str, A.grid_dims))}",
+                      full_fields(A.fields, A.grid_dims[0]), A.offsets,
+                      A.grid_dims))
+        csr = A.to_scipy()
+        if comps == 3:
+            perm = np.arange(csr.shape[0]).reshape(-1, 3).T.reshape(-1)
+            csr = csr[perm][:, perm]
     rows = []
     worst = 0.0
     for dtype, tol in tols:
         gen = torch.Generator(device=device).manual_seed(1234)
-        lib = torch_csr(csr, device, dtype)
+        lib = None if csr is None else torch_csr(csr, device, dtype)
         for name, fields32, offsets, dims in cases:
             fields = fields32.to(dtype)
             args = (fields, offsets, dims)
@@ -773,7 +872,8 @@ def kernel_phase(problem, gpu: str, comps: int = 1):
                                   must_hold=comps == 3
                                   and name.startswith("CG matrix 65x"))
             lib_ms, lib_err = (library_ms(lib, x, yp)
-                               if name.startswith("CG matrix") else
+                               if lib is not None
+                               and name.startswith("CG matrix") else
                                (None, None))
             rows.append(dict(name=name, dtype=str(dtype).split(".")[1],
                              D=fields.shape[0], R=fields.shape[1],
@@ -867,12 +967,14 @@ def cgpoisson_run(cli, argv, ref_key, gpu: str):
          "dia_zones": dia_zones_apply.launches}
     solver = res.problem.solver_function
     ndofs, ref_it, ref_rel, ref_norm = CGPOISSON_REF[ref_key]
-    if "flat" in ref_key:
-        norm_tol, rel_tol = CG_FLAT_NORM_TOL, CG_FLAT_REL_TOL
-    elif ref_key[3] == "float32":
-        norm_tol, rel_tol = CG_F32_NORM_TOL, CG_F32_REL_TOL
-    else:
+    if ref_key[3] == "float64":
         norm_tol, rel_tol = CG_F64_TOL, CG_F64_REL_TOL
+    elif "flat" in ref_key:
+        norm_tol, rel_tol = CG_FLAT_NORM_TOL, CG_FLAT_REL_TOL
+    elif "conv" in ref_key:
+        norm_tol, rel_tol = CG_CONV_NORM_TOL, CG_CONV_REL_TOL
+    else:
+        norm_tol, rel_tol = CG_F32_NORM_TOL, CG_F32_REL_TOL
     norm_err = abs(res.norm - ref_norm) / ref_norm
     rel_err = abs(solver.rel - ref_rel) / ref_rel
     print(f"cgpoisson P{ref_key[0]} {ref_key[3]} {ndofs} dofs "
@@ -3220,6 +3322,244 @@ def output_phase(cli, gpu: str):
     return total
 
 
+def large_row(cli, key: str, argv, ndofs: int, lattice, gpu: str):
+    """One of tpufem's 2M / 10M rows through the CLI (phase 18), the
+    stencil launches counted from zero around it: K1 for the P1 rows, the
+    three-component K1 for elasticity.  A cgpoisson row runs its 100
+    steps and is held to tpufem's float32 run within the tolerance its
+    one-ulp spread gives; a GMG row converges, certifies true_rel <=
+    1e-8, and takes iterations and refinement passes within one of
+    tpufem's.  Prints the ZZZ stages, the first solve, the median of 5
+    warm solves, PC setup, certification and the device's bytes in use.
+    Returns (result, launches)."""
+    import torch
+    from tpufem_torch.fem.stencil import stencil_apply, stencil_apply_bs3
+    from tpufem_torch.memprof import device_memory_stats, read_statm
+    from tpufem_torch.timing import REGISTRY
+    device = torch.device("cuda", 0)
+    elastic = "elasticity" in argv
+    cg = "cgpoisson" in argv
+    REGISTRY.reset()
+    torch.empty(0, device=device)  # the allocator is up before its reset
+    torch.cuda.reset_peak_memory_stats(device)
+    stencil_apply.launches = 0
+    stencil_apply_bs3.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(LARGE_ARGS + argv)
+    cli_s = time.perf_counter() - t0
+    launches = stencil_apply_bs3.launches if elastic else stencil_apply.launches
+    other = stencil_apply.launches if elastic else stencil_apply_bs3.launches
+    stages = REGISTRY.rows()
+    mem = device_memory_stats(device)
+    rss = read_statm()[1]
+    prob = res.problem
+    solver = prob.solver_function
+    mesh = prob.space.mesh
+    check(prob.space.ndofs == ndofs,
+          f"{key}: {prob.space.ndofs} dofs, tpufem's row has {ndofs}")
+    check((mesh.Nx, mesh.Ny, mesh.Nz) == tuple(lattice),
+          f"{key}: lattice {(mesh.Nx, mesh.Ny, mesh.Nz)}, tpufem's {lattice}")
+    check(res.x.shape == (ndofs,) and bool(torch.isfinite(res.x).all()),
+          f"{key}: the solution is not a finite vector of ndofs")
+    check(launches > 0, f"{key} launched no {'three-component ' if elastic
+                                             else ''}stencil kernel")
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, its, _ = solver.run(prob.u, prob.b)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    warm = statistics.median(runs)
+    its = int(its)
+    check(its == res.iterations, f"{key}: a warm solve took {its} "
+          f"iterations, the first {res.iterations}")
+    if cg:
+        ref_it, ref_rel, ref_norm = LARGE_CG_REF[key]
+        norm_err = abs(res.norm - ref_norm) / ref_norm
+        rel_err = abs(solver.rel - ref_rel) / ref_rel
+        held = (f"rel {solver.rel!r} (tpufem {ref_rel!r}, off by "
+                f"{rel_err:.2e}, tol {LARGE_CG_REL_TOL:g}), norm "
+                f"{res.norm!r} (tpufem {ref_norm!r}, off by {norm_err:.2e}, "
+                f"tol {LARGE_CG_NORM_TOL:g}); {solver.gdofs:.4f} Gdof/s "
+                f"(the CLI's fastest pass, {solver.solve_s:.6f} s a solve)")
+        setup = "PC setup none, certify none"
+    else:
+        ref_it, ref_norm, ref_true, ref_passes = LARGE_GMG_REF[key]
+        norm_err = abs(res.norm - ref_norm) / ref_norm
+        held = (f"true_rel {res.true_rel!r} (tpufem {ref_true!r}), "
+                f"{res.refine_passes} refinement pass(es) (+"
+                f"{res.refine_iterations} its; tpufem {ref_passes}), norm "
+                f"{res.norm!r} (tpufem {ref_norm!r}, off by {norm_err:.2e})")
+        setup = (f"PC setup {solver.pc_setup_s:.3f} s, certify "
+                 f"{solver.certify_s:.3f} s")
+    stage_txt = ", ".join(f"{name[4:] if name.startswith('ZZZ ') else name}"
+                          f" {tot:.3f}" for name, _, tot in stages)
+    print(f"{key}: {ndofs} dofs on {mesh.Nx}x{mesh.Ny}x{mesh.Nz} cubes, "
+          f"{res.iterations} iterations (tpufem {ref_it}), {held}; "
+          f"{'three-component ' if elastic else ''}stencil launches "
+          f"{launches} (the other form {other})  [{gpu}]", flush=True)
+    print(f"{key} times: ZZZ stages (s): {stage_txt}; first solve (ZZZ "
+          f"Solve) {REGISTRY.get('ZZZ Solve'):.3f} s, whole CLI run "
+          f"{cli_s:.3f} s; {setup}; warm solve (uncertified) median "
+          f"{warm:.4f} s of 5 (min {min(runs):.4f}, max {max(runs):.4f}), "
+          f"{warm / its * 1e3:.3f} ms/iteration; device bytes_in_use "
+          f"{mem['bytes_in_use'] / 2**30:.3f} GiB (peak "
+          f"{mem['peak_bytes_in_use'] / 2**30:.3f}, reserved "
+          f"{mem['bytes_reserved'] / 2**30:.3f}), host RSS "
+          f"{rss / 2**30:.3f} GiB  [{gpu}]", flush=True)
+    if cg:
+        check(res.iterations == 100 == ref_it,
+              f"{key}: {res.iterations} iterations, tpufem's run took "
+              f"{ref_it}")
+        check(norm_err <= LARGE_CG_NORM_TOL,
+              f"{key}: norm off tpufem's by rel {norm_err:.2e}")
+        check(rel_err <= LARGE_CG_REL_TOL,
+              f"{key}: recurrence rel off tpufem's by rel {rel_err:.2e}")
+    else:
+        check(res.true_rel is not None and res.true_rel <= 1e-8,
+              f"{key}: certified true residual {res.true_rel} > 1e-8")
+        check(abs(res.iterations - ref_it) <= 1,
+              f"{key}: {res.iterations} iterations, tpufem's {ref_it}")
+        check(abs(res.refine_passes - ref_passes) <= 1,
+              f"{key}: {res.refine_passes} refinement passes, tpufem's "
+              f"{ref_passes}")
+    return res, launches
+
+
+def large_phase(cli, gpu: str):
+    """Phase 18: tpufem's 2M and 10M strong-scaling rows (LARGE_ROWS)
+    through the CLI, each problem freed before the next; K1 against its
+    plain version on the Poisson 10M operators (the CG matrix, its GMG
+    levels, the RHS mass operator) and the three-component K1 on the
+    elasticity 10M operators, zone form, float32 and float64.  Returns
+    ({kernel: launches}, {kernel: rows}, {kernel: worst abs error})."""
+    import gc
+
+    import torch
+    launches = {"stencil_p1": 0, "stencil_p1_bs3": 0}
+    rows = {"stencil_p1": [], "stencil_p1_bs3": []}
+    worst = {"stencil_p1": 0.0, "stencil_p1_bs3": 0.0}
+    for key, argv, ndofs, lattice in LARGE_ROWS:
+        t0 = time.perf_counter()
+        res, n = large_row(cli, key, argv, ndofs, lattice, gpu)
+        name = "stencil_p1_bs3" if key.startswith("elasticity") else \
+            "stencil_p1"
+        launches[name] += n
+        if key in ("poisson_p1_10m", "elasticity_10m"):
+            r, w = kernel_phase(res.problem, gpu,
+                                comps=3 if name.endswith("bs3") else 1,
+                                large=True)
+            rows[name] += r
+            worst[name] = max(worst[name], w)
+        print(f"{key}: {time.perf_counter() - t0:.1f} s with its kernel "
+              f"checks  [{gpu}]", flush=True)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, rows, worst
+
+
+def conv_work(op):
+    """(bytes, flops) of one channel-resident conv apply: the padded
+    tensor read and written once with the kernels; per output cell of the
+    grid and of each boundary window a 27-tap, C x C product."""
+    Gz, Gy, Gx = op.gdims
+    C = op.weight.shape[0]
+    item = op.weight.element_size()
+    kernels = op.weight.numel() + sum(
+        k.numel() for k in op.Kfaces + op.Kedges + op.Kcorners)
+    nbytes = (2 * (Gz + 2) * (Gy + 2) * (Gx + 2) * C + kernels) * item
+    cells = (Gz * Gy * Gx + 7 * (Gy * Gx + Gz * Gx + Gz * Gy)
+             + 49 * (Gx + Gy + Gz) + 343)
+    return nbytes, 2 * 27 * C * C * cells
+
+
+def conv_phase(cli, gpu: str):
+    """Phase 19: cgpoisson P2 / P3 500k with ``-use_conv 1``: the channel
+    convolution (fem/conv_op.py: cuDNN's conv3d and torch.einsum, as
+    tpufem's XLA form, no hand kernel), with cuDNN's and the matmuls'
+    TF32 shown off; each run takes the conv operator channel-resident,
+    launches no K3, K4, K5 or dia_zones (counted from zero around it),
+    runs 100 iterations and agrees with tpufem's float32 conv run; its
+    apply equals the strip apply of the same matrix and a converged solve
+    the strip form's (same_matrix); the time of an apply beside K3's and
+    the bound; the float64 P3 9,025-dof golden.  Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+    from tpufem_torch.fem.conv_op import ConvStencilOp
+    from tpufem_torch.fem.dia_op import build_operator
+    from tpufem_torch.fem.strip_op import StripOperator
+    flags = (f"torch.backends.cudnn.allow_tf32 "
+             f"{torch.backends.cudnn.allow_tf32}, "
+             f"torch.backends.cuda.matmul.allow_tf32 "
+             f"{torch.backends.cuda.matmul.allow_tf32}")
+    print(f"phase 19: {flags}", flush=True)
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          f"TF32 is on ({flags}): the conv form needs full float32")
+    rows = []
+
+    def conv_run(argv, key):
+        r, n = cgpoisson_run(cli, argv, key, gpu)
+        solver = r.problem.solver_function
+        check(isinstance(solver.op, ConvStencilOp) and solver.channels,
+              f"{argv}: not the channel-resident conv operator "
+              f"({type(solver.op).__name__})")
+        check(not any(n.values()), f"{argv}: a stencil kernel launched "
+              f"with -use_conv 1: {n}")
+        check(not torch.backends.cudnn.allow_tf32,
+              "cuDNN's TF32 is on after the conv run")
+        return r
+
+    for order in (2, 3):
+        r = conv_run(CG_ARGS + ["--order", str(order), "--ndofs", "500000",
+                                "-use_conv", "1"],
+                     (order, 500000, "strong", "float32", "conv"))
+        prob = r.problem
+        op = prob.solver_function.op
+        dev = op.device
+        dia = build_operator(prob.space.mesh, order, "poisson",
+                             bc_dofs=prob.bc.flat_dofs(),
+                             dtype=torch.float32, bake_bc=True)
+        sop = StripOperator.from_dia(dia, dtype=torch.float32, device=dev)
+        same_matrix("conv", (op.apply, op.apply_channels,
+                             op.to_channels_padded, op.from_channels_padded),
+                    sop, prob.b, f"P{order} 500k", gpu)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        u = torch.randn(prob.b.shape, generator=gen, device=dev)
+        xp, xs = op.to_channels_padded(u), sop.to_strips(u)
+        conv_ms = median_ms(lambda: op.apply_channels(xp), reps=10,
+                            samples=5)
+        w = xp.permute(3, 0, 1, 2)[None]
+        bulk_ms = median_ms(lambda: F.conv3d(w, op.weight), reps=10,
+                            samples=5)
+        k3_ms = median_ms(lambda: sop.apply_strips(xs))
+        b_ms, b_by = bound_ms(*conv_work(op))
+        Gz, Gy, Gx = op.gdims
+        C = op.weight.shape[0]
+        row = dict(name=f"P{order} 500k [{Gz},{Gy},{Gx},{C}]",
+                   ms=conv_ms, bulk_conv_ms=bulk_ms, strip_apply_ms=k3_ms,
+                   bound_ms=b_ms, bound_by=b_by,
+                   gdofs=prob.solver_function.gdofs)
+        rows.append(row)
+        print(f"conv apply P{order} 500k, channel grid {Gz}x{Gy}x{Gx} x {C}: "
+              f"{conv_ms:.4f} ms per channel-resident apply (the bulk "
+              f"conv3d alone {bulk_ms:.4f} ms, the 26 boundary einsums the "
+              f"rest); K3 on the same matrix {k3_ms:.4f} ms per call; bound "
+              f"{b_ms:.4f} ms ({b_by}); the run "
+              f"{prob.solver_function.gdofs:.4f} Gdof/s  [{gpu}]",
+              flush=True)
+        del r, prob, op, sop, dia, xp, xs, w, u
+        torch.cuda.empty_cache()
+
+    g = conv_run(["--problem_type", "cgpoisson", "--order", "3", "--ndofs",
+                  "10000", "--dtype", "float64", "--device", "cuda",
+                  "-use_conv", "1"], (3, 10000, "weak", "float64", "conv"))
+    del g
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3231,6 +3571,10 @@ def main() -> int:
     from tpufem_torch.fem.stencil import stencil_apply
     from tpufem_torch.timing import REGISTRY
 
+    # full-precision float32 products in the script's own calls too, as
+    # the CLI sets them (TF32 is cuDNN's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
@@ -3497,6 +3841,18 @@ def main() -> int:
     print(f"phase 17: {time.perf_counter() - t17:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
 
+    # -- 18. tpufem's 2M and 10M strong-scaling rows ------------------------
+    t18 = time.perf_counter()
+    large_launches, large_rows, large_worst = large_phase(cli, gpu)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
+    # -- 19. -use_conv 1: the channel-convolution operator ------------------
+    t19 = time.perf_counter()
+    conv_phase(cli, gpu)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -3658,6 +4014,13 @@ def main() -> int:
     for k in kernels:
         k["launches_sharded"] = shard_launches.get(k["name"], 0)
         k["launches_output"] = output_launches.get(k["name"], 0)
+        k["launches_large"] = large_launches.get(k["name"], 0)
+        if large_rows.get(k["name"]):
+            k["max_abs_err"] = max(k["max_abs_err"], large_worst[k["name"]])
+            k["large"] = [{f: r[f] for f in ("name", "dtype", "ms",
+                                             "device_ms", "plain_ms",
+                                             "bound_ms", "max_abs_err")}
+                          for r in large_rows[k["name"]]]
         if shard_rows.get(k["name"]):
             k["sharded"] = shard_rows[k["name"]]
     print(f"device_ms: {len(REFUSED_PROFILES)} profile(s) refused for a "

@@ -9,19 +9,23 @@ device RHS, the const-table DIA as a StripOperator, and
 ``cg_solve_fused``.  With ``--flat`` (P2/P3) it runs the ``-use_flat 1``
 loop instead (cgpoisson.py:268-277): the DIA as a FlatOperator (its XLA
 interior twin on the CPU) and ``cg_solve_fused`` on the float32
-channel-plane buffer.  With ``--mesh_type unstructured`` it runs the
+channel-plane buffer.  With ``--conv`` (P2/P3) it runs the ``-use_conv 1``
+loop (cgpoisson.py:131-150, 279-287): the DIA as a ConvStencilOp and
+``cg_solve_fused`` on its padded channel tensor.  With ``--mesh_type
+unstructured`` it runs the
 spoke mesh's loop (cgpoisson.py:84-107, 205-209, 278-282): the host RHS
 with b[bc] = 0, the matrix-free ``MatFreePoissonOp`` (gather, metric
 action, sorted segment sum) and ``cg_solve_fused`` on it.  It prints one
 JSON line per configuration: the lattice (the cube) or the cell count
 (the spoke), ndofs, iterations, the recurrence rel and the solution norm.
-``--ulp_seed S`` (the spoke) moves every nonzero entry of the RHS, in the
+``--ulp_seed S`` moves every nonzero entry of the RHS, in the
 solve's dtype, by one ulp up or down, the directions drawn from
 ``numpy.random.default_rng(S)``: how far the loop's own rounding can move
 its result, the measure of the port's tolerances on these runs.
 
     python scripts/cgpoisson_reference.py --order 3 --ndofs 500000 \\
-        --scaling_type strong --dtype float32 [--flat]
+        --scaling_type strong --dtype float32 [--flat | --conv] \\
+        [--ulp_seed 1]
     python scripts/cgpoisson_reference.py --mesh_type unstructured \\
         --order 1 --ndofs 500000 --scaling_type strong --dtype float32 \\
         [--ulp_seed 1]
@@ -53,10 +57,12 @@ def main() -> None:
     p.add_argument("--kmax", type=int, default=100)
     p.add_argument("--flat", action="store_true",
                    help="the -use_flat 1 operator (P2/P3)")
+    p.add_argument("--conv", action="store_true",
+                   help="the -use_conv 1 operator (P2/P3)")
     p.add_argument("--mesh_type", default="cube",
                    choices=("cube", "unstructured"))
     p.add_argument("--ulp_seed", type=int, default=None,
-                   help="the spoke: move the RHS by one ulp (this seed)")
+                   help="move the RHS by one ulp (this seed)")
     a = p.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
@@ -66,6 +72,7 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
+    from tpufem.fem.conv_op import ConvStencilOp
     from tpufem.fem.dia_op import build_operator
     from tpufem.fem.flat_op import FlatOperator
     from tpufem.fem.dirichlet import DirichletBC
@@ -93,9 +100,21 @@ def main() -> None:
         b_np = assemble_poisson_rhs_np(space)
         b_np[bc.flat_dofs()] = 0.0
         b = jnp.asarray(b_np)
+    if a.ulp_seed is not None:
+        b = jnp.asarray(ulp_nudge(np.asarray(b), a.ulp_seed))
     op = build_operator(mesh, a.order, "poisson", bc_dofs=bc.flat_dofs(),
                         dtype=dtype, bake_bc=True)
-    if a.flat:
+    if a.flat and a.conv:
+        raise SystemExit("--flat and --conv are two operators: pick one")
+    if a.conv:
+        op = ConvStencilOp.from_dia(op, dtype=dtype)
+
+        def run(r):
+            x_ch, it, rel = cg_solve_fused(op.apply_channels,
+                                           op.to_channels_padded(r), x0=None,
+                                           rtol=a.rtol, maxit=a.kmax)
+            return op.from_channels_padded(x_ch), it, rel
+    elif a.flat:
         op = FlatOperator.from_dia(op)
         if op is None:
             raise SystemExit("the lattice does not fit the flat operator")
@@ -121,6 +140,7 @@ def main() -> None:
     print(json.dumps({
         "order": a.order, "ndofs": int(space.ndofs), "lattice": [nx, ny, nz],
         "scaling_type": a.scaling_type, "dtype": a.dtype, "flat": a.flat,
+        "conv": a.conv, "ulp_seed": a.ulp_seed,
         "iterations": int(it), "rel": float(rel),
         "norm": float(np.linalg.norm(x.astype(np.float64))),
         "norm_in_dtype": float(jnp.sqrt(jnp.sum(jnp.asarray(x) ** 2))),

@@ -20,6 +20,8 @@ residual.
         --scaling_type strong --dtype float32
     python scripts/poisson_pk_reference.py --problem_type elasticity \\
         --order 2 --ndofs 500000 --scaling_type strong --dtype float32
+    python scripts/poisson_pk_reference.py --problem_type elasticity \\
+        --order 1 --ndofs 10000000 --ksp_max_it 200
     python scripts/poisson_pk_reference.py --problem_type cgpoisson \\
         --order 3 --ndofs 500000 --scaling_type strong --dtype float32
 
@@ -52,7 +54,7 @@ def cli_run(a) -> dict:
                       str(a.order), "--ndofs", str(a.ndofs), "--scaling_type",
                       a.scaling_type, "--dtype", a.dtype, "--num_shards", "1",
                       "-pc_type", "gmg", "-ksp_rtol", "1e-8",
-                      "-ksp_max_it", "100"])
+                      "-ksp_max_it", str(a.ksp_max_it)])
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         its, norm = solve(cfg)
@@ -102,6 +104,9 @@ def main() -> None:
     p.add_argument("--rtol", type=float, default=1e-6,
                    help="cgpoisson's rtol")
     p.add_argument("--kmax", type=int, default=100, help="cgpoisson's kmax")
+    p.add_argument("--ksp_max_it", type=int, default=100,
+                   help="poisson / elasticity: CG's cap (bench.py's "
+                        "elasticity_10m row runs 200)")
     a = p.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax

@@ -23,6 +23,7 @@ from tpufem.problems import common as tpu_common
 from tpufem.problems import poisson as tpu_poisson
 
 from tpufem_torch import cli
+from tpufem_torch.fem.conv_op import ConvStencilOp
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.space import FunctionSpace
 from tpufem_torch.fem.strip_op import StripOperator
@@ -157,16 +158,30 @@ def test_cg_kernel_is_read_only_for_a_strip_operator(one_timed_solve, caplog,
 
 
 def test_logged_no_op_options_are_consumed(one_timed_solve, caplog):
-    """-use_pallas and -use_conv are accepted and logged, -cg_rtol and
-    -cg_kmax read; only an unknown option is left over."""
+    """-use_pallas is accepted and logged, -use_conv builds the conv
+    operator (P2: the strip operator is not built), -cg_rtol and -cg_kmax
+    are read; only an unknown option is left over."""
     caplog.set_level("INFO", logger="tpufem_torch")
-    res = cli.main(["--problem_type", "cgpoisson", "--ndofs", "3000",
-                    "--dtype", "float64", "--device", "cpu",
-                    "-use_pallas", "1", "-use_conv", "1", "-cg_rtol", "1e-30",
-                    "-cg_kmax", "7", "-totally_bogus", "42"])
+    res = cli.main(["--problem_type", "cgpoisson", "--order", "2",
+                    "--ndofs", "3000", "--dtype", "float64", "--device",
+                    "cpu", "-use_pallas", "1", "-use_conv", "1", "-cg_rtol",
+                    "1e-30", "-cg_kmax", "7", "-totally_bogus", "42"])
     assert res.iterations == 7
     assert "use_pallas ignored" in caplog.text
-    assert "use_conv ignored" in caplog.text
+    op = res.problem.solver_function.op
+    assert isinstance(op, ConvStencilOp) and not isinstance(op, StripOperator)
     left = [r.getMessage() for r in caplog.records
             if "Option left" in r.getMessage()]
     assert left == ["Option left: unused solver option 'totally_bogus'"]
+
+
+def test_use_conv_0_keeps_the_strip_operator(one_timed_solve, caplog):
+    """-use_conv 0 is read and leaves the default P2 operator, the strip
+    form."""
+    caplog.set_level("INFO", logger="tpufem_torch")
+    res = cli.main(["--problem_type", "cgpoisson", "--order", "2",
+                    "--ndofs", "3000", "--dtype", "float64", "--device",
+                    "cpu", "-use_conv", "0", "-cg_kmax", "7"])
+    assert isinstance(res.problem.solver_function.op, StripOperator)
+    assert not res.problem.solver_function.channels
+    assert "Option left" not in caplog.text

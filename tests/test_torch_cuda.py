@@ -2,7 +2,8 @@
 the strip apply K3, the whole-CG kernel K4, the flat interior K5,
 brick_flat, the multi-kind zone kernel, the blocked per-perm apply, the
 CSR product, the bf16 dense level's product and the matrix-free action)
-against their plain PyTorch versions, on the card.
+against their plain PyTorch versions, on the card; and the ``-use_conv
+1`` operator (cuDNN's conv3d and einsums) against its float64 host form.
 Marked ``cuda``: without a CUDA device every test skips.
 
 This file imports no jax, so it also runs on a machine without jax; the
@@ -1460,3 +1461,102 @@ def test_reduced_table_of_a_sharded_card_run(device, capsys):
     out = capsys.readouterr().out
     assert "wall min" in out and "wall max" in out
     assert "(reduced over 2 shards; SPMD lockstep" in out
+
+
+# -- tpufem's strong-scaling widths: K1 at X = 209, the three-component K1
+#    at X = 129 (its 10M elasticity grid is 161x161x129) -----------------
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+def test_kernel_matches_plain_at_the_10m_widths(device, dtype, tol):
+    """A few planes of the 10M rows' (y, x) planes: each block stages a
+    halo of X + 1 points either side of its 256 (128) points."""
+    from tpufem_torch.fem import stencil
+    op = _op((208, 208, 21), "const", dtype, device)
+    assert op.grid_dims == (22, 209, 209)
+    assert stencil.stencil_runs(op.grid_dims, 7, op.fields.element_size()
+                                )[:, 1].max() == 8
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(op.layout.ndofs)).to(device,
+                                                                   dtype)
+    args = (op.fields, op.offsets, op.grid_dims)
+    yk = stencil_apply(x, *args)
+    yp = stencil_apply_plain(x, *args)
+    bound = stencil_apply_plain(x.abs(), op.fields.abs(), *args[1:])
+    assert bool(((yk - yp).abs() <= tol * bound).all())
+    op3 = _elast_op((128, 160, 9), "const", dtype, device)
+    assert op3.grid_dims == (10, 161, 129)
+    x3 = torch.from_numpy(rng.standard_normal(3 * op3.layout.ndofs)).to(
+        device, dtype)
+    args3 = (op3.fields, op3.offsets, op3.grid_dims)
+    yk3 = stencil.stencil_apply_bs3(x3, *args3)
+    yp3 = stencil.stencil_apply_bs3_plain(x3, *args3)
+    bound3 = stencil.stencil_apply_bs3_plain(x3.abs(), op3.fields.abs(),
+                                             *args3[1:])
+    assert bool(((yk3 - yp3).abs() <= 3 * tol * bound3).all())
+
+
+# -- -use_conv 1: the channel convolution (cuDNN conv3d + torch.einsum) -----
+def _conv(order, dims, dtype, device):
+    from tpufem_torch.fem.conv_op import ConvStencilOp
+    mesh = BoxTetMesh(*dims)
+    bc = DirichletBC.from_space(FunctionSpace(mesh, order),
+                                mesh.locate_boundary_facets(poisson_bc_marker))
+    dia = DiaOperator.try_const(mesh, order, "poisson",
+                                bc_dofs=bc.flat_dofs(), dtype=torch.float64)
+    return (ConvStencilOp.from_dia(dia, dtype=dtype, device=device),
+            ConvStencilOp.from_dia(dia, dtype=torch.float64), dia)
+
+
+@pytest.mark.parametrize("order,dims", [(2, (8, 9, 10)), (3, (8, 9, 10)),
+                                        (3, (24, 24, 32))],
+                         ids=["P2", "P3", "P3-500k"])
+def test_conv_op_on_the_card(device, monkeypatch, order, dims):
+    """float32 on the card against the float64 operator on the host
+    within tpufem's 2e-5 * max|ref| for two forms of one matrix, TF32 off;
+    the channel-resident apply keeps phantoms and the ring zero; with
+    cuDNN's TF32 on, the apply refuses."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    op, ref_op, dia = _conv(order, dims, torch.float32, device)
+    x = np.random.default_rng(3).standard_normal(dia.layout.ndofs)
+    ref = ref_op.apply(torch.from_numpy(x))
+    xd = torch.from_numpy(x).to(device, torch.float32)
+    got = op.apply(xd).double().cpu()
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    xp = op.to_channels_padded(xd)
+    yp = op.apply_channels(xp)
+    assert not (yp[1:-1, 1:-1, 1:-1] * (1 - op.chan_mask)).any()
+    assert torch.equal(op.from_channels_padded(yp), op.apply(xd))
+    # float64 on the card: cuDNN's double convolution
+    op64, _, _ = _conv(order, dims, torch.float64, device)
+    got64 = op64.apply(torch.from_numpy(x).to(device)).cpu()
+    assert float((got64 - ref).abs().max()) <= 1e-12 * float(
+        ref.abs().max())
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        op.apply(xd)
+    torch.cuda.synchronize()
+
+
+def test_cgpoisson_use_conv_on_the_card(device):
+    """-use_conv 1 through the CLI on the card (P2 8x8x10, float64, 60
+    steps): the conv operator channel-resident, no stencil kernel
+    launched, at tpufem's norm (tests/test_torch_conv.py's CONV_P2_REF)."""
+    from tpufem_torch import cli
+    from tpufem_torch.fem.conv_op import ConvStencilOp
+    from tpufem_torch.fem.dia_zones import dia_zones_apply
+    StripOperator.apply_strips.launches = 0
+    FlatOperator.interior.launches = 0
+    dia_zones_apply.launches = 0
+    res = cli.main(["--problem_type", "cgpoisson", "--order", "2", "--ndofs",
+                    "6000", "--dtype", "float64", "--device", "cuda",
+                    "-use_conv", "1", "-cg_kmax", "60", "-cg_rtol", "0",
+                    "-use_flat", "1"])
+    solver = res.problem.solver_function
+    assert isinstance(solver.op, ConvStencilOp) and solver.channels
+    assert solver.op.device.type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
+    assert (StripOperator.apply_strips.launches, FlatOperator.interior.launches,
+            dia_zones_apply.launches) == (0, 0, 0)
+    assert res.iterations == 60
+    assert abs(res.norm - 16.571713427813453) <= 1e-9 * 16.571713427813453

@@ -186,7 +186,9 @@ def test_bs3_wrapper_checks_and_never_falls_back():
 
 @pytest.mark.parametrize("dims,R,itemsize,run", [
     ((65, 49, 49), 7, 4, 4), ((65, 49, 49), 7, 8, 4),
-    ((33, 25, 25), 7, 8, 4), ((9, 7, 7), 9, 8, 1), ((20, 3, 1200), 7, 8, 1)])
+    ((33, 25, 25), 7, 8, 4), ((9, 7, 7), 9, 8, 1), ((20, 3, 1200), 7, 8, 1),
+    # the elasticity_10m row's grid (128x160x160 cubes)
+    ((161, 161, 129), 7, 4, 4), ((161, 161, 129), 7, 8, 4)])
 def test_three_component_runs_fit_the_shared_memory(dims, R, itemsize, run):
     """A block of the three-component kernel stages the run's planes of
     all three source components once for its three output components:

@@ -223,7 +223,9 @@ def test_packed_offsets_reproduce_the_operator(dims):
 @pytest.mark.parametrize("dims,R,itemsize", [
     ((97, 81, 65), 7, 4), ((49, 41, 33), 7, 4), ((13, 11, 9), 7, 8),
     ((7, 7, 7), 7, 4), ((8, 7, 9), 7, 8), ((10, 5, 5), 7, 4),
-    ((97, 81, 65), 97, 4), ((4, 5, 8), 4, 8), ((20, 3, 4000), 7, 8)])
+    ((97, 81, 65), 97, 4), ((4, 5, 8), 4, 8), ((20, 3, 4000), 7, 8),
+    # the 10M rows' grid (208x208x224 cubes): 8-plane runs, 27 KB a block
+    ((225, 209, 209), 7, 4), ((225, 209, 209), 7, 8)])
 def test_stencil_runs_cover_the_grid_once(dims, R, itemsize):
     """The kernel's z runs cover every plane once, every plane of a run
     has the same field row (one weight load a run), a run has at most 8

@@ -22,6 +22,11 @@ chain (cgpoisson.py:110-212):
   layout, the multi-kind DIA itself, one launch of the zone kernel per
   apply (fem.dia_zones); lattices too small for the const form use the
   per-perm StructuredOperator with the rows-zero convention;
+- P2/P3 with ``-use_conv 1`` (taken first, tpufem's cgpoisson.py:131-150):
+  the same matrix as a channel convolution (fem.conv_op: cuDNN's conv3d
+  and 26 einsums, as tpufem's XLA form), the CG loop on its padded
+  channel tensor (cgpoisson.py:279-287); the flat and strip forms need a
+  DiaOperator and no longer apply;
 - P2/P3 with ``-use_flat 1``: the same matrix on the channel-plane layout
   (fem.flat_op), one launch of the flat interior kernel (K5) per apply
   plus the slab corrections in torch; float32 whatever ``--dtype``, as in
@@ -49,6 +54,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tpufem_torch.config import Config
+from tpufem_torch.fem.conv_op import ConvStencilOp
 from tpufem_torch.fem.dia_op import DiaOperator, build_operator, np_dtype
 from tpufem_torch.fem.dirichlet import DirichletBC
 from tpufem_torch.fem.flat_op import FlatOperator
@@ -89,6 +95,10 @@ class Solver:
         self.rtol, self.kmax = rtol, kmax
         self.acc_dtype, self.device = acc_dtype, device
         self.cg_kernel = cg_kernel
+        # the baked conv form runs channel-resident (tpufem's run_ch,
+        # cgpoisson.py:279-287)
+        self.channels = (isinstance(op, ConvStencilOp)
+                         and apply == op.apply)
         self.gdofs: Optional[float] = None
         self.solve_s: Optional[float] = None
         self.rel: Optional[float] = None
@@ -113,6 +123,15 @@ class Solver:
                                               rtol=self.rtol, maxit=self.kmax,
                                               acc_dtype=self.acc_dtype)
             return op.from_strips(x_f, dtype=rhs.dtype), it, rel
+        if self.channels:
+            # channel-resident loop: the flat <-> channel relayout pays
+            # once per solve; phantoms and the zero ring stay zero, so
+            # tensor dots equal dof dots
+            x_c, it, rel = cg_solve_fused(op.apply_channels,
+                                          op.to_channels_padded(rhs),
+                                          rtol=self.rtol, maxit=self.kmax,
+                                          acc_dtype=self.acc_dtype)
+            return op.from_channels_padded(x_c), it, rel
         if isinstance(op, FlatOperator):
             # channel-resident loop on the float32 plane buffer; pad and
             # guard lanes stay exactly zero (the fmask product)
@@ -162,17 +181,24 @@ def _operator(mesh: BoxTetMesh, order: int, bc: DirichletBC, cfg: Config,
     if not baked:
         op = build_operator(mesh, order, "poisson", bc_dofs=bc.flat_dofs(),
                             dtype=dtype, device=device, bake_bc=False)
+    if (order >= 2 and isinstance(op, DiaOperator) and op.is_const()
+            and extra.get("use_conv")):
+        # -use_conv 1: the same matrix as a channel convolution
+        # (fem.conv_op); taken first, so the flat and strip forms, which
+        # need a DiaOperator, no longer apply
+        try:
+            op = ConvStencilOp.from_dia(op, dtype=dtype, device=device)
+        except ValueError:
+            pass
     if "use_conv" in extra:
         consumed.add("use_conv")
-        if extra["use_conv"]:
-            logger.info("use_conv ignored: the channel-convolution operator "
-                        "is not ported (ROADMAP M17); the stencil runs")
     if "use_pallas" in extra:
         consumed.add("use_pallas")
         if extra["use_pallas"]:
             logger.info("use_pallas ignored: the CUDA stencil kernel is "
                         "already the P1 operator")
-    if order >= 2 and baked and extra.get("use_flat"):
+    if (order >= 2 and baked and isinstance(op, DiaOperator)
+            and extra.get("use_flat")):
         fop = FlatOperator.from_dia(op, device=device)
         if fop is None:
             logger.warning("use_flat ignored: operator structure does not fit "
