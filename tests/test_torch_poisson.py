@@ -220,6 +220,25 @@ def test_log_view_writes_a_trace_of_the_solve(given, tmp_path, monkeypatch,
     assert "Option left" not in caplog.text
 
 
+def test_log_view_trace_names_the_solve_path(tmp_path, capsys):
+    """-log_view turns the solve path's spans on while it profiles: the
+    trace holds the CG steps and V-cycle levels, the run prints their
+    table, and the spans are off again after it."""
+    import json
+
+    from tpufem_torch import timing
+    where = str(tmp_path / "trace")
+    res = cli.main(["--ndofs", "3000", "--dtype", "float64", "--device",
+                    "cpu", "-log_view", where])
+    with open(os.path.join(where, "solve.trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"solve", "cg.step", "cg.apply", "cg.precond", "cg.readback",
+            "gmg.smooth.L0", "gmg.coarse"} <= names
+    out = capsys.readouterr().out
+    assert f"counter cg.readbacks: {res.iterations + 2}" in out
+    assert timing.span("cg.step") is timing.span("solve")
+
+
 def test_dirichlet_set_and_zero_match_tpufem():
     mask = np.zeros(20, dtype=bool)
     mask[[0, 3, 7]] = True

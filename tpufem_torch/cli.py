@@ -65,7 +65,7 @@ from tpufem_torch.mesh.structured import (BoxTetMesh,
 from tpufem_torch.parallel.multihost import init_from_env
 from tpufem_torch.problems import (cgpoisson, common, elasticity, poisson,
                                    sharded)
-from tpufem_torch.timing import Timer, list_timings
+from tpufem_torch.timing import SPANS, Timer, enable_spans, list_timings
 
 logger = logging.getLogger("tpufem_torch")
 
@@ -182,7 +182,9 @@ def _log_view(cfg: Config, device: torch.device):
     """(trace directory or None, context of the solve): ``-log_view``
     traces the solve with torch.profiler into the given directory, or
     ``<--output or .>/tpufem-trace`` when it has no value, tpufem's rule
-    (tpufem/cli.py:238-255)."""
+    (tpufem/cli.py:238-255), with the solve path's spans on
+    (timing.span), so the trace names its CG steps, V-cycle levels and
+    refinement passes."""
     log_view = cfg.solver.extra.get("log_view")
     cfg.solver._consumed.add("log_view")
     if not log_view:
@@ -193,7 +195,19 @@ def _log_view(cfg: Config, device: torch.device):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return trace_dir, profile(activities=activities)
+    return trace_dir, _with_spans(profile(activities=activities))
+
+
+@contextlib.contextmanager
+def _with_spans(prof):
+    """``prof`` entered with the spans on, from an empty record."""
+    SPANS.reset()
+    was = enable_spans(True)
+    try:
+        with prof:
+            yield prof
+    finally:
+        enable_spans(was)
 
 
 def solve(cfg: Config, device: torch.device) -> SolveResult:
@@ -318,6 +332,7 @@ def _run(cfg: Config, device: torch.device, num_shards: int,
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, "solve.trace.json"))
         print(f"-log_view: profiler trace written to {trace_dir}", flush=True)
+        print(SPANS.table(), flush=True)
 
     if cfg.output:
         with Timer("ZZZ Output"):

@@ -10,6 +10,12 @@ norms) stays a 0-d device tensor.  The iterates are those of tpufem's
 application), beta = 0 at k = 0, and the test of src/cg.h:78,
 ``k < maxit and ||r||^2 > rtol^2 ||r0||^2`` on the unpreconditioned
 recurrence residual.
+
+Each iteration is a ``cg.step`` span (``tpufem_torch.timing``) holding
+``cg.apply`` (the operator's action), ``cg.precond`` (the
+preconditioner) and ``cg.update`` (the dots and vector updates); each
+scalar readback is a ``cg.readback`` span and counts one
+``cg.readbacks``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,21 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tpufem_torch.la.vector import dot
+from tpufem_torch.timing import count, span
+
+
+def _above(v: torch.Tensor, thresh: torch.Tensor) -> bool:
+    """The loop test's readback: ``v > thresh`` on the host."""
+    with span("cg.readback"):
+        count("cg.readbacks")
+        return bool(v > thresh)
+
+
+def _rel(rr: torch.Tensor, rr0: torch.Tensor) -> float:
+    """The final readback: ``sqrt(rr / rr0)`` on the host."""
+    with span("cg.readback"):
+        count("cg.readbacks")
+        return float(torch.sqrt(rr / rr0))
 
 
 def cg_solve(action: Callable[[torch.Tensor], torch.Tensor],
@@ -36,7 +57,6 @@ def cg_solve(action: Callable[[torch.Tensor], torch.Tensor],
     ``acc_dtype`` is the accumulation dtype of the dots (default b's);
     ``dot_fn`` replaces the dot itself (the sharded solvers' owned-masked
     sum over every shard, tpufem/la/cg.py:24-31)."""
-    M = precond if precond is not None else (lambda v: v)
     if dot_fn is None:
         dot_fn = lambda u, v: dot(u, v, acc_dtype)  # noqa: E731
     if x0 is None:
@@ -44,25 +64,34 @@ def cg_solve(action: Callable[[torch.Tensor], torch.Tensor],
         r = b
     else:
         x = x0
-        r = b - action(x0)
+        with span("cg.apply"):
+            ax0 = action(x0)
+        r = b - ax0
     rnorm0 = dot_fn(r, r)
     thresh = rtol * rtol * rnorm0
     p = rz_prev = None
     rnorm = rnorm0
     k = 0
-    while k < maxit and bool(rnorm > thresh):
-        z = M(r)
-        rz = dot_fn(r, z)
-        p = z if k == 0 else z + (rz / rz_prev).to(b.dtype) * p
-        y = action(p)
-        alpha = (rz / dot_fn(p, y)).to(b.dtype)
-        x = x + alpha * p
-        r = r - alpha * y
-        rz_prev = rz
-        rnorm = dot_fn(r, r)
+    while k < maxit and _above(rnorm, thresh):
+        with span("cg.step"):
+            if precond is None:
+                z = r
+            else:
+                with span("cg.precond"):
+                    z = precond(r)
+            with span("cg.update"):
+                rz = dot_fn(r, z)
+                p = z if k == 0 else z + (rz / rz_prev).to(b.dtype) * p
+            with span("cg.apply"):
+                y = action(p)
+            with span("cg.update"):
+                alpha = (rz / dot_fn(p, y)).to(b.dtype)
+                x = x + alpha * p
+                r = r - alpha * y
+                rz_prev = rz
+                rnorm = dot_fn(r, r)
         k += 1
-    rel = float(torch.sqrt(rnorm / rnorm0))
-    return x, k, rel
+    return x, k, _rel(rnorm, rnorm0)
 
 
 def cg_solve_fused(action: Callable[[torch.Tensor], torch.Tensor],
@@ -95,16 +124,19 @@ def cg_solve_fused(action: Callable[[torch.Tensor], torch.Tensor],
     rr = rr0
     rr_prev = alpha_prev = torch.ones_like(rr0)
     k = 0
-    while k < maxit and bool(rr > thresh):
-        w = action(r)
-        wr = dot(w, r, acc_dtype)
-        beta = torch.zeros_like(rr) if k == 0 else rr / rr_prev
-        alpha = rr / (wr - beta * rr / alpha_prev)
-        a, bt = alpha.to(dt), beta.to(dt)
-        p = r + bt * p
-        s = w + bt * s
-        x = x + a * p
-        r = r - a * s
-        rr_prev, rr, alpha_prev = rr, dot(r, r, acc_dtype), alpha
+    while k < maxit and _above(rr, thresh):
+        with span("cg.step"):
+            with span("cg.apply"):
+                w = action(r)
+            with span("cg.update"):
+                wr = dot(w, r, acc_dtype)
+                beta = torch.zeros_like(rr) if k == 0 else rr / rr_prev
+                alpha = rr / (wr - beta * rr / alpha_prev)
+                a, bt = alpha.to(dt), beta.to(dt)
+                p = r + bt * p
+                s = w + bt * s
+                x = x + a * p
+                r = r - a * s
+                rr_prev, rr, alpha_prev = rr, dot(r, r, acc_dtype), alpha
         k += 1
-    return x, k, float(torch.sqrt(rr / rr0))
+    return x, k, _rel(rr, rr0)

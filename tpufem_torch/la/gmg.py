@@ -49,6 +49,7 @@ from tpufem_torch.fem.structured_op import GridLayout
 from tpufem_torch.la.chebyshev import (chebyshev_smoother,
                                        chebyshev_smoother_zero)
 from tpufem_torch.mesh.structured import EDGE_TYPES, FACE_TYPES, BoxTetMesh
+from tpufem_torch.timing import span
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +214,11 @@ class GMG:
         self._smooth0 = [chebyshev_smoother_zero(lv.op.apply, lv.dinv,
                                                  lv.lmax, degree=d)
                          for lv in self.levels]
+        # the V-cycle's span names, built once: (smooth, restrict,
+        # prolong) of each smoothed level
+        self._spans = [tuple(f"gmg.{phase}.L{i}" for phase in
+                             ("smooth", "restrict", "prolong"))
+                       for i in range(len(self.levels))]
 
     @classmethod
     def setup(cls, mesh: BoxTetMesh, order: int, problem: str,
@@ -298,28 +304,39 @@ class GMG:
         return x.reshape(grid if self.bs == 1 else (self.bs,) + grid)
 
     def vcycle(self, r: torch.Tensor, i: int = 0) -> torch.Tensor:
+        """One V-cycle from level ``i`` down.  Spans (timing.span): the
+        pre- and post-smoothing ``gmg.smooth.L{i}``, each transfer with
+        its masks ``gmg.restrict.L{i}`` / ``gmg.prolong.L{i}``, with the
+        coarser levels between them, and the dense ``gmg.coarse``."""
         if i == len(self.levels):
-            return torch.matmul(self.coarse_inv, r)
+            with span("gmg.coarse"):
+                return torch.matmul(self.coarse_inv, r)
+        smooth, restrict, prolong = self._spans[i]
         mask = self.levels[i].op.bc_mask
         cmask = self._bc_mask_of(i + 1)
         # pre-smoothing from zero returns the residual r - A x
-        x, rr = self._smooth0[i](r)
-        # symmetric BC-filtered transfers keep the preconditioner SPD
-        rr = rr.masked_fill(mask, 0.0)
+        with span(smooth):
+            x, rr = self._smooth0[i](r)
         p_transfer = self.order > 1 and i == 0
-        if p_transfer:
-            rc = restrict_p(rr.reshape(self.bs, -1),
-                            self.levels[0].op.layout)
-        else:
-            rc = restrict_h(self._grid(rr, i))
-        rc = rc.reshape(-1).masked_fill(cmask, 0.0)
-        xc = self.vcycle(rc, i + 1).masked_fill(cmask, 0.0)
-        if p_transfer:
-            e = prolong_p(self._grid(xc, 1), self.levels[0].op.layout)
-        else:
-            e = prolong_h(self._grid(xc, i + 1))
-        e = e.reshape(-1).masked_fill(mask, 0.0)
-        return self._smooth[i](x + e, r)
+        with span(restrict):
+            # symmetric BC-filtered transfers keep the preconditioner SPD
+            rr = rr.masked_fill(mask, 0.0)
+            if p_transfer:
+                rc = restrict_p(rr.reshape(self.bs, -1),
+                                self.levels[0].op.layout)
+            else:
+                rc = restrict_h(self._grid(rr, i))
+            rc = rc.reshape(-1).masked_fill(cmask, 0.0)
+        xc = self.vcycle(rc, i + 1)
+        with span(prolong):
+            xc = xc.masked_fill(cmask, 0.0)
+            if p_transfer:
+                e = prolong_p(self._grid(xc, 1), self.levels[0].op.layout)
+            else:
+                e = prolong_h(self._grid(xc, i + 1))
+            e = e.reshape(-1).masked_fill(mask, 0.0)
+        with span(smooth):
+            return self._smooth[i](x + e, r)
 
 
 def hierarchy(mesh: BoxTetMesh, coarse_limit: int = 1000,

@@ -1,6 +1,6 @@
 """True-residual certification + mixed-precision iterative refinement
 (tpufem/la/refine.py, copied: it is pure numpy, but tpufem's ``la``
-package imports jax).
+package imports jax), with the port's spans.
 
 The reference runs the whole pipeline in double precision (PetscScalar =
 double, src/poisson_problem.cpp:27) and converges CG to ``-ksp_rtol
@@ -23,6 +23,10 @@ This module closes that gap the mixed-precision way:
   ample.  The refined f64 iterate is the certified solution; its f32
   cast goes back to the device.
 
+Each refinement pass is a ``certify.pass`` span (``tpufem_torch.timing``;
+the correction solve is its child), and each pass kept counts one
+``certify.passes``.
+
 Cost per certified solve: one to two f64 host applies (~O(nnz) numpy)
 plus at most ``max_passes`` extra device solves — outside the CG
 iteration loop, so warm per-iteration throughput is untouched.
@@ -34,6 +38,8 @@ import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+
+from tpufem_torch.timing import count, span
 
 
 class Certifier:
@@ -80,15 +86,17 @@ class Certifier:
         extra_it = 0
         while (solve_correction is not None and np.isfinite(rel)
                and rel > self.rtol and passes < max_passes):
-            d, it = solve_correction(r)
-            x64_new = x64 + np.asarray(d, dtype=np.float64)
-            r_new, rel_new = self.residual(x64_new)
+            with span("certify.pass"):
+                d, it = solve_correction(r)
+                x64_new = x64 + np.asarray(d, dtype=np.float64)
+                r_new, rel_new = self.residual(x64_new)
             if not np.isfinite(rel_new) or rel_new >= rel:
                 # a diverged/NaN correction must not destroy the best
                 # iterate: keep x64 and report its (finite) residual
                 break
             x64, r, rel = x64_new, r_new, rel_new
             passes += 1
+            count("certify.passes")
             extra_it += int(it)
         return CertifyResult(x64=x64, true_rel=rel, passes=passes,
                              extra_iterations=extra_it,

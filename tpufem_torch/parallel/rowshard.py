@@ -42,6 +42,7 @@ from tpufem_torch.la.chebyshev import (chebyshev_smoother,
 from tpufem_torch.parallel.comm import ShardComm
 from tpufem_torch.parallel.gmap import (GeneralIndexMaps, build_general_maps,
                                         partition_cells_sfc)
+from tpufem_torch.timing import span
 
 
 def _localize_rows(A: sp.csr_matrix, gmap: GeneralIndexMaps,
@@ -334,17 +335,18 @@ class ShardedEllSolver:
         return self.data["b"]
 
     def _run(self, b: torch.Tensor):
-        """One solve of the stacked RHS ``b`` [L, nlocal]: (x_loc,
-        iterations, ||r|| / ||r0||)."""
+        """One solve of the stacked RHS ``b`` [L, nlocal], a ``solve``
+        span: (x_loc, iterations, ||r|| / ||r0||)."""
         M = self._precond if self.suffix is not None else None
-        if self.deflate:
-            b = self._demean(b)
-            M = ((lambda r, _M=M: self._demean(_M(r)))
-                 if M is not None else self._demean)
-        x, it, rel = cg_solve(self._spmv, b, precond=M, rtol=self.rtol,
-                              maxit=self.maxit, dot_fn=self._dot)
-        if self.deflate:
-            x = self._demean(x)
+        with span("solve"):
+            if self.deflate:
+                b = self._demean(b)
+                M = ((lambda r, _M=M: self._demean(_M(r)))
+                     if M is not None else self._demean)
+            x, it, rel = cg_solve(self._spmv, b, precond=M, rtol=self.rtol,
+                                  maxit=self.maxit, dot_fn=self._dot)
+            if self.deflate:
+                x = self._demean(x)
         return x, it, rel
 
     def norm(self, x_loc: torch.Tensor) -> float:

@@ -54,6 +54,7 @@ from tpufem_torch.la.gmg import (GMG, prolong_h, prolong_p, restrict_h,
 from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.parallel.comm import ShardComm
 from tpufem_torch.problems import common
+from tpufem_torch.timing import span
 
 
 def _level_chain(mesh: BoxTetMesh, bs: int, coarse_limit: int,
@@ -583,15 +584,17 @@ class ShardedCubeSolver:
         return self.comm.psum(local)
 
     def _run(self, b: torch.Tensor):
-        """One solve of the stacked interleaved RHS ``b`` [L, nloc]:
-        (x_loc [L, nloc] interleaved, iterations, ||r|| / ||r0||)."""
+        """One solve of the stacked interleaved RHS ``b`` [L, nloc], a
+        ``solve`` span: (x_loc [L, nloc] interleaved, iterations,
+        ||r|| / ||r0||)."""
         dls, _ = self._device_levels()
         M = ((lambda r: self._vcycle(0, r)) if self.suffix is not None
              else None)
-        x, it, rel = cg_solve(dls[0]["action"], self._to_planar(b),
-                              precond=M, rtol=self.rtol, maxit=self.maxit,
-                              dot_fn=self._dot)
-        return self._to_interleaved(x), it, rel
+        with span("solve"):
+            x, it, rel = cg_solve(dls[0]["action"], self._to_planar(b),
+                                  precond=M, rtol=self.rtol,
+                                  maxit=self.maxit, dot_fn=self._dot)
+            return self._to_interleaved(x), it, rel
 
     def norm(self, x_loc: torch.Tensor) -> float:
         """The owned-masked global 2-norm of a solution (the reference's

@@ -67,7 +67,7 @@ from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.problems import common
 from tpufem_torch.problems.poisson import (assemble_poisson_rhs_np,
                                            assemble_poisson_rhs_structured_dev)
-from tpufem_torch.timing import Timer
+from tpufem_torch.timing import Timer, span
 
 logger = logging.getLogger("tpufem_torch")
 
@@ -109,7 +109,11 @@ class Solver:
         """One solve from a zero guess (``x0`` is not read: the reference's
         un starts at 0 with the BC lifted into b): (x, iterations, rel);
         the K4 form returns iterations and rel as device tensors (no
-        readback)."""
+        readback).  A ``solve`` span."""
+        with span("solve"):
+            return self._run(rhs)
+
+    def _run(self, rhs: torch.Tensor) -> Tuple[torch.Tensor, object, object]:
         op = self.op
         if isinstance(op, StripOperator):
             # channel-resident loop: the strip relayout pays once per

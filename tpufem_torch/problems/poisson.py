@@ -49,7 +49,7 @@ from tpufem_torch.la.refine import Certifier
 from tpufem_torch.mesh.structured import CELL_VERTEX_OFFSETS, LOCAL_FACES
 from tpufem_torch.mesh.topology import TetTopology
 from tpufem_torch.problems import common
-from tpufem_torch.timing import Timer
+from tpufem_torch.timing import Timer, span
 
 logger = logging.getLogger("tpufem_torch")
 
@@ -175,7 +175,7 @@ class Solver:
     certified: the true relative residual is measured in f64, and
     float32 solves are refined until it meets ksp_rtol.  The last
     solve's certification is kept in ``true_rel``, ``refine_passes``,
-    ``refine_iterations``, ``certify_s`` and ``norm64``."""
+    ``refine_iterations`` and ``certify_s``."""
 
     def __init__(self, A, mesh, order: int,
                  cfg: Config, dtype: torch.dtype, acc_dtype: torch.dtype,
@@ -225,7 +225,6 @@ class Solver:
         self.refine_passes = 0
         self.refine_iterations = 0
         self.certify_s: Optional[float] = None
-        self.norm64: Optional[float] = None
 
     def _matvec(self, op) -> Callable:
         return op.apply if self.structured else op.matvec
@@ -337,31 +336,33 @@ class Solver:
         self.route = "rcm"
 
     def run(self, x0: torch.Tensor, rhs: torch.Tensor):
-        """The uncertified solve: (x, iterations, recurrence rel)."""
-        if not self._ready:
-            self._setup()
-        if self.planar:
-            x0, rhs = (v.reshape(-1, 3).T.contiguous().reshape(-1)
-                       for v in (x0, rhs))
-        if self.perm is not None:
-            x0, rhs = x0[self.perm], rhs[self.perm]
-        precond = self.precond
-        if self.deflate:
-            demean = lambda v: v - v.mean()
-            rhs = demean(rhs)
-            precond = ((lambda r, _M=precond: demean(_M(r)))
-                       if precond is not None else demean)
-        x, it, rel = cg_solve(self._matvec(self.op), rhs,
-                              x0=x0 if self.nonzero_guess else None,
-                              precond=precond, rtol=self.rtol,
-                              maxit=self.maxit, acc_dtype=self.acc_dtype)
-        if self.deflate:
-            x = x - x.mean()
-        if self.perm is not None:
-            x = x[self.iperm]
-        if self.planar:
-            x = x.reshape(3, -1).T.contiguous().reshape(-1)
-        return x, it, rel
+        """The uncertified solve, a ``solve`` span: (x, iterations,
+        recurrence rel)."""
+        with span("solve"):
+            if not self._ready:
+                self._setup()
+            if self.planar:
+                x0, rhs = (v.reshape(-1, 3).T.contiguous().reshape(-1)
+                           for v in (x0, rhs))
+            if self.perm is not None:
+                x0, rhs = x0[self.perm], rhs[self.perm]
+            precond = self.precond
+            if self.deflate:
+                demean = lambda v: v - v.mean()
+                rhs = demean(rhs)
+                precond = ((lambda r, _M=precond: demean(_M(r)))
+                           if precond is not None else demean)
+            x, it, rel = cg_solve(self._matvec(self.op), rhs,
+                                  x0=x0 if self.nonzero_guess else None,
+                                  precond=precond, rtol=self.rtol,
+                                  maxit=self.maxit, acc_dtype=self.acc_dtype)
+            if self.deflate:
+                x = x - x.mean()
+            if self.perm is not None:
+                x = x[self.iperm]
+            if self.planar:
+                x = x.reshape(3, -1).T.contiguous().reshape(-1)
+            return x, it, rel
 
     def __call__(self, u0: torch.Tensor,
                  rhs: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -416,7 +417,6 @@ class Solver:
         self.refine_passes = res.passes
         self.refine_iterations = res.extra_iterations
         self.certify_s = res.seconds
-        self.norm64 = float(np.linalg.norm(res.x64))
         return x
 
 
