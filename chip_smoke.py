@@ -12,7 +12,10 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 2. the main path: ``python -m tpufem_torch --ndofs 500000 --scaling_type
    strong --dtype float32 -pc_type gmg`` through tpufem_torch.cli, which
    must launch the stencil kernel (counted from zero around this run
-   only), converge, and certify a true residual <= 1e-8; then warm
+   only), make every GMG h-transfer one launch of gmg_transfer (this
+   run's counters ``gmg.transfers`` = ``gmg.transfers.kernel`` = the
+   kernel's launches > 0; spans on for it), converge, and certify a true
+   residual <= 1e-8; then warm
    solves and a warm build of the problem (the bench headline's terms);
 3. the stencil kernel against its plain PyTorch version on the card, on
    the operators the main path built (the CG matrix, the four smoothed
@@ -200,6 +203,14 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    matrix within TOL_APPLY and a converged solve the strip form's within
    CG_F32_X_TOL; the time of an apply (and of the bulk conv3d alone)
    beside K3's and the bound; the float64 P3 9,025-dof golden.
+20. the GMG h-transfer kernels (csrc/gmg_transfer.cu) on the 10M row's
+   four transfers, with the Poisson Dirichlet masks: the slice path's
+   bits with GMG.vcycle's masked_fills (f32, f64, batch 3 on the
+   finest), the device time against the bytes bound and the slice
+   path's device time, and the host time of a queued call of each (the
+   kernels line's ``launches`` are phase 2's, the main path's).
+   Alone: ``python3 -c "import chip_smoke as s;
+   s.gmg_transfer_phase(s.gpu_line())"``.
 
 Device times come from the profiler's spans of the kernel itself, each
 timed call after a read of 256 MB that evicts the L2 (``device_ms``);
@@ -3560,13 +3571,147 @@ def conv_phase(cli, gpu: str):
     return rows
 
 
+# the 10M strong-scaling row's GMG transfers (phase 20): the coarse
+# lattice (Nx, Ny, Nz) of each, 208x208x224 cubes halved down
+GMG_10M_COARSE = tuple(tuple(n >> k for n in (208, 208, 224))
+                       for k in range(1, 5))
+
+
+def gmg_transfer_work(batch: int, coarse, itemsize: int) -> int:
+    """Bytes of one masked h-transfer between ``batch`` coarse vertex
+    grids ``coarse`` = (Z, Y, X) and their fine grids: the fine and the
+    coarse values once each (one side read, the other written) and each
+    side's mask (a byte an entry) read once."""
+    Z, Y, X = coarse
+    nc = batch * Z * Y * X
+    nf = batch * (2 * Z - 1) * (2 * Y - 1) * (2 * X - 1)
+    return (nf + nc) * (itemsize + 1)
+
+
+def all_kernels_device_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn``, a chain of PyTorch kernels: the
+    union of every device span of a profile of ``reps`` calls, each after
+    a read of L2_FLUSH_BYTES, less the flush's own (reduce) spans."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpufem_torch.profile_solve import busy_us
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    flush.sum()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "reduce_kernel" not in e.name]
+    del flush
+    return busy_us(spans) / reps / 1e3
+
+
+def gmg_transfer_phase(gpu: str):
+    """Phase 20: the GMG h-transfer kernels (csrc/gmg_transfer.cu) on the
+    10M row's four transfers (GMG_10M_COARSE), batch 1, the Poisson
+    Dirichlet masks of both lattices: the slice path's bits with
+    GMG.vcycle's masked_fills in float32 and float64 (and batch 3 float32
+    on the finest), the kernel's device ms after an L2 flush against its
+    bytes bound and the slice path's device ms, each path's host ms per
+    queued call.  Returns (launches, the largest |kernel - slices|,
+    rows)."""
+    import torch
+    from tpufem_torch.la import gmg
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    from tpufem_torch.problems.common import poisson_bc_marker
+    dev = torch.device("cuda", 0)
+
+    def vertex_mask(dims):
+        return torch.from_numpy(gmg.vertex_bc_mask(
+            BoxTetMesh(*dims), poisson_bc_marker)).to(dev)
+
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32
+                      else torch.int64)
+
+    def fill(v, m):
+        return v.reshape(-1).masked_fill(m, 0.0)
+
+    rows, worst = [], 0.0
+    gen = torch.Generator(device=dev).manual_seed(2147483123)
+    launches0 = gmg.prepare_h_transfers.launches
+    for level, cd in enumerate(GMG_10M_COARSE):
+        fd = tuple(2 * v for v in cd)
+        coarse = (cd[2] + 1, cd[1] + 1, cd[0] + 1)
+        fine = tuple(2 * v - 1 for v in coarse)
+        fm1, cm1 = vertex_mask(fd), vertex_mask(cd)
+        for dtype, batch in ((torch.float32, 1), (torch.float64, 1),
+                             (torch.float32, 3))[:3 if level == 0 else 2]:
+            fm, cm = fm1.repeat(batch), cm1.repeat(batch)
+            f = torch.randn((batch,) + fine, generator=gen, device=dev,
+                            dtype=dtype)
+            c = torch.randn((batch,) + coarse, generator=gen, device=dev,
+                            dtype=dtype)
+            restrict, prolong = gmg.prepare_h_transfers(
+                batch, coarse, dtype, dev, fine_mask=fm, coarse_mask=cm)
+
+            def slice_restrict():
+                return fill(gmg.restrict_h_plain(
+                    fill(f, fm).reshape(f.shape)), cm)
+
+            def slice_prolong():
+                return fill(gmg.prolong_h_plain(
+                    fill(c, cm).reshape(c.shape)), fm)
+
+            name = (f"L{level} {fine[2]}x{fine[1]}x{fine[0]} -> "
+                    f"{coarse[2]}x{coarse[1]}x{coarse[0]}")
+            for kind, kern, plain in (("restrict", lambda: restrict(f),
+                                       slice_restrict),
+                                      ("prolong", lambda: prolong(c),
+                                       slice_prolong)):
+                got, want = kern(), plain()
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                same = bool(torch.equal(bits(got), bits(want)))
+                check(same, f"gmg {kind} {name} {dtype} batch {batch}: "
+                      f"not the slice path's bits (max |diff| {err:.3e})")
+                if dtype != torch.float32 or batch != 1:
+                    print(f"gmg {kind} {name} {dtype} batch {batch}: the "
+                          f"slice path's bits  [{gpu}]", flush=True)
+                    continue
+                nbytes = gmg_transfer_work(batch, coarse, f.element_size())
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                dms, note = device_ms(kern, f"gmg_{kind}_kernel", bound,
+                                      f"gmg {kind} {name}")
+                row = dict(
+                    name=f"{kind} {name}", dtype="float32", batch=batch,
+                    same_bits=same, max_abs_err=err, bytes=nbytes,
+                    bound_ms=bound, device_ms=dms, device_note=note,
+                    share_of_bound=None if dms is None else bound / dms,
+                    slices_device_ms=all_kernels_device_ms(plain),
+                    host_ms=host_ms(kern), slices_host_ms=host_ms(plain))
+                rows.append(row)
+                print(f"gmg {row['name']} float32: device "
+                      f"{fmt_dev(dms, note)} (bound {bound:.4f} ms, "
+                      f"{nbytes / 1e6:.1f} MB"
+                      + ("" if dms is None else
+                         f", {100 * bound / dms:.1f}% of it")
+                      + f"), slice path {row['slices_device_ms']:.4f} ms "
+                      f"device; host {row['host_ms']:.4f} ms a queued "
+                      f"call against {row['slices_host_ms']:.4f}; the "
+                      f"slice path's bits  [{gpu}]", flush=True)
+    return gmg.prepare_h_transfers.launches - launches0, worst, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from tpufem_torch import _build, cli
+    from tpufem_torch import _build, cli, timing
+    from tpufem_torch.la import gmg
     from tpufem_torch.problems import poisson
     from tpufem_torch.fem.stencil import stencil_apply
     from tpufem_torch.timing import REGISTRY
@@ -3591,21 +3736,38 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     # -- 2. the main path ---------------------------------------------------
+    # (spans and counters on for this run: the GMG h-transfers' counters)
     REGISTRY.reset()
     stencil_apply.launches = 0
-    t0 = time.perf_counter()
-    res = cli.main(MAIN_ARGS)
-    first_s = time.perf_counter() - t0
+    gmg.prepare_h_transfers.launches = 0
+    spans_were = timing.enable_spans(True)
+    timing.SPANS.reset()
+    try:
+        t0 = time.perf_counter()
+        res = cli.main(MAIN_ARGS)
+        first_s = time.perf_counter() - t0
+        transfers = (timing.SPANS.counters.get("gmg.transfers", 0),
+                     timing.SPANS.counters.get("gmg.transfers.kernel", 0))
+    finally:
+        timing.enable_spans(spans_were)
+        timing.SPANS.reset()
     launches = stencil_apply.launches
+    gt_main = gmg.prepare_h_transfers.launches
     solver = res.problem.solver_function
     print(f"main path: {res.iterations} iterations, norm {res.norm!r}, "
           f"true_rel {res.true_rel!r}, {res.refine_passes} refinement "
           f"pass(es) (+{res.refine_iterations} its), stencil launches "
-          f"{launches}, PC setup {solver.pc_setup_s:.3f} s, certify "
+          f"{launches}, h-transfers {transfers[0]} ({transfers[1]} kernel "
+          f"launches counted, {gt_main} launched), PC setup "
+          f"{solver.pc_setup_s:.3f} s, certify "
           f"{solver.certify_s:.3f} s, first solve (ZZZ Solve) "
           f"{REGISTRY.get('ZZZ Solve'):.3f} s, whole CLI run {first_s:.3f} s"
-          f"  [{gpu}]", flush=True)
+          f" (spans on)  [{gpu}]", flush=True)
     check(launches > 0, "the main path launched no stencil kernel")
+    check(0 < transfers[0] == transfers[1] == gt_main,
+          f"the main path's h-transfers {transfers[0]}, of them kernel "
+          f"launches {transfers[1]} counted and {gt_main} launched: not "
+          "every h-transfer was one launch of gmg_transfer")
     check(0 < res.iterations < 100, f"CG did not converge ({res.iterations})")
     check(res.true_rel is not None and res.true_rel <= 1e-8,
           f"certified true residual {res.true_rel} > 1e-8")
@@ -3853,6 +4015,13 @@ def main() -> int:
     print(f"phase 19: {time.perf_counter() - t19:.1f} s; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
 
+    # -- 20. the GMG h-transfer kernels at the 10M row's levels -------------
+    t20 = time.perf_counter()
+    gt_launches, gt_err, gt_rows = gmg_transfer_phase(gpu)
+    gt = gt_rows[0]
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s  [{gpu}]", flush=True)
+
     kernels = [
         {"name": "stencil_p1", "route": "cuda",
          "source": "tpufem_torch/csrc/stencil_p1.cu",
@@ -4007,6 +4176,16 @@ def main() -> int:
          "host_ms": mf["host_ms"],
          "call_minus_device_ms": mf["call_minus_device_ms"],
          "operators": mf_rows},
+        {"name": "gmg_transfer", "route": "cuda",
+         "source": "tpufem_torch/csrc/gmg_transfer.cu",
+         "replaces": "none (XLA restrict_h / prolong_h, "
+                     "tpufem/la/gmg.py:74-116, and GMG.vcycle's masks)",
+         "launches": gt_main, "phase20_launches": gt_launches,
+         "max_abs_err": gt_err,
+         "device_ms": gt["device_ms"], "bound_ms": gt["bound_ms"],
+         "bound_by": "bytes", "slices_device_ms": gt["slices_device_ms"],
+         "host_ms": gt["host_ms"], "slices_host_ms": gt["slices_host_ms"],
+         "levels": gt_rows},
     ]
     # the sharded runs' launches (phase 16) and phase 17's (each counted
     # from zero around each run), and the slab / shard-row shapes each

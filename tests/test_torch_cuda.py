@@ -14,6 +14,7 @@ suite's conftest imports jax, so there run it without it:
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1317,11 +1318,13 @@ def test_slab_sharded_solve_on_the_card(device, problem, order, precond, dims,
     rounding."""
     from tpufem_torch.fem.stencil import stencil_apply_bs3
     from tpufem_torch.fem.dia_zones import dia_zones_apply
+    from tpufem_torch.la.gmg import prepare_h_transfers
     from tpufem_torch.parallel.slab import ShardedCubeSolver
     kw = dict(problem=problem, order=order, dtype=torch.float64,
               rtol=1e-8 if precond else 1e-6, maxit=60 if precond else 400,
               precond=precond, gather_limit=500)
-    counters = (stencil_apply, stencil_apply_bs3, dia_zones_apply)
+    counters = (stencil_apply, stencil_apply_bs3, dia_zones_apply,
+                prepare_h_transfers)
     for c in counters:
         c.launches = 0
     sh = ShardedCubeSolver.build(BoxTetMesh(*dims), S, device=device, **kw)
@@ -1340,6 +1343,8 @@ def test_slab_sharded_solve_on_the_card(device, problem, order, precond, dims,
         assert launched[k] > 0, launched
     if precond:
         assert launched[0 if problem == "poisson" else 1] > 0
+    if precond and order == 1:  # the slabs' h-transfers: the kernel
+        assert launched[3] > 0, launched
 
 
 def test_dryrun_multichip_on_the_card(device, capsys):
@@ -1560,3 +1565,176 @@ def test_cgpoisson_use_conv_on_the_card(device):
             dia_zones_apply.launches) == (0, 0, 0)
     assert res.iterations == 60
     assert abs(res.norm - 16.571713427813453) <= 1e-9 * 16.571713427813453
+
+
+# -- the GMG h-transfers with their masks: csrc/gmg_transfer.cu -------------
+# coarse lattices (Nx, Ny, Nz) of the transfers: two odd small ones and the
+# 10M strong-scaling row's four (208x208x224 cubes halved down to 13x13x14)
+GMG_10M_COARSE = tuple(tuple(n >> k for n in (208, 208, 224))
+                       for k in range(1, 5))
+
+
+@functools.lru_cache(maxsize=None)
+def _vertex_bc_mask(dims):
+    """The Poisson Dirichlet mask of a lattice's vertices, flat, on the
+    host."""
+    from tpufem_torch.la.gmg import vertex_bc_mask
+    return torch.from_numpy(vertex_bc_mask(BoxTetMesh(*dims),
+                                           poisson_bc_marker))
+
+
+def _transfer_case(cd, batch, dtype, device, masks, seed=0):
+    """(fine grids, coarse grids, fine mask, coarse mask) of a batch on
+    the card: standard normal values, every 7th (5th) -0.0; the masks
+    the lattices' Dirichlet masks, one a grid, or None."""
+    fd = tuple(2 * v for v in cd)
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = torch.randn((batch, fd[2] + 1, fd[1] + 1, fd[0] + 1), generator=g,
+                    device=device, dtype=dtype)
+    c = torch.randn((batch, cd[2] + 1, cd[1] + 1, cd[0] + 1), generator=g,
+                    device=device, dtype=dtype)
+    f.view(-1)[::7] = -0.0
+    c.view(-1)[::5] = -0.0
+    if not masks:
+        return f, c, None, None
+    return (f, c, _vertex_bc_mask(fd).repeat(batch).to(device),
+            _vertex_bc_mask(cd).repeat(batch).to(device))
+
+
+def _same_bits(a, b):
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.view(it), b.view(it))
+
+
+def _slices(f, c, fm, cm):
+    """The slice path with GMG.vcycle's masked_fills, on the card."""
+    from tpufem_torch.la import gmg
+
+    def fill(v, m):
+        v = v.reshape(-1)
+        return v if m is None else v.masked_fill(m, 0.0)
+
+    rc = fill(gmg.restrict_h_plain(fill(f, fm).reshape(f.shape)), cm)
+    pc = fill(gmg.prolong_h_plain(fill(c, cm).reshape(c.shape)), fm)
+    return rc, pc
+
+
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("cd", ((3, 2, 4), (4, 5, 6)) + GMG_10M_COARSE)
+@pytest.mark.parametrize("batch", [1, 3, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gmg_transfer_kernels_give_the_slices_bits(device, dtype, batch, cd,
+                                                   masks):
+    from tpufem_torch import timing
+    from tpufem_torch.la import gmg
+    f, c, fm, cm = _transfer_case(cd, batch, dtype, device, masks)
+    restrict, prolong = gmg.prepare_h_transfers(
+        batch, tuple(c.shape[1:]), dtype, device, fine_mask=fm,
+        coarse_mask=cm)
+    was = timing.enable_spans(True)
+    timing.SPANS.reset()
+    try:
+        rk, pk = restrict(f), prolong(c)
+        counters = dict(timing.SPANS.counters)
+    finally:
+        timing.enable_spans(was)
+        timing.SPANS.reset()
+    rs, ps = _slices(f, c, fm, cm)
+    torch.cuda.synchronize()
+    assert counters == {"gmg.transfers": 2, "gmg.transfers.kernel": 2}
+    assert _same_bits(rk, rs) and _same_bits(pk, ps)
+    if not masks:  # the unmasked public pair launches the same kernels
+        assert _same_bits(gmg.restrict_h(f), rs.reshape(c.shape))
+        assert _same_bits(gmg.prolong_h(c).reshape(-1), ps)
+
+
+@pytest.mark.parametrize("masks", [True, False])
+def test_gmg_transfer_kernels_are_adjoint(device, masks):
+    """<P c, f> = <c, R f> in float64, masks on both sides or none."""
+    from tpufem_torch.la import gmg
+    cd = GMG_10M_COARSE[2]
+    f, c, fm, cm = _transfer_case(cd, 3, torch.float64, device, masks, 1)
+    restrict, prolong = gmg.prepare_h_transfers(
+        3, tuple(c.shape[1:]), torch.float64, device, fine_mask=fm,
+        coarse_mask=cm)
+    lhs = float(torch.dot(prolong(c), f.reshape(-1)))
+    rhs = float(torch.dot(c.reshape(-1), restrict(f)))
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+def test_gmg_vcycle_launches_the_transfer_kernels(device):
+    """A V-cycle of the 10M row's float32 GMG (four smoothed levels):
+    every h-transfer is one launch of the kernel, gmg.transfers.kernel =
+    gmg.transfers = 8, and the V-cycle has the bits of the same V-cycle
+    through the slice path."""
+    from tpufem_torch import timing
+    from tpufem_torch.la import gmg
+    from tpufem_torch.mesh.structured import BoxTetMesh as Mesh
+    pc = gmg.GMG.setup(Mesh(208, 208, 224), 1, "poisson", poisson_bc_marker,
+                       device, dtype=torch.float32)
+    assert len(pc.levels) == 4
+    n = pc.levels[0].op.layout.ndofs
+    r = torch.randn(n, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).masked_fill(pc.levels[0].op.bc_mask, 0.0)
+    was = timing.enable_spans(True)
+    timing.SPANS.reset()
+    try:
+        z = pc.vcycle(r)
+        counters = dict(timing.SPANS.counters)
+    finally:
+        timing.enable_spans(was)
+        timing.SPANS.reset()
+    assert counters == {"gmg.transfers": 8, "gmg.transfers.kernel": 8}
+
+    def slice_pair(i):
+        fm, cm = pc.levels[i].op.bc_mask, pc._bc_mask_of(i + 1)
+        fine, coarse = pc._vertex_grid(i), pc._vertex_grid(i + 1)
+
+        def restrict(v):
+            return gmg.restrict_h_plain(v.masked_fill(fm, 0.0).reshape(
+                fine)).reshape(-1).masked_fill(cm, 0.0)
+
+        def prolong(v):
+            return gmg.prolong_h_plain(v.masked_fill(cm, 0.0).reshape(
+                coarse)).reshape(-1).masked_fill(fm, 0.0)
+
+        return restrict, prolong
+
+    kernels = pc._transfers
+    pc._transfers = [slice_pair(i) for i in range(len(pc.levels))]
+    z_slices = pc.vcycle(r)
+    pc._transfers = kernels
+    torch.cuda.synchronize()
+    assert _same_bits(z, z_slices)
+
+
+def test_gmg_transfer_refusals_and_a_side_stream(device):
+    from tpufem_torch.la import gmg
+    f, c, fm, cm = _transfer_case((3, 2, 4), 1, torch.float32, device, True)
+    restrict, prolong = gmg.prepare_h_transfers(1, tuple(c.shape[1:]),
+                                                torch.float32, device,
+                                                fine_mask=fm, coarse_mask=cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmg.restrict_h(f.transpose(-1, -2).contiguous().transpose(-1, -2))
+    with pytest.raises(ValueError, match="contiguous"):
+        prolong(torch.cat([c, c], dim=-1)[..., ::2])
+    with pytest.raises(ValueError, match="odd"):
+        gmg.restrict_h(f[..., :-1].contiguous())
+    with pytest.raises(ValueError, match="grids"):
+        gmg.prolong_h(c[0, 0].contiguous())
+    with pytest.raises(ValueError, match="expected"):
+        restrict(c)                                  # a coarse grid's entries
+    with pytest.raises(ValueError, match="expected"):
+        restrict(f.double())
+    with pytest.raises(TypeError):
+        gmg.restrict_h(f.half())
+    with pytest.raises(ValueError, match="mask"):
+        gmg.prepare_h_transfers(1, tuple(c.shape[1:]), torch.float32, device,
+                                fine_mask=fm.cpu())
+    rs, ps = _slices(f, c, fm, cm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rk, pk = restrict(f), prolong(c)
+    side.synchronize()
+    assert _same_bits(rk, rs) and _same_bits(pk, ps)

@@ -16,6 +16,7 @@ from tpufem.problems import common as tpu_common
 from tpufem_torch import convert
 from tpufem_torch.fem.dia_op import DiaOperator
 from tpufem_torch.la import chebyshev, gmg
+from tpufem_torch.mesh.structured import BoxTetMesh as PortMesh
 from tpufem_torch.problems import common
 
 jax.config.update("jax_enable_x64", True)
@@ -129,3 +130,108 @@ def test_vcycle_matches_tpufem(gmg16):
         np.asarray(ref.coarse_bc_mask), ref.dims, CPU)
     got2 = carried.vcycle(torch.from_numpy(r)).numpy()
     assert np.linalg.norm(got2 - want) <= 1e-12 * np.linalg.norm(want)
+
+
+# -- the h-transfers with their masks --------------------------------------
+
+def _bc_mask(dims, batch):
+    """The Poisson Dirichlet mask of a (Nx, Ny, Nz) lattice's vertices,
+    the same for each of ``batch`` grids, flat."""
+    return torch.from_numpy(np.tile(gmg.vertex_bc_mask(
+        PortMesh(*dims), common.poisson_bc_marker), batch))
+
+
+def _pair(cd, batch, dtype, seed=0):
+    """Random fine and coarse grids of a batch, with some -0.0 entries."""
+    fd = tuple(2 * v for v in cd)
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((batch, fd[2] + 1, fd[1] + 1, fd[0] + 1))
+    c = rng.standard_normal((batch, cd[2] + 1, cd[1] + 1, cd[0] + 1))
+    f.reshape(-1)[::7] = -0.0
+    c.reshape(-1)[::5] = -0.0
+    return (torch.from_numpy(f).to(dtype), torch.from_numpy(c).to(dtype))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("kind", ["restrict", "prolong"])
+def test_masked_transfers_are_masked_fill_around_the_slices(kind, batch,
+                                                             masks):
+    """prepare_h_transfers' pair on the CPU equals masked_fill o
+    restrict_h o masked_fill (prolong_h likewise), bit for bit."""
+    cd = (4, 5, 6)
+    f, c = _pair(cd, batch, torch.float64)
+    fm = _bc_mask(tuple(2 * v for v in cd), batch) if masks else None
+    cm = _bc_mask(cd, batch) if masks else None
+    restrict, prolong = gmg.prepare_h_transfers(
+        batch, tuple(c.shape[1:]), torch.float64, CPU, fine_mask=fm,
+        coarse_mask=cm)
+
+    def fill(v, m):
+        v = v.reshape(-1)
+        return v if m is None else v.masked_fill(m, 0.0)
+
+    if kind == "restrict":
+        got = restrict(f.reshape(-1))
+        want = fill(gmg.restrict_h(fill(f, fm).reshape(f.shape)), cm)
+    else:
+        got = prolong(c.reshape(-1))
+        want = fill(gmg.prolong_h(fill(c, cm).reshape(c.shape)), fm)
+    assert got.shape == want.shape and got.dim() == 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_transfer_counters_on_the_cpu(gmg16):
+    """A V-cycle counts its two h-transfers a smoothed level in
+    gmg.transfers and no launch of the kernel; restrict_h and prolong_h
+    count theirs; off, nothing is counted."""
+    from tpufem_torch import timing
+    _, port = gmg16
+    launches = gmg.prepare_h_transfers.launches
+    r = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        MESH16.num_vertices_global))
+    timing.SPANS.reset()
+    port.vcycle(r)
+    assert timing.SPANS.counters == {}
+    was = timing.enable_spans(True)
+    try:
+        port.vcycle(r)
+        f, c = _pair((3, 2, 4), 1, torch.float64)
+        gmg.restrict_h(f)
+        gmg.prolong_h(c)
+        counters = dict(timing.SPANS.counters)
+    finally:
+        timing.enable_spans(was)
+        timing.SPANS.reset()
+    assert counters["gmg.transfers"] == 2 * len(port.levels) + 2 > 2
+    assert counters.get("gmg.transfers.kernel", 0) == 0
+    assert gmg.prepare_h_transfers.launches == launches
+
+
+def test_transfer_refusals_on_the_cpu():
+    f, c = _pair((3, 2, 4), 1, torch.float64)
+    with pytest.raises(ValueError, match="odd"):
+        gmg.restrict_h(f[..., :-1])
+    with pytest.raises(ValueError, match="grids"):
+        gmg.prolong_h(c[0, 0])
+    with pytest.raises(ValueError, match="mask"):
+        gmg.prepare_h_transfers(1, (5, 3, 4), torch.float64, CPU,
+                                fine_mask=torch.zeros(7, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="no h-transfer kernel"):
+        gmg.restrict_h(f.to("meta"))
+
+
+def test_transfer_launch_struct_mirrors_the_kernel():
+    """_build.TransferLaunch lays out csrc/gmg_transfer.cu's
+    TransferLaunch: two mask pointers, then device, B, Z, Y, X."""
+    import ctypes
+    from tpufem_torch import _build
+    L = _build.TransferLaunch
+    assert [n for n, _ in L._fields_] == ["fine_mask", "coarse_mask",
+                                          "device", "B", "Z", "Y", "X"]
+    assert (L.coarse_mask.offset, L.device.offset, L.X.offset) == (8, 16, 32)
+    assert ctypes.sizeof(L) == 40

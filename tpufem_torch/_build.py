@@ -132,6 +132,16 @@ class StripLaunch(ctypes.Structure):
                              "stage_delta_weights")])
 
 
+class TransferLaunch(ctypes.Structure):
+    """What a GMG h-transfer needs beside its input, output and stream
+    (csrc/gmg_transfer.cu:TransferLaunch): the fine and coarse Dirichlet
+    masks (0: none), the device, the batch and the coarse vertex extents,
+    filled once per level."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("fine_mask", "coarse_mask")]
+                + [(k, ctypes.c_int) for k in ("device", "B", "Z", "Y", "X")])
+
+
 @dataclasses.dataclass(frozen=True)
 class Kernels:
     """The loaded library and how it was obtained."""
@@ -199,6 +209,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         # MatfreeLaunch*, x, y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
+        for kind in ("restrict", "prolong"):
+            fn = getattr(lib, f"tpufem_gmg_{kind}_{suffix}")
+            # TransferLaunch*, input, output, stream
+            fn.argtypes = [vp] * 4
+            fn.restype = ci
     for name in ("tpufem_csr_spmv_f32", "tpufem_csr_spmv_f64",
                  "tpufem_csr_spmv_bf16", "tpufem_dense_gemv_bf16"):
         fn = getattr(lib, name)

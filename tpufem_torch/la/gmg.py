@@ -32,10 +32,11 @@ component axis.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +50,14 @@ from tpufem_torch.fem.structured_op import GridLayout
 from tpufem_torch.la.chebyshev import (chebyshev_smoother,
                                        chebyshev_smoother_zero)
 from tpufem_torch.mesh.structured import EDGE_TYPES, FACE_TYPES, BoxTetMesh
-from tpufem_torch.timing import span
+from tpufem_torch.timing import count, span
 
 
 # ---------------------------------------------------------------------------
-# Transfers (shifted slices; an exact adjoint pair) on the last three axes
-# [..., Z, Y, X]: leading axes are a batch (the planar components)
+# Transfers (an exact adjoint pair) on the last three axes [..., Z, Y, X]:
+# leading axes are a batch (the planar components, the slabs).  The h-
+# transfers are shifted slices on the CPU and one launch of
+# csrc/gmg_transfer.cu's kernels (the slices' bits) on the card.
 # ---------------------------------------------------------------------------
 
 
@@ -81,11 +84,11 @@ def _deinterleave(Fg: torch.Tensor, axis: int) -> Tuple[torch.Tensor,
     return A, pairs.select(axis + 1, 1)
 
 
-def prolong_h(c: torch.Tensor) -> torch.Tensor:
+def prolong_h_plain(c: torch.Tensor) -> torch.Tensor:
     """P1 vertex-grid prolongation [..., Zc+1, Yc+1, Xc+1] -> [...,
     2Zc+1, ...]: every fine vertex is the average of coarse vertices
     floor(f/2) and ceil(f/2) (exact linear interpolation on the coarse
-    Kuhn mesh)."""
+    Kuhn mesh).  Shifted slices, on any device."""
     Z, Y, X = c.shape[-3:]
     pat = {}
     for oz, oy, ox in itertools.product((0, 1), repeat=3):
@@ -99,8 +102,11 @@ def prolong_h(c: torch.Tensor) -> torch.Tensor:
     return _interleave(r0, r1, axis=-3)
 
 
-def restrict_h(f: torch.Tensor) -> torch.Tensor:
-    """Adjoint of prolong_h (fine vertex grid -> coarse vertex grid)."""
+def restrict_h_plain(f: torch.Tensor) -> torch.Tensor:
+    """Adjoint of prolong_h_plain (fine vertex grid -> coarse vertex
+    grid): the centre, then for each odd pattern (oz, oy, ox) in
+    itertools.product order the half-weighted term at 2i + o before the
+    one at 2i - o.  Shifted slices, on any device."""
     r0, r1 = _deinterleave(f, axis=-3)
     q00, q01 = _deinterleave(r0, axis=-2)
     q10, q11 = _deinterleave(r1, axis=-2)
@@ -117,6 +123,149 @@ def restrict_h(f: torch.Tensor) -> torch.Tensor:
             c = c + F.pad(half, (0, ox, 0, oy, 0, oz))
             c = c + F.pad(half, (ox, 0, oy, 0, oz, 0))
     return c
+
+
+def _lead_and_coarse(x: torch.Tensor, fine: bool
+                     ) -> Tuple[Tuple[int, ...], Tuple[int, int, int]]:
+    """(batch dims, coarse vertex extents (Z, Y, X)) of a [..., Z, Y, X]
+    grid: a coarse one, or a fine one (odd extents 2n - 1)."""
+    if x.dim() < 3:
+        raise ValueError(f"an h-transfer takes [..., Z, Y, X] grids, got "
+                         f"shape {tuple(x.shape)}")
+    grid = tuple(x.shape[-3:])
+    if fine and any(n % 2 == 0 for n in grid):
+        raise ValueError(f"a fine grid of {grid} vertices: the extents of "
+                         "a fine grid are odd (2n - 1)")
+    coarse = tuple((n + 1) // 2 for n in grid) if fine else grid
+    return tuple(x.shape[:-3]), coarse
+
+
+def prolong_h(c: torch.Tensor) -> torch.Tensor:
+    """P1 prolongation [..., Zc+1, Yc+1, Xc+1] -> [..., 2Zc+1, ...]
+    (prolong_h_plain's function), through an unmasked
+    ``prepare_h_transfers`` pair: the slices on the CPU, one launch of
+    csrc/gmg_transfer.cu's kernel on a CUDA device."""
+    lead, (Z, Y, X) = _lead_and_coarse(c, fine=False)
+    _, prolong = prepare_h_transfers(math.prod(lead), (Z, Y, X), c.dtype,
+                                     c.device)
+    return prolong(c).reshape(lead + (2 * Z - 1, 2 * Y - 1, 2 * X - 1))
+
+
+def restrict_h(f: torch.Tensor) -> torch.Tensor:
+    """Adjoint of prolong_h (restrict_h_plain's function), dispatched as
+    prolong_h is."""
+    lead, coarse = _lead_and_coarse(f, fine=True)
+    restrict, _ = prepare_h_transfers(math.prod(lead), coarse, f.dtype,
+                                      f.device)
+    return restrict(f).reshape(lead + coarse)
+
+
+def prepare_h_transfers(batch: int, coarse: Tuple[int, int, int],
+                        dtype: torch.dtype, device: torch.device,
+                        fine_mask: Optional[torch.Tensor] = None,
+                        coarse_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[Callable, Callable]:
+    """The (restrict, prolong) pair of one level's h-transfers between
+    ``batch`` fine grids [2Z-1, 2Y-1, 2X-1] and coarse grids ``coarse`` =
+    (Z, Y, X), with the level's Dirichlet masks (bool, ``batch`` grids'
+    entries each; None: none) on both sides, as GMG.vcycle applies them:
+
+        restrict(f) = mask_c(restrict_h(mask_f(f)))
+        prolong(c)  = mask_f(prolong_h(mask_c(c)))
+
+    (mask_f, mask_c: masked_fill of the fine / coarse mask with 0).
+
+    Each takes the batch's entries, contiguous, in any shape, and returns
+    them flat.  On the CPU the slices; on a CUDA device a call is one
+    launch of csrc/gmg_transfer.cu's kernel, with the dims, the masks'
+    pointers and the entry point fixed here, and the output's
+    ``torch.empty``; any other device raises.  Each call counts
+    ``gmg.transfers``, a launch also ``gmg.transfers.kernel``, while
+    spans are on; launches are counted in ``prepare_h_transfers.launches``
+    always."""
+    Z, Y, X = coarse
+    fshape = (batch, 2 * Z - 1, 2 * Y - 1, 2 * X - 1)
+    sizes = (math.prod(fshape), batch * Z * Y * X)
+    masks = []
+    for name, m, n in (("fine", fine_mask, sizes[0]),
+                       ("coarse", coarse_mask, sizes[1])):
+        if m is not None and (m.dtype != torch.bool or m.numel() != n
+                              or m.device != device):
+            raise ValueError(f"the {name} mask is {tuple(m.shape)} {m.dtype}"
+                             f"@{m.device}: expected {n} bool entries on "
+                             f"{device}")
+        masks.append(None if m is None else m.reshape(-1))
+    fine_mask, coarse_mask = masks
+    if device.type == "cpu":
+        def fill(v, mask):
+            return v if mask is None else v.masked_fill(mask, 0.0)
+
+        def restrict(f: torch.Tensor) -> torch.Tensor:
+            count("gmg.transfers")
+            c = restrict_h_plain(fill(f.reshape(-1), fine_mask)
+                                 .reshape(fshape))
+            return fill(c.reshape(-1), coarse_mask)
+
+        def prolong(c: torch.Tensor) -> torch.Tensor:
+            count("gmg.transfers")
+            f = prolong_h_plain(fill(c.reshape(-1), coarse_mask)
+                                .reshape((batch,) + tuple(coarse)))
+            return fill(f.reshape(-1), fine_mask)
+
+        return restrict, prolong
+    if device.type != "cuda":
+        raise RuntimeError(f"no h-transfer kernel for device {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the h-transfer kernels take float32/float64, "
+                        f"got {dtype}")
+    from tpufem_torch import _build
+    lib = _build.load().lib
+    args = _build.TransferLaunch(
+        fine_mask=None if fine_mask is None else fine_mask.data_ptr(),
+        coarse_mask=None if coarse_mask is None else coarse_mask.data_ptr(),
+        device=device.index, B=batch, Z=Z, Y=Y, X=X)
+    addr = ctypes.addressof(args)
+    raw_stream = _build.raw_stream_getter()
+    index = device.index
+    suffix = "f32" if dtype == torch.float32 else "f64"
+
+    def launcher(kind: str, n_in: int, n_out: int) -> Callable:
+        fn = getattr(lib, f"tpufem_gmg_{kind}_{suffix}")
+        what = f"gmg {kind} of {batch} x {Z}x{Y}x{X} coarse vertices"
+
+        def launch(x: torch.Tensor) -> torch.Tensor:
+            if (x.dtype != dtype or x.device != device or x.numel() != n_in
+                    or not x.is_contiguous()):
+                raise ValueError(f"{what}: input {tuple(x.shape)} {x.dtype}@"
+                                 f"{x.device}, expected {n_in} contiguous "
+                                 f"{dtype} entries on {device}")
+            y = torch.empty(n_out, dtype=dtype, device=device)
+            rc = fn(addr, x.data_ptr(), y.data_ptr(), raw_stream(index))
+            if rc != 0:
+                _build.raise_on(lib, rc, what)
+            prepare_h_transfers.launches += 1
+            count("gmg.transfers")
+            count("gmg.transfers.kernel")
+            return y
+
+        launch.keep = (args, fine_mask, coarse_mask)  # what addr points at
+        return launch
+
+    return launcher("restrict", *sizes), launcher("prolong", *sizes[::-1])
+
+
+prepare_h_transfers.launches = 0
+
+
+def vertex_bc_mask(mesh: BoxTetMesh, bc_marker: Callable,
+                   bs: int = 1) -> np.ndarray:
+    """A P1 lattice's Dirichlet mask on the host: bool, True at the
+    constrained dofs, in the flat (bs-interleaved) numbering."""
+    space = FunctionSpace(mesh, 1, bs=bs)
+    bc = DirichletBC.from_space(space, mesh.locate_boundary_facets(bc_marker))
+    mask = np.zeros(space.ndofs, dtype=bool)
+    mask[bc.flat_dofs()] = True
+    return mask
 
 
 def _join_batched(grids: List[torch.Tensor]) -> torch.Tensor:
@@ -219,6 +368,16 @@ class GMG:
         self._spans = [tuple(f"gmg.{phase}.L{i}" for phase in
                              ("smooth", "restrict", "prolong"))
                        for i in range(len(self.levels))]
+        # each level's (restrict, prolong) pair with its masks and the
+        # next level's, prepared once: the h-transfers (on the card one
+        # kernel launch each), or the p-transfers below an order-k level 0
+        self._transfers = [
+            self._p_transfers() if self.order > 1 and i == 0
+            else prepare_h_transfers(
+                self.bs, self._vertex_grid(i + 1), lv.dinv.dtype,
+                lv.dinv.device, fine_mask=lv.op.bc_mask,
+                coarse_mask=self._bc_mask_of(i + 1))
+            for i, lv in enumerate(self.levels)]
 
     @classmethod
     def setup(cls, mesh: BoxTetMesh, order: int, problem: str,
@@ -273,12 +432,10 @@ class GMG:
 
         # coarsest: dense inverse of the BC-eliminated P1 operator
         # (interleaved), permuted to planar component order
-        bc_c = level_bc(mC, 1)
-        Ac = build_operator(mC, 1, problem, bc_dofs=bc_c.flat_dofs(),
+        cmask = vertex_bc_mask(mC, bc_marker, bs)
+        Ac = build_operator(mC, 1, problem, bc_dofs=np.flatnonzero(cmask),
                             dtype=torch.float64).to_scipy().toarray()
         coarse_inv = np.linalg.inv(Ac)
-        cmask = np.zeros(coarse_ndofs, dtype=bool)
-        cmask[bc_c.flat_dofs()] = True
         if planar:
             perm = np.arange(coarse_ndofs).reshape(-1, bs).T.reshape(-1)
             coarse_inv = coarse_inv[np.ix_(perm, perm)]
@@ -296,11 +453,33 @@ class GMG:
             return self.coarse_bc_mask
         return self.levels[i].op.bc_mask
 
+    def _p_transfers(self) -> Tuple[Callable, Callable]:
+        """The (restrict, prolong) pair between the order-k level 0 and
+        the P1 level 1: restrict_p / prolong_p between the two levels'
+        masks, on flat vectors."""
+        mask, cmask = self.levels[0].op.bc_mask, self._bc_mask_of(1)
+        layout = self.levels[0].op.layout
+
+        def restrict(rr: torch.Tensor) -> torch.Tensor:
+            rc = restrict_p(rr.masked_fill(mask, 0.0).reshape(self.bs, -1),
+                            layout)
+            return rc.reshape(-1).masked_fill(cmask, 0.0)
+
+        def prolong(xc: torch.Tensor) -> torch.Tensor:
+            e = prolong_p(self._grid(xc.masked_fill(cmask, 0.0), 1), layout)
+            return e.reshape(-1).masked_fill(mask, 0.0)
+
+        return restrict, prolong
+
+    def _vertex_grid(self, i: int) -> Tuple[int, int, int]:
+        """Level i's vertex extents (Z, Y, X)."""
+        Nx, Ny, Nz = self.dims[i]
+        return (Nz + 1, Ny + 1, Nx + 1)
+
     def _grid(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """Level i's vector as its vertex grid(s): [Z, Y, X], or [3, Z,
         Y, X] planar (the transfers batch over the components)."""
-        Nx, Ny, Nz = self.dims[i]
-        grid = (Nz + 1, Ny + 1, Nx + 1)
+        grid = self._vertex_grid(i)
         return x.reshape(grid if self.bs == 1 else (self.bs,) + grid)
 
     def vcycle(self, r: torch.Tensor, i: int = 0) -> torch.Tensor:
@@ -312,29 +491,16 @@ class GMG:
             with span("gmg.coarse"):
                 return torch.matmul(self.coarse_inv, r)
         smooth, restrict, prolong = self._spans[i]
-        mask = self.levels[i].op.bc_mask
-        cmask = self._bc_mask_of(i + 1)
         # pre-smoothing from zero returns the residual r - A x
         with span(smooth):
             x, rr = self._smooth0[i](r)
-        p_transfer = self.order > 1 and i == 0
+        # symmetric BC-filtered transfers keep the preconditioner SPD
+        to_coarse, to_fine = self._transfers[i]
         with span(restrict):
-            # symmetric BC-filtered transfers keep the preconditioner SPD
-            rr = rr.masked_fill(mask, 0.0)
-            if p_transfer:
-                rc = restrict_p(rr.reshape(self.bs, -1),
-                                self.levels[0].op.layout)
-            else:
-                rc = restrict_h(self._grid(rr, i))
-            rc = rc.reshape(-1).masked_fill(cmask, 0.0)
+            rc = to_coarse(rr)
         xc = self.vcycle(rc, i + 1)
         with span(prolong):
-            xc = xc.masked_fill(cmask, 0.0)
-            if p_transfer:
-                e = prolong_p(self._grid(xc, 1), self.levels[0].op.layout)
-            else:
-                e = prolong_h(self._grid(xc, i + 1))
-            e = e.reshape(-1).masked_fill(mask, 0.0)
+            e = to_fine(xc)
         with span(smooth):
             return self._smooth[i](x + e, r)
 

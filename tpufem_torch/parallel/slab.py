@@ -49,7 +49,7 @@ from tpufem_torch.fem.structured_op import StructuredOperator, grid_layout
 from tpufem_torch.la.cg import cg_solve
 from tpufem_torch.la.chebyshev import (chebyshev_smoother,
                                        chebyshev_smoother_zero)
-from tpufem_torch.la.gmg import (GMG, prolong_h, prolong_p, restrict_h,
+from tpufem_torch.la.gmg import (GMG, prepare_h_transfers, prolong_p,
                                  restrict_p, surrogate_lmax)
 from tpufem_torch.mesh.structured import BoxTetMesh
 from tpufem_torch.parallel.comm import ShardComm
@@ -456,7 +456,7 @@ class ShardedCubeSolver:
     def _device_levels(self):
         """Per level, the device state of the solve (planar for bs = 3):
         (op, dinv, bc, ghost mask, bottom / top interface slots,
-        smoothers)."""
+        smoothers, and a P1 level's prepared h-transfers)."""
         got = self._cache.get("levels")
         if got is not None:
             return got
@@ -474,6 +474,13 @@ class ShardedCubeSolver:
                             ghost=torch.from_numpy(ghost).to(dev),
                             bot=torch.from_numpy(bot).to(dev),
                             top=torch.from_numpy(top).to(dev)))
+            if lv.order == 1:
+                # the h-transfers of the L slabs' bs grids, prepared once
+                # (the slabs apply their own bc and ghost masks around them)
+                (nx, ny, _nz), nzl = lv.dims, lv.nzl
+                out[-1]["transfers"] = prepare_h_transfers(
+                    dinv.shape[0] * bs, (nzl // 2 + 1, ny // 2 + 1,
+                                         nx // 2 + 1), dinv.dtype, dev)
         first = self.comm.local_mask([0])
         for i, d in enumerate(out):
             d["action"] = self._make_action(d, first)
@@ -508,11 +515,9 @@ class ShardedCubeSolver:
 
         return action
 
-    def _grid(self, i: int, v: torch.Tensor, coarse: bool = False):
+    def _grid(self, i: int, v: torch.Tensor):
         lv = self.levels[i]
         (nx, ny, _nz), nzl = lv.dims, lv.nzl
-        if coarse:
-            nx, ny, nzl = nx // 2, ny // 2, nzl // 2
         shape = (nzl + 1, ny + 1, nx + 1)
         lead = (v.shape[0],) + ((self.bs,) if self.bs > 1 else ())
         return v.reshape(lead + shape)
@@ -536,7 +541,7 @@ class ShardedCubeSolver:
             rin = rr.reshape(L, bs, -1) if bs > 1 else rr
             rc = restrict_p(rin, lay).reshape(L, -1)
         else:
-            rc = restrict_h(self._grid(i, rr)).reshape(L, -1)
+            rc = d["transfers"][0](rr).reshape(L, -1)
         if i + 1 < K:
             dn = dls[i + 1]
             rc = self._halo_rev(rc, dn["bot"], dn["top"])
@@ -548,7 +553,7 @@ class ShardedCubeSolver:
         if p_transfer:
             e = prolong_p(self._grid(i + 1, ec), lay).reshape(L, -1)
         else:
-            e = prolong_h(self._grid(i, ec, coarse=True)).reshape(L, -1)
+            e = d["transfers"][1](ec).reshape(L, -1)
         e = e.masked_fill(d["bc"], 0.0)
         return d["smooth"](x + e, r)
 

@@ -53,7 +53,8 @@ PORT_KERNELS = ("stencil_p1_kernel", "stencil_p1_bs3_kernel",
                 "dia_zones_kernel", "perm_apply_cube_kernel",
                 "perm_apply_sum_kernel", "csr_spmv_kernel",
                 "dense_gemv_bf16_kernel", "dense_gemv_bf16_combine",
-                "matfree_action_clusters_kernel", "matfree_action_halo_kernel")
+                "matfree_action_clusters_kernel", "matfree_action_halo_kernel",
+                "gmg_restrict_kernel", "gmg_prolong_kernel")
 
 
 def busy_us(intervals) -> float:
