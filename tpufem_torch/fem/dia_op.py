@@ -59,6 +59,7 @@ from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             np_dtype, perm_element_matrices,
                                             to_interleaved, to_planar)
 from tpufem_torch.mesh.structured import BoxTetMesh
+from tpufem_torch.timing import count
 
 _SHELL = 2  # per-axis shell margin: truncation (1) + BC adjacency (1)
 _SURR = 8   # surrogate lattice cubes per axis
@@ -469,6 +470,7 @@ class DiaOperator:
         if self.fields.device.type == "cuda":
             return self._stencil(x)
         if self.bs > 1:
+            count("stencil.bs3")
             return stencil_apply_bs3(x, self.fields, self.offsets,
                                      self.grid_dims)
         return stencil_apply(x, self.fields, self.offsets, self.grid_dims)
@@ -480,9 +482,18 @@ class DiaOperator:
 
     @functools.cached_property
     def _stencil(self):
-        """The operator's prepared stencil launch (fields on a card)."""
-        prepare = prepare_stencil_bs3 if self.bs > 1 else prepare_stencil
-        return prepare(self.fields, self.offsets, self.grid_dims)
+        """The operator's prepared stencil launch (fields on a card);
+        bs = 3 counts each launch as ``stencil.bs3``."""
+        if self.bs == 1:
+            return prepare_stencil(self.fields, self.offsets, self.grid_dims)
+        launch = prepare_stencil_bs3(self.fields, self.offsets,
+                                     self.grid_dims)
+
+        def counted(x: torch.Tensor) -> torch.Tensor:
+            count("stencil.bs3")
+            return launch(x)
+
+        return counted
 
     def apply_bc_rows_zero(self, x: torch.Tensor) -> torch.Tensor:
         """cgpoisson convention for an unbaked operator: zero BC rows only

@@ -342,8 +342,9 @@ class Solver:
             if not self._ready:
                 self._setup()
             if self.planar:
-                x0, rhs = (v.reshape(-1, 3).T.contiguous().reshape(-1)
-                           for v in (x0, rhs))
+                with span("solve.layout"):
+                    x0, rhs = (v.reshape(-1, 3).T.contiguous().reshape(-1)
+                               for v in (x0, rhs))
             if self.perm is not None:
                 x0, rhs = x0[self.perm], rhs[self.perm]
             precond = self.precond
@@ -361,7 +362,8 @@ class Solver:
             if self.perm is not None:
                 x = x[self.iperm]
             if self.planar:
-                x = x.reshape(3, -1).T.contiguous().reshape(-1)
+                with span("solve.layout"):
+                    x = x.reshape(3, -1).T.contiguous().reshape(-1)
             return x, it, rel
 
     def __call__(self, u0: torch.Tensor,
