@@ -821,7 +821,7 @@ def kernel_phase(problem, gpu: str, comps: int = 1, large: bool = False):
                                  st.stencil_apply_bs3_plain,
                                  st.prepare_stencil_bs3)
         tols = ((torch.float32, TOL_BS3_F32), (torch.float64, TOL_BS3_F64))
-        kernel = "stencil_p1_bs3_kernel"
+        kernel = "stencil_p1_bs3"  # a thread a point or a thread an output
 
     solver = problem.solver_function
     A = solver.A if hasattr(solver, "A") else solver.op
@@ -877,7 +877,8 @@ def kernel_phase(problem, gpu: str, comps: int = 1, large: bool = False):
             plain_ms = median_ms(lambda: plain(x, *args), reps=10, samples=5)
             host = host_ms(lambda: prepared(x))
             b_ms, b_by = bound_ms(*stencil_work(fields, dims, comps))
-            # the three-component CG matrix at 65x49x49: 12.8 MB of inputs
+            # the three-component CG matrix at 65x49x49: 3.8 MB of x, y and
+            # the table
             dev, note = device_ms(lambda: prepared(x), kernel, b_ms,
                                   f"{name} {dtype}",
                                   must_hold=comps == 3
@@ -922,12 +923,22 @@ def bound_ms(nbytes: float, flops: float):
 
 def stencil_work(fields, dims, comps: int = 1):
     """(bytes, flops) of one stencil apply: x read and y written once,
-    the weight fields read once; one multiply-add per field and point of
-    its output component (``comps`` components of x and y)."""
+    the weights read once; one multiply-add per field and point of its
+    output component (``comps`` components of x and y).  The scalar
+    kernel reads the weight fields; the three-component kernels read
+    their table of the fields' distinct weight columns and a class byte a
+    point for each distinct row of classes (fem.stencil.compress_bs3),
+    counted here from the fields whatever the tree's kernel reads."""
+    import torch
     Z, Y, X = dims
     n, item = Z * Y * X, fields.element_size()
-    return (2 * comps * n * item + fields.numel() * item,
-            2 * fields.shape[0] * n)
+    weights = fields.numel() * item
+    if comps == 3:
+        columns, cls = torch.unique(fields.reshape(fields.shape[0], -1),
+                                    dim=1, return_inverse=True)
+        patterns = torch.unique(cls.reshape(fields.shape[1], -1), dim=0)
+        weights = columns.numel() * item + patterns.numel()
+    return 2 * comps * n * item + weights, 2 * fields.shape[0] * n
 
 
 def strip_work(op):

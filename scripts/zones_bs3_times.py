@@ -11,6 +11,8 @@ and run them in turns in one call on the card (A, B, B, A):
     python scripts/zones_bs3_times.py [--tree DIR] [--split] [--sass DIR]
                                       [--json PATH] [--bs3-shape T,R]
                                       [--quick] [--only zones|bs3]
+                                      [--grids 500k,10m,slab]
+                                      [--same-bits-as PATH]
 
 Cases, float32 and float64:
 
@@ -19,8 +21,14 @@ Cases, float32 and float64:
   version's bits; K3 on ``StripOperator.from_dia`` of the same matrix;
 - the three-component form on the elasticity P1 500k CG matrix (grid
   65x49x49) and the three GMG levels below it (33x25x25, 17x13x13,
-  9x7x7), within chip_smoke's TOL_BS3 of the plain version, the same
-  bits twice;
+  9x7x7), and on the 10M-dof elasticity cell's matrix (161x161x129) and
+  its four smoothed levels below it (81x81x65, 41x41x33, 21x21x17,
+  11x11x9), and on a 17x49x49 slab of the 4-slab 500k run (no Dirichlet
+  rows), within chip_smoke's TOL_BS3 of the plain version, the same bits
+  twice; on a tree whose kernels read a table (fem.stencil.compress_bs3)
+  the kernel ``prepare_stencil_bs3`` picks and, beside it, the other one
+  (a thread a point, a thread an output), and whether the two give the
+  same bits; a digest of y's bits, the same x on every tree;
 - the scalar K1 on the Poisson P1 500k grid (97x81x65).
 
 For each: the time per call (CUDA events, median of 11 means of 20
@@ -28,22 +36,31 @@ back-to-back calls), the device time per call by chip_smoke.device_ms
 (an L2 flush before each call, the kernel's own profiler spans counted,
 a retake where the count is wrong, CUDA events where the profiler keeps
 missing spans), the byte or operation bound, and ``torch.sparse.mm`` of
-the same matrix's CSR (on the finest grid of each kind).  The methods
-are this repository's chip_smoke.py's, whichever tree is timed.
+the same matrix's CSR (on the 500k grids).  The methods are this
+repository's chip_smoke.py's, whichever tree is timed, the bound too: the
+three-component rows' counts x, y and the table of the fields' distinct
+columns with its class bytes, what the table's kernels read.
 
-``--split``: the three-component kernel at 65x49x49 float32 built alone,
-whole, with its staging alone, with its products alone and (a source with
-the TPUFEM_BS3_PHASE switch) with its products but not their weights'
-loads; the tree's csrc/stencil_p1.cu in a temporary copy, the earlier
-templated form edited as ``_split_source`` says; each with the registers and
-spills ptxas reports and the blocks resident on an SM
+``--split``: the three-component kernel at 65x49x49 and at 161x161x129
+(``--grids``) float32, in the form the tree's ``prepare_stencil_bs3``
+picks, built alone, whole, with its staging alone, with its products
+alone and (a source with the TPUFEM_BS3_PHASE switch) with its products
+but not their weights' loads; the tree's csrc/stencil_p1.cu in a
+temporary copy, the earlier templated form edited as ``_split_source``
+says, launched through the tree's own wrapper; each with the registers
+and spills ptxas reports and the blocks resident on an SM
 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  ``--sass DIR``: the
 SASS of the tree's dia_zones and stencil kernels (cuobjdump) into DIR.
 ``--bs3-shape T,R``: the three-component kernel rebuilt with blocks of T
 points x R planes (the source's TPUFEM_BS3_TILE / _RUN macros and the
-wrapper's mirrors of them), for a tree whose source has them.
+wrapper's mirrors of them), for a tree whose source has them;
+``--bs3t-tile T``: the table form's kernel with blocks of T points
+(TPUFEM_BS3T_TILE and its mirror).
 ``--quick``: float32 only, without torch.sparse.mm and K3; ``--only``:
-one of the two kernels.
+one of the two kernels; ``--grids``: the three-component grids, those of
+the 500k path, of the 10M cell (the default both) and of the slab.
+``--same-bits-as PATH``: the ``--json`` of another tree's run; every
+three-component row here must give that run's bits for the same name.
 """
 
 from __future__ import annotations
@@ -51,6 +68,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
@@ -62,7 +80,10 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ZONE_CASES = ((2, (32, 40, 48)), (3, (24, 24, 32)))
-BS3_CASES = ((48, 48, 64), (24, 24, 32), (12, 12, 16), (6, 6, 8))
+BS3_CASES = {"500k": ((48, 48, 64), (24, 24, 32), (12, 12, 16), (6, 6, 8)),
+             "10m": ((128, 160, 160), (64, 80, 80), (32, 40, 40),
+                     (16, 20, 20), (8, 10, 10)),
+             "slab": ((48, 48, 16),)}
 SCALAR_CASE = (64, 80, 96)
 
 
@@ -165,7 +186,24 @@ def zone_rows(sm, dev, tag, gpu, quick=False):
     return rows
 
 
-def stencil_rows(sm, dev, tag, gpu, quick=False):
+def _elasticity_op(cells, dev):
+    """The planar P1 elasticity matrix of ``cells`` cubes, clamped on
+    y = 0, float32 on ``dev``."""
+    import torch
+    from tpufem_torch.fem.dia_op import DiaOperator
+    from tpufem_torch.fem.dirichlet import DirichletBC
+    from tpufem_torch.fem.space import FunctionSpace
+    from tpufem_torch.mesh.structured import BoxTetMesh
+    from tpufem_torch.problems.common import elasticity_bc_marker
+    mesh = BoxTetMesh(*cells)
+    bc = DirichletBC.from_space(FunctionSpace(mesh, 1, bs=3),
+                                mesh.locate_boundary_facets(
+                                    elasticity_bc_marker))
+    return DiaOperator.build(mesh, 1, "elasticity", bc_dofs=bc.flat_dofs(),
+                             dtype=torch.float32, device=dev, planar=True)
+
+
+def stencil_rows(sm, dev, tag, gpu, quick=False, grids=("500k", "10m")):
     import numpy as np
     import torch
     from tpufem_torch.fem import stencil as st
@@ -175,20 +213,27 @@ def stencil_rows(sm, dev, tag, gpu, quick=False):
     from tpufem_torch.mesh.structured import BoxTetMesh
     from tpufem_torch.problems.common import (elasticity_bc_marker,
                                               poisson_bc_marker)
-    cases = [(c, 3) for c in BS3_CASES] + [(SCALAR_CASE, 1)]
+    cases = ([(c, 3) for g in grids for c in BS3_CASES[g]]
+             + [(SCALAR_CASE, 1)])
     rows = []
     for cells, comps in cases:
         mesh = BoxTetMesh(*cells)
         problem, marker = (("elasticity", elasticity_bc_marker) if comps == 3
                            else ("poisson", poisson_bc_marker))
-        bc = DirichletBC.from_space(FunctionSpace(mesh, 1, bs=comps),
-                                    mesh.locate_boundary_facets(marker))
-        op = DiaOperator.build(mesh, 1, problem, bc_dofs=bc.flat_dofs(),
-                               dtype=torch.float32, device=dev,
-                               planar=comps == 3)
+        if cells in BS3_CASES["slab"]:  # parallel.slab._slab_operator's
+            op = DiaOperator.build(mesh, 1, problem, dtype=torch.float32,
+                                   device=dev, bake_bc=False,
+                                   h_override=(1 / 48, 1 / 48, 1 / 64),
+                                   planar=True)
+        else:
+            bc = DirichletBC.from_space(FunctionSpace(mesh, 1, bs=comps),
+                                        mesh.locate_boundary_facets(marker))
+            op = DiaOperator.build(mesh, 1, problem, bc_dofs=bc.flat_dofs(),
+                                   dtype=torch.float32, device=dev,
+                                   planar=comps == 3)
         dims = op.grid_dims
         csr = None
-        if cells in (BS3_CASES[0], SCALAR_CASE) and not quick:
+        if cells in (BS3_CASES["500k"][0], SCALAR_CASE) and not quick:
             csr = op.to_scipy()
             if comps == 3:
                 perm = np.arange(csr.shape[0]).reshape(-1, 3).T.reshape(-1)
@@ -197,7 +242,7 @@ def stencil_rows(sm, dev, tag, gpu, quick=False):
             prepare, plain = st.prepare_stencil_bs3, st.stencil_apply_bs3_plain
             tols = {torch.float32: sm.TOL_BS3_F32,
                     torch.float64: sm.TOL_BS3_F64}
-            kind = "bs3"
+            kind = "bs3" + (" slab" if cells in BS3_CASES["slab"] else "")
         else:
             prepare, plain = st.prepare_stencil, st.stencil_apply_plain
             tols = {torch.float32: sm.TOL_F32, torch.float64: sm.TOL_F64}
@@ -215,28 +260,46 @@ def stencil_rows(sm, dev, tag, gpu, quick=False):
             again = bool(torch.equal(launch(x), y))
             bound = plain(x.abs(), fields.abs(), *args[1:])
             ok = bool(((y - plain(x, *args)).abs() <= tol * bound).all())
+            digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
             b_ms, b_by = sm.bound_ms(*sm.stencil_work(fields, dims, comps))
-            ms = sm.median_ms(lambda: launch(x))
-            dev_ms, note = sm.device_ms(
-                lambda: launch(x),
-                "stencil_p1" if comps == 3 else "stencil_p1_kernel", b_ms,
-                name)
-            lib_ms = None
-            if csr is not None:
-                lib = sm.torch_csr(csr, dev, dtype)
-                lib_ms, _ = sm.library_ms(lib, x, y)
-                del lib
-            rows.append(dict(kernel=kind, name=name, ms=ms,
-                             device_ms=dev_ms, device_note=note,
-                             bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms, within_tol=ok,
-                             same_twice=again))
-            lib_txt = ("" if lib_ms is None
-                       else f", torch.sparse.mm {lib_ms:.4f} ms")
-            print(f"[{tag}] {name}: per call {ms:.4f} ms, device "
-                  f"{sm.fmt_dev(dev_ms, note)}, bound {b_ms:.4f} ms "
-                  f"({b_by}){lib_txt}; within tolerance {ok}, the same "
-                  f"bits twice {again}  [{gpu}]", flush=True)
+            # the kernels: the one prepare picks and, on a tree whose
+            # kernels read a table, the other beside it (the plan for a
+            # card of one SM takes a thread a point, of a million a thread
+            # an output); a tree that reads the fields has one
+            forms = [("picked", launch)]
+            if comps == 3 and hasattr(st, "stencil_bs3_plan"):
+                point = st.stencil_bs3_plan(*args).per_point
+                forms = [("a thread " + ("a point" if p else "an output"),
+                          st.prepare_stencil_bs3(*args, 1 if p else 10 ** 6))
+                         for p in (point, not point)]
+            elif comps == 3:
+                forms = [("fields", launch)]
+            same_forms = all(bool(torch.equal(f(x), y)) for _, f in forms)
+            for form, fn in forms:
+                ms = sm.median_ms(lambda: fn(x))
+                dev_ms, note = sm.device_ms(
+                    lambda: fn(x),
+                    "stencil_p1" if comps == 3 else "stencil_p1_kernel",
+                    b_ms, f"{name} {form}")
+                lib_ms = None
+                if csr is not None and form == forms[0][0]:
+                    lib = sm.torch_csr(csr, dev, dtype)
+                    lib_ms, _ = sm.library_ms(lib, x, y)
+                    del lib
+                rows.append(dict(kernel=kind, name=name, form=form, ms=ms,
+                                 device_ms=dev_ms, device_note=note,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms, within_tol=ok,
+                                 same_twice=again, same_forms=same_forms,
+                                 bits=digest))
+                lib_txt = ("" if lib_ms is None
+                           else f", torch.sparse.mm {lib_ms:.4f} ms")
+                print(f"[{tag}] {name} ({form}): per call {ms:.4f} ms, "
+                      f"device {sm.fmt_dev(dev_ms, note)}, bound "
+                      f"{b_ms:.4f} ms ({b_by}){lib_txt}; within tolerance "
+                      f"{ok}, the same bits twice {again}, both kernels' "
+                      f"bits {same_forms}, bits {digest[:16]}  [{gpu}]",
+                      flush=True)
         del op
         torch.cuda.empty_cache()
     return rows
@@ -277,15 +340,27 @@ def _split_source(src: str, phase: int):
     return src + _OLD_OCCUPANCY, []
 
 
-def split_rows(sm, root, dev, tag, gpu):
+def _split_lib(so: str):
+    """The split library as ``_build.load`` returns the kernels: its
+    three-component entries (StencilLaunch* or Bs3TableLaunch*, x, y,
+    stream) and its error strings declared."""
+    from tpufem_torch import _build
+    lib = ctypes.CDLL(so)
+    for name in ("tpufem_stencil_p1_bs3_f32",
+                 "tpufem_stencil_p1_bs3_table_f32"):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+    lib.tpufem_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
+    return _build.Kernels(lib=lib, path=so, build_seconds=0.0, log="")
+
+
+def split_rows(sm, root, dev, tag, gpu, grids=("500k", "10m")):
     import torch
     from tpufem_torch import _build
     from tpufem_torch.fem import stencil as st
-    from tpufem_torch.fem.dia_op import DiaOperator
-    from tpufem_torch.fem.dirichlet import DirichletBC
-    from tpufem_torch.fem.space import FunctionSpace
-    from tpufem_torch.mesh.structured import BoxTetMesh
-    from tpufem_torch.problems.common import elasticity_bc_marker
     csrc = os.path.join(root, "tpufem_torch", "csrc")
     with open(os.path.join(csrc, "stencil_p1.cu")) as f:
         src = f.read()
@@ -293,28 +368,13 @@ def split_rows(sm, root, dev, tag, gpu):
         print(f"[{tag}] --split: csrc/stencil_p1.cu has neither form",
               flush=True)
         return []
-    mesh = BoxTetMesh(*BS3_CASES[0])
-    bc = DirichletBC.from_space(FunctionSpace(mesh, 1, bs=3),
-                                mesh.locate_boundary_facets(
-                                    elasticity_bc_marker))
-    op = DiaOperator.build(mesh, 1, "elasticity", bc_dofs=bc.flat_dofs(),
-                           dtype=torch.float32, device=dev, planar=True)
-    Z, Y, X = dims = op.grid_dims
-    T, R = op.fields.shape[:2]
-    run = int(st.stencil_runs(dims, R, 4, 3)[:, 1].max())
-    args = _build.StencilLaunch(F=op.fields.data_ptr(), device=dev.index,
-                                Z=Z, Y=Y, X=X, R=R, D=T // 9, run=run)
-    for key, col in zip(("dx", "dy", "dz"), st.pack_offsets(op.offsets)):
-        getattr(args, key)[:] = col.tolist()
-    x = torch.randn(3 * Z * Y * X, device=dev)
-    y = torch.empty_like(x)
-    smem = st.stencil_smem_bytes(run, X, 4, 3)
-    b_ms = sm.bound_ms(*sm.stencil_work(op.fields, dims, 3))[0]
     rows = []
+    load = _build.load
     with tempfile.TemporaryDirectory() as tmp:
         for f in os.listdir(csrc):
             if f.endswith(".cuh"):
                 shutil.copy(os.path.join(csrc, f), tmp)
+        libs = []
         for phase, what in ((0, "whole"), (1, "staging alone"),
                             (2, "products alone"),
                             (3, "products without weight loads")):
@@ -330,38 +390,57 @@ def split_rows(sm, root, dev, tag, gpu):
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed: {proc.stderr}")
-            # the float instance of the three-component kernel
+            # the float instances of the three-component kernels
             ptx = [u for n, u in _ptxas(proc.stdout + proc.stderr,
-                                        ("IfLi15ELi3E", "bs3_kernelIf"))]
-            lib = ctypes.CDLL(so)
-            fn = lib.tpufem_stencil_p1_bs3_f32
-            fn.argtypes = [ctypes.c_void_p] * 4
-            fn.restype = ctypes.c_int
-            blocks = getattr(lib, "tpufem_split_blocks", None)
-            if blocks is None:
-                blocks = lib.tpufem_stencil_p1_bs3_blocks
-            blocks.argtypes = [ctypes.c_int]
-            blocks.restype = ctypes.c_int
-            resident = blocks(smem)
-
-            def call():
-                rc = fn(ctypes.addressof(args), x.data_ptr(), y.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"split {what}: cuda error {rc}")
-
-            ms = sm.median_ms(call)
-            dev_ms, note = sm.device_ms(call, "stencil_p1", 0.0,
-                                        f"bs3 split {what}")
-            rows.append(dict(kernel="bs3 split", name=what, ms=ms,
-                             device_ms=dev_ms, device_note=note,
-                             bound_ms=b_ms, resident_blocks=resident,
-                             ptxas=ptx))
-            print(f"[{tag}] bs3 {_grid(dims)} float32 {what}: per call "
-                  f"{ms:.4f} ms, device {sm.fmt_dev(dev_ms, note)} (whole "
-                  f"kernel's bound {b_ms:.4f} ms); {resident} block(s) of "
-                  f"{smem} B shared memory resident an SM; ptxas {ptx}  "
-                  f"[{gpu}]", flush=True)
+                                        ("IfLi15ELi3E", "bs3_kernelIf",
+                                         "bs3_table_kernelIf"))]
+            libs.append((what, so, ptx))
+        for g in grids:
+            cells = BS3_CASES[g][0]
+            op = _elasticity_op(cells, dev)
+            Z, Y, X = dims = op.grid_dims
+            x = torch.randn(3 * Z * Y * X, device=dev)
+            b_ms = sm.bound_ms(*sm.stencil_work(op.fields, dims, 3))[0]
+            for what, so, ptx in libs:
+                kern = _split_lib(so)
+                _build.load = lambda: kern
+                try:
+                    launch = st.prepare_stencil_bs3(op.fields, op.offsets,
+                                                    dims)
+                finally:
+                    _build.load = load
+                form = ("table" if getattr(launch, "table", None) is not None
+                        else "fields")
+                blocks = getattr(kern.lib, "tpufem_split_blocks", None)
+                if blocks is None:
+                    blocks = kern.lib.tpufem_stencil_p1_bs3_blocks
+                blocks.argtypes = [ctypes.c_int]
+                blocks.restype = ctypes.c_int
+                if form == "table":
+                    smem = st.stencil_bs3_plan(op.fields, op.offsets,
+                                               dims).smem
+                else:
+                    runs = st.stencil_runs(dims, op.fields.shape[1], 4, 3)
+                    smem = st.stencil_smem_bytes(int(runs[:, 1].max()), X, 4,
+                                                 3)
+                resident = blocks(smem)
+                ms = sm.median_ms(lambda: launch(x))
+                dev_ms, note = sm.device_ms(lambda: launch(x), "stencil_p1",
+                                            0.0, f"bs3 split {what}")
+                rows.append(dict(kernel="bs3 split", name=what,
+                                 grid=_grid(dims), form=form, ms=ms,
+                                 device_ms=dev_ms, device_note=note,
+                                 bound_ms=b_ms, resident_blocks=resident,
+                                 ptxas=ptx))
+                print(f"[{tag}] bs3 {_grid(dims)} float32 {form} form "
+                      f"{what}: per call {ms:.4f} ms, device "
+                      f"{sm.fmt_dev(dev_ms, note)} (whole kernel's bound "
+                      f"{b_ms:.4f} ms); {resident} block(s) of {smem} B "
+                      f"shared memory resident an SM; ptxas {ptx}  [{gpu}]",
+                      flush=True)
+                del launch
+            del op, x
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -377,9 +456,15 @@ def main() -> int:
     p.add_argument("--json", metavar="PATH", help="write the rows to PATH")
     p.add_argument("--bs3-shape", metavar="T,R",
                    help="three-component blocks of T points x R planes")
+    p.add_argument("--bs3t-tile", metavar="T", type=int,
+                   help="table-form blocks of T points")
     p.add_argument("--quick", action="store_true",
                    help="float32 only, no library call, no K3")
     p.add_argument("--only", choices=("zones", "bs3"))
+    p.add_argument("--grids", default="500k,10m",
+                   help="the three-component grids: 500k, 10m, slab")
+    p.add_argument("--same-bits-as", metavar="PATH",
+                   help="another tree's --json, whose bits to give")
     args = p.parse_args()
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
@@ -401,6 +486,10 @@ def main() -> int:
                               f"-DTPUFEM_BS3_RUN={r}")
         stencil._TILE3, stencil._RUN3 = t, r
         tag += f" bs3 {args.bs3_shape}"
+    if args.bs3t_tile:
+        _build.NVCC_FLAGS += (f"-DTPUFEM_BS3T_TILE={args.bs3t_tile}",)
+        stencil._TILE3T = args.bs3t_tile
+        tag += f" table tile {args.bs3t_tile}"
     sm = _smoke()
     gpu = sm.gpu_line()
     kern = _build.load()
@@ -421,12 +510,13 @@ def main() -> int:
         print(f"[{tag}] SASS written to {out}", flush=True)
     dev = torch.device("cuda", 0)
     rows = []
+    grids = tuple(args.grids.split(","))
     if args.only != "bs3":
         rows += zone_rows(sm, dev, tag, gpu, args.quick)
     if args.only != "zones":
-        rows += stencil_rows(sm, dev, tag, gpu, args.quick)
+        rows += stencil_rows(sm, dev, tag, gpu, args.quick, grids)
     if args.split:
-        rows += split_rows(sm, root, dev, tag, gpu)
+        rows += split_rows(sm, root, dev, tag, gpu, grids)
     result = dict(tree=tag, gpu=gpu, rows=rows,
                   refused_profiles=len(sm.REFUSED_PROFILES),
                   event_times=sm.EVENT_TIMES[0])
@@ -434,7 +524,20 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)
     ok = all(r.get("plain_bits", True) and r.get("within_tol", True)
-             and r.get("same_twice", True) for r in rows)
+             and r.get("same_twice", True) and r.get("same_forms", True)
+             for r in rows)
+    if args.same_bits_as:
+        with open(args.same_bits_as) as f:
+            theirs = {r["name"]: r["bits"] for r in json.load(f)["rows"]
+                      if r.get("bits") and r["kernel"].startswith("bs3")}
+        ours = {r["name"]: r["bits"] for r in rows
+                if r.get("bits") and r["kernel"].startswith("bs3")}
+        same = {n: theirs.get(n) == b for n, b in ours.items()}
+        print(json.dumps(dict(tree=tag, same_bits_as=args.same_bits_as,
+                              rows=len(same), differ=[n for n, v in
+                                                      same.items() if not v])),
+              flush=True)
+        ok = ok and bool(same) and all(same.values())
     print(json.dumps(dict(tree=tag, ok=ok)), flush=True)
     return 0 if ok else 1
 

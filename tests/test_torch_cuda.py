@@ -109,6 +109,8 @@ def test_refused_prepared_launches_raise_with_the_cuda_error(device,
     with pytest.raises(RuntimeError, match=r"stencil_p1.*invalid argument"):
         op.apply(torch.zeros(op.layout.ndofs, device=device))
     # and the three-component form's
+    monkeypatch.setattr(stencil, "bs3_table_run",
+                        lambda dims, itemsize, per_point: 99)
     op3 = _elast_op((6, 6, 6), "const", torch.float32, device)
     with pytest.raises(RuntimeError,
                        match=r"stencil_p1_bs3.*invalid argument"):
@@ -536,13 +538,23 @@ def test_bs3_refusals(device):
     with pytest.raises(TypeError):
         stencil_apply_bs3(x.cpu(), op.fields, op.offsets, op.grid_dims)
     lib = _build.load().lib
-    Z, Y, X = op.grid_dims
     stream = torch.cuda.current_stream().cuda_stream
-    for D, run in ((16, 1), (15, 9)):
-        args = _build.StencilLaunch(F=op.fields.data_ptr(), device=0, Z=Z,
-                                    Y=Y, X=X, R=7, D=D, run=run)
-        rc = lib.tpufem_stencil_p1_bs3_f32(ctypes.addressof(args),
-                                           x.data_ptr(), x.data_ptr(), stream)
+    from tpufem_torch.fem.stencil import prepare_stencil_bs3
+    table = prepare_stencil_bs3(op.fields, op.offsets, op.grid_dims).keep[0]
+    for key, value in (("D", 16), ("run", 9)):
+        args = _build.Bs3TableLaunch.from_buffer_copy(table)
+        setattr(args, key, value)
+        rc = lib.tpufem_stencil_p1_bs3_table_f32(
+            ctypes.addressof(args), x.data_ptr(), x.data_ptr(), stream)
+        assert rc != 0 and lib.tpufem_cuda_error_string(rc)
+    # and segments that miss the last plane, a run count that does not
+    # follow from the run, a pattern past the class bytes
+    for key, value in (("seg_z", 2), ("seg_first_run", 5),
+                       ("seg_pattern", 7)):
+        args = _build.Bs3TableLaunch.from_buffer_copy(table)
+        getattr(args, key)[args.nseg if key == "seg_z" else 1] = value
+        rc = lib.tpufem_stencil_p1_bs3_table_f32(
+            ctypes.addressof(args), x.data_ptr(), x.data_ptr(), stream)
         assert rc != 0 and lib.tpufem_cuda_error_string(rc)
     torch.cuda.synchronize()
 
@@ -572,10 +584,85 @@ def test_bs3_kernel_matches_plain_on_the_walk_grids(device, dims, mode,
     assert torch.equal(launch(x), y)
 
 
+# the two three-component kernels (a thread a point, a thread an output)
+# against each other on the 10M-dof elasticity cell's grid and its four smoothed levels below it, the
+# 500k grid and a 17x49x49 slab of the 4-slab 500k run (no Dirichlet
+# rows); every plane of them ends in a ragged tile
+BS3_TABLE_CASES = {"161x161x129": (128, 160, 160), "81x81x65": (64, 80, 80),
+                   "41x41x33": (32, 40, 40), "21x21x17": (16, 20, 20),
+                   "11x11x9": (8, 10, 10), "65x49x49": (48, 48, 64),
+                   "slab-17x49x49": (48, 48, 16)}
+
+
+def _bs3_table_op(name, dtype, device):
+    cells = BS3_TABLE_CASES[name]
+    if name.startswith("slab"):
+        return DiaOperator.build(BoxTetMesh(*cells), 1, "elasticity",
+                                 dtype=dtype, device=device, bake_bc=False,
+                                 h_override=(1 / 48, 1 / 48, 1 / 64),
+                                 planar=True)
+    return _elast_op(cells, "const", dtype, device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("name", list(BS3_TABLE_CASES))
+def test_bs3_kernels_give_each_others_bits(device, name, dtype, tol):
+    """The kernel with a thread a point (the plan on a card of one SM)
+    and the kernel with a thread an output (on a card of a million) give
+    each other's bits (``torch.equal``), one of them the operator's own
+    launch, and lie within TOL_BS3 of the plain version."""
+    from tpufem_torch.fem import stencil
+    op = _bs3_table_op(name, dtype, device)
+    args = (op.fields, op.offsets, op.grid_dims)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        3 * op.layout.ndofs)).to(device, dtype)
+    y = op.apply(x)
+    assert [stencil.stencil_bs3_plan(*args, sms).per_point
+            for sms in (1, 10 ** 6)] == [True, False]
+    point, output = (stencil.prepare_stencil_bs3(*args, sms)(x)
+                     for sms in (1, 10 ** 6))
+    assert torch.equal(point, output) and torch.equal(point, y)
+    yp = stencil.stencil_apply_bs3_plain(x, *args)
+    bound = stencil.stencil_apply_bs3_plain(x.abs(), op.fields.abs(),
+                                            *args[1:])
+    torch.cuda.synchronize()
+    assert bool(((y - yp).abs() <= tol * bound).all())
+
+
+def test_bs3_table_counter_engages_on_the_cells_operators(device):
+    """With the spans on, ``stencil.bs3.table`` counts every apply of the
+    10M cell's five smoothed grids (its CG operator's is the first) as
+    ``stencil.bs3`` does, 1.0 of them; an operator with random fields,
+    which have no table, raises and counts nothing."""
+    from tpufem_torch import timing
+    ops = [_bs3_table_op(name, torch.float32, device)
+           for name in list(BS3_TABLE_CASES)[:5]]
+    noise = dataclasses.replace(ops[-1], fields=torch.randn_like(
+        ops[-1].fields))
+    was = timing.enable_spans(True)
+    try:
+        timing.SPANS.reset()
+        for op in ops:
+            op.apply(torch.randn(3 * op.layout.ndofs, device=device))
+        counters = dict(timing.SPANS.counters)
+        timing.SPANS.reset()
+        with pytest.raises(ValueError, match="distinct weight columns"):
+            noise.apply(torch.randn(3 * noise.layout.ndofs, device=device))
+        noisy = dict(timing.SPANS.counters)
+    finally:
+        timing.enable_spans(was)
+        timing.SPANS.reset()
+    torch.cuda.synchronize()
+    assert counters["stencil.bs3.table"] == counters["stencil.bs3"] == 5
+    assert noisy == {}
+
+
 def test_bs3_on_a_side_stream_and_its_residency(device):
     """The prepared three-component launch on a non-default stream gives
-    the default stream's bits; the float32 kernel keeps at least one block
-    of the 65x49x49 grid's stage resident on an SM."""
+    the default stream's bits; the float32 kernel with a thread a point
+    keeps two blocks of the 161x161x129 grid's stage resident on an
+    SM."""
     from tpufem_torch import _build
     from tpufem_torch.fem import stencil
     op = _elast_op((12, 12, 16), "const", torch.float32, device)
@@ -587,8 +674,8 @@ def test_bs3_on_a_side_stream_and_its_residency(device):
         y = op.apply(x)
     side.synchronize()
     assert torch.equal(y, y0)
-    smem = stencil.stencil_smem_bytes(4, 49, 4, comps=3)
-    assert _build.load().lib.tpufem_stencil_p1_bs3_blocks(smem) >= 1
+    smem = stencil.bs3_table_smem_bytes(4, 129, 4)
+    assert _build.load().lib.tpufem_stencil_p1_bs3_blocks(smem) >= 2
 
 
 def test_elasticity_cli_engages_the_kernel(device):

@@ -218,12 +218,34 @@ WALKS = {
 }
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+def _rebuilt_fields(packed, fields, dims):
+    """The [9 D, R, Y, X] fields the table's segments give."""
+    Z, Y, X = dims
+    rows = stencil._field_rows(Z, fields.shape[1])
+    W = packed.table[packed.classes.long()]  # [P, Y, X, 3, D, 3]
+    out = torch.full_like(fields, float("nan"))
+    for z0, z1, q in packed.segments:
+        for z in range(z0, z1):
+            out[:, rows[z]] = W[q].permute(2, 3, 4, 0, 1).reshape(-1, Y, X)
+    return out
+
+
+@pytest.mark.parametrize("sms", [None, 1], ids=["h100", "one-sm"])
 @pytest.mark.parametrize("name", list(WALKS))
-def test_three_component_walk_gives_the_plain_versions_bits(name):
-    """``stencil_bs3_walk`` (the kernel's blocks, stage, masks, field rows
-    and sum order, with the product and the sum rounded apart) is the
-    plain version bit for bit; its stage is what ``stencil_smem_bytes``
-    gives the launch, and it loads each (r, d, s) weight once a run."""
+def test_three_component_walk_gives_the_plain_versions_bits(name, sms):
+    """``stencil_bs3_walk`` (the kernel's blocks, stage, masks, runs, the
+    table's weights and sum order, with the product and the sum
+    rounded apart) is the plain version bit for bit; the table and class
+    bytes of every one of these operators rebuild the fields bit for bit:
+    on an H100 the kernel with a thread an output (these grids' blocks
+    fit one wave), on a card of one SM the kernel with a thread a point;
+    the walk's counts are ``stencil_bs3_counts``'s, its shared memory the
+    launch's, and it loads fewer weights than the fields would give, one
+    a point and (r, d, s) term a run."""
     cells, mode, dtype = WALKS[name]
     mesh = BoxTetMesh(*cells)
     op = DiaOperator.build(mesh, 1, "elasticity", bc_dofs=_bc(cells),
@@ -232,16 +254,99 @@ def test_three_component_walk_gives_the_plain_versions_bits(name):
     Z, Y, X = dims
     x = torch.from_numpy(np.random.default_rng(len(name)).standard_normal(
         3 * Z * Y * X)).to(dtype)
-    y, n = stencil.stencil_bs3_walk(x, fields, op.offsets, dims)
+    y, n = stencil.stencil_bs3_walk(x, fields, op.offsets, dims, sms)
     assert torch.equal(y, stencil_apply_bs3_plain(x, fields, op.offsets,
                                                   dims))
-    runs = stencil.stencil_runs(dims, fields.shape[1], x.element_size(), 3)
-    tiles = -(-(Y * X) // stencil._TILE3)
-    assert n["blocks"] == tiles * len(runs)
-    assert n["weight_loads"] == n["blocks"] * fields.shape[0]  # 9 D
-    assert n["smem"] == stencil.stencil_smem_bytes(
-        int(runs[:, 1].max()), X, x.element_size(), 3)
+    plan = stencil.stencil_bs3_plan(fields, op.offsets, dims, sms)
+    assert plan.per_point == (sms == 1)
+    assert torch.equal(_bits(_rebuilt_fields(plan.table, fields, dims)),
+                       _bits(fields))
+    assert n == stencil.stencil_bs3_counts(fields, op.offsets, dims, sms)
+    tiles = -(-(Y * X) // plan.tile)
+    assert n["blocks"] == tiles * len(plan.runs)
+    assert sum(nz for _, nz, _ in plan.runs) == Z
+    assert n["weight_loads"] < fields.shape[0] * Y * X * len(plan.runs)
+    smem = (stencil.bs3_table_smem_bytes if plan.per_point else
+            lambda run, X, item: stencil.stencil_smem_bytes(run, X, item, 3))
+    assert n["smem"] == smem(plan.run, X, x.element_size()) \
+        <= stencil._MAX_SMEM
     assert (fields.shape[1] == Z) == (mode == "dense")
+
+
+def test_elasticity_fields_hold_28_distinct_columns():
+    """The 32x40x40 operator's 135 zone fields carry 28 distinct
+    135-weight columns, 10 on each zone row; rows 1 to 5 share one class
+    pattern, so the table has three segments of planes: z = 0,
+    1 .. Z - 2, Z - 1."""
+    cells = (32, 40, 40)
+    op = DiaOperator.build(BoxTetMesh(*cells), 1, "elasticity",
+                           bc_dofs=_bc(cells), dtype=torch.float32,
+                           device=CPU, planar=True)
+    Z = op.grid_dims[0]
+    packed = stencil.compress_bs3(op.fields, op.grid_dims)
+    assert tuple(packed.table.shape) == (28, 3, 15, 3)
+    assert [len(torch.unique(c)) for c in packed.classes] == [10, 10, 10]
+    assert [(z0, z1) for z0, z1, _ in packed.segments] == [
+        (0, 1), (1, Z - 1), (Z - 1, Z)]
+    assert torch.equal(_bits(_rebuilt_fields(packed, op.fields,
+                                             op.grid_dims)),
+                       _bits(op.fields))
+
+
+def test_fields_without_a_table_have_no_kernel(monkeypatch):
+    """Fields the table cannot hold raise, in ``compress_bs3`` and in the
+    plan: random fields (a column a point), more distinct columns than
+    MAX_CLASSES_BS3, and full fields (R = Z) whose planes alternate two
+    patterns, more segments than MAX_SEGMENTS_BS3; so do shifts other
+    than the Kuhn stencil's, which the kernels are built for.  The
+    dense-mode (R = Z) operator itself has its table."""
+    cells = (4, 4, 8)
+    op = DiaOperator.build(BoxTetMesh(*cells), 1, "elasticity",
+                           bc_dofs=_bc(cells), dtype=torch.float64,
+                           mode="dense", device=CPU, planar=True)
+    dims, fields = op.grid_dims, op.fields
+    assert len(stencil.compress_bs3(fields, dims).segments) == 3
+    assert op.offsets == stencil.P1_OFFSETS
+    rng = np.random.default_rng(6)
+    noise = torch.from_numpy(rng.standard_normal(tuple(fields.shape)))
+    with pytest.raises(ValueError, match="distinct weight columns"):
+        stencil.compress_bs3(noise, dims)
+    with pytest.raises(ValueError, match="distinct weight columns"):
+        stencil.stencil_bs3_plan(noise, op.offsets, dims)
+    flipped = tuple((-dx, dy, dz) for dx, dy, dz in op.offsets)
+    with pytest.raises(ValueError, match="15 shifts"):
+        stencil.stencil_bs3_plan(fields, flipped, dims)
+    alternating = fields.clone()
+    alternating[:, 1::2] *= 2  # R = Z = 9: nine segments
+    assert fields.shape[1] == 9
+    with pytest.raises(ValueError, match="segments"):
+        stencil.compress_bs3(alternating, dims)
+    monkeypatch.setattr(stencil, "MAX_CLASSES_BS3", 27)
+    with pytest.raises(ValueError, match="over the table's 27"):
+        stencil.compress_bs3(fields, dims)
+
+
+def test_table_form_cuts_the_10m_grids_weight_loads():
+    """At 161x161x129 (the 10M-dof elasticity cell's grid) a kernel that
+    read the fields (blocks of 128 points, the zone rows' runs of
+    ``stencil_runs``) would load 135 weights a point a run: 990,225 tile
+    loads over its 7,335 blocks, 126,171,675 values; the table's 1,722
+    blocks of 512 points (the kernel with a thread a point) load at least
+    ten times fewer, and stage half as many values."""
+    cells = (128, 160, 160)
+    op = DiaOperator.build(BoxTetMesh(*cells), 1, "elasticity",
+                           bc_dofs=_bc(cells), dtype=torch.float32,
+                           device=CPU, planar=True)
+    dims = Z, Y, X = op.grid_dims
+    assert dims == (161, 161, 129)
+    field_runs = len(stencil.stencil_runs(dims, 7, 4, 3))
+    tiles = -(-(Y * X) // stencil._TILE3)
+    assert tiles * field_runs * 135 == 990225
+    n = stencil.stencil_bs3_counts(op.fields, op.offsets, dims)
+    assert n["blocks"] == 41 * 42 < tiles * field_runs
+    assert 10 * n["weight_loads"] <= 135 * Y * X * field_runs == 126171675
+    field_staged = tiles * 3 * 251 * (128 + 2 * (X + 1))
+    assert 2 * n["staged"] <= field_staged
 
 
 def test_convert_carries_tpufem_planar_operator():

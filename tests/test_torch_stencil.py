@@ -265,6 +265,24 @@ def test_stencil_launch_struct_mirrors_the_kernel():
     assert ctypes.sizeof(L) == 120
 
 
+def test_bs3_table_launch_struct_mirrors_the_kernel():
+    """_build.Bs3TableLaunch lays out csrc/stencil_p1.cu's Bs3TableLaunch:
+    two pointers, 9 ints, the Segments (n, z[9], first_run[9],
+    pattern[8]), then dx, dy, dz as 27 int8 each."""
+    import ctypes
+    from tpufem_torch import _build
+    from tpufem_torch.fem import stencil
+    L = _build.Bs3TableLaunch
+    assert [n for n, _ in L._fields_] == [
+        "table", "cls", "device", "Z", "Y", "X", "D", "C", "P", "run",
+        "per_point", "nseg", "seg_z", "seg_first_run", "seg_pattern", "dx",
+        "dy", "dz"]
+    assert (L.device.offset, L.nseg.offset, L.seg_z.offset) == (16, 52, 56)
+    assert (L.seg_first_run.offset, L.seg_pattern.offset) == (92, 128)
+    assert (L.dx.offset, L.dz.offset, ctypes.sizeof(L)) == (160, 214, 248)
+    assert len(L().seg_pattern) == stencil.MAX_SEGMENTS_BS3
+
+
 def test_dia_apply_on_the_cpu_takes_the_plain_version():
     op = DiaOperator.build(BoxTetMesh(6, 7, 9), 1, "poisson",
                            dtype=torch.float64, device=CPU)

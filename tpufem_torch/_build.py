@@ -31,6 +31,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class Bs3TableLaunch(ctypes.Structure):
+    """What a launch of the three-component stencil needs
+    beside x, y and the stream (csrc/stencil_p1.cu:Bs3TableLaunch): the
+    table of distinct weight columns, the class bytes, the dims, the run,
+    the segments of planes of one class pattern and the packed offsets,
+    filled once per operator (fem.stencil.prepare_stencil_bs3)."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("table", "cls")]
+                + [(k, ctypes.c_int)
+                   for k in ("device", "Z", "Y", "X", "D", "C", "P", "run",
+                             "per_point", "nseg")]
+                + [("seg_z", ctypes.c_int * 9),
+                   ("seg_first_run", ctypes.c_int * 9),
+                   ("seg_pattern", ctypes.c_int * 8)]
+                + [(k, ctypes.c_int8 * 27) for k in ("dx", "dy", "dz")])
+
+
 class BrickFlatLaunch(ctypes.Structure):
     """What a brick-AMG level's flat stencil launch needs beside x, y and
     the stream (csrc/brick_flat.cu:BrickFlatLaunch): the fields, the
@@ -168,9 +185,11 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("tpufem_stencil_p1_f32", "tpufem_stencil_p1_f64",
-                 "tpufem_stencil_p1_bs3_f32", "tpufem_stencil_p1_bs3_f64"):
+                 "tpufem_stencil_p1_bs3_table_f32",
+                 "tpufem_stencil_p1_bs3_table_f64"):
         fn = getattr(lib, name)
-        # StencilLaunch*, x, y, stream
+        # StencilLaunch* (Bs3TableLaunch* for the three-component form), x,
+        # y, stream
         fn.argtypes = [vp] * 4
         fn.restype = ci
     for suffix in ("f32", "f64"):
@@ -227,8 +246,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # through the barriers alone
     lib.tpufem_strip_cg_sync_floor.argtypes = [ci, ci, ci, vp]
     lib.tpufem_strip_cg_sync_floor.restype = ci
-    # shared memory of a block -> float32 three-component blocks resident
-    # on an SM, or -cuda error
+    # shared memory of a block -> float32 blocks of the three-component
+    # kernel with a thread a point resident on an SM, or -cuda error
     lib.tpufem_stencil_p1_bs3_blocks.argtypes = [ci]
     lib.tpufem_stencil_p1_bs3_blocks.restype = ci
     lib.tpufem_cuda_error_string.argtypes = [ci]

@@ -52,8 +52,9 @@ import torch
 
 from tpufem_torch.fem.dia_zones import (ZonePack, dia_zones_apply,
                                         pack_terms, prepare_dia_zones)
-from tpufem_torch.fem.stencil import (prepare_stencil, prepare_stencil_bs3,
-                                      stencil_apply, stencil_apply_bs3)
+from tpufem_torch.fem.stencil import (compress_bs3, prepare_stencil,
+                                      prepare_stencil_bs3, stencil_apply,
+                                      stencil_apply_bs3)
 from tpufem_torch.fem.structured_op import (GridLayout, StructuredOperator,
                                             dof_slice_plan, grid_layout,
                                             np_dtype, perm_element_matrices,
@@ -222,8 +223,15 @@ class DiaOperator:
                                         dtype, device)
             return self
         fields, offsets = self._stencil_fields_np()
-        self.fields = torch.from_numpy(np.ascontiguousarray(fields)).to(device)
+        host = torch.from_numpy(np.ascontiguousarray(fields))
+        self.fields = host.to(device)
         self.offsets = tuple(tuple(int(v) for v in d) for d in offsets)
+        if self.bs > 1 and self.fields.device.type == "cuda":
+            # the launch prepared in the build's time, its table compressed
+            # from the host's fields rather than a copy back from the card
+            self._stencil_table = compress_bs3(host, self.grid_dims,
+                                               self.fields.device)
+            self._stencil
         return self
 
     @classmethod
@@ -483,14 +491,17 @@ class DiaOperator:
     @functools.cached_property
     def _stencil(self):
         """The operator's prepared stencil launch (fields on a card);
-        bs = 3 counts each launch as ``stencil.bs3``."""
+        bs = 3 counts each launch as ``stencil.bs3`` and, read from its
+        table (prepared with the operator), ``stencil.bs3.table``."""
         if self.bs == 1:
             return prepare_stencil(self.fields, self.offsets, self.grid_dims)
-        launch = prepare_stencil_bs3(self.fields, self.offsets,
-                                     self.grid_dims)
+        launch = prepare_stencil_bs3(
+            self.fields, self.offsets, self.grid_dims,
+            table=self.__dict__.get("_stencil_table"))
 
         def counted(x: torch.Tensor) -> torch.Tensor:
             count("stencil.bs3")
+            count("stencil.bs3.table")
             return launch(x)
 
         return counted

@@ -24,25 +24,45 @@ one operator (fields, dims, offsets, the entry point) once and returns
 the launcher ``x -> y`` that fem.dia_op.DiaOperator keeps.
 
 The three-component form (``stencil_apply_bs3``, ``prepare_stencil_bs3``;
-the same source's ``tpufem_stencil_p1_bs3_*`` entry points) applies the
-planar bs = 3 elasticity operator in ONE launch: x and y are [3, Z, Y,
-X] component grids and F a [3 (output r), D, 3 (source s), R, Y, X]
-stack,
+the same source's ``tpufem_stencil_p1_bs3_table_*`` entry points)
+applies the planar bs = 3 elasticity operator in ONE launch: x and y are
+[3, Z, Y, X] component grids and F a [3 (output r), D, 3 (source s), R,
+Y, X] stack,
 
     y_r[z,y,x] = sum_d sum_s F[r, d, s, row(z), y, x] * x_s[z+dz_d, ...]
 
 in that order, which is the term order of tpufem's planar
 ``_apply_zones`` (tpufem/fem/dia_op.py:462-546, XLA there: tpufem has no
-Pallas kernel for it).  Its kernel (csrc/stencil_p1.cu's
-``stencil_p1_bs3_kernel``) gives a block 128 points of the flat plane x a
-z run x the three output components; ``stencil_bs3_walk`` walks that
-plan in plain PyTorch.
+Pallas kernel for it).  Its kernels (csrc/stencil_p1.cu) give a block a
+tile of the flat plane x a z run x the three output components;
+``stencil_bs3_walk`` walks that plan in plain PyTorch.
+
+The kernels do not read the fields.  The port's three-component
+operators have constant coefficients, and their 135 zone fields carry
+few distinct 135-weight columns (28 for P1 elasticity: 10 a zone row,
+and rows 1 to 5 alike), so ``prepare_stencil_bs3`` has ``compress_bs3``
+rewrite them exactly, once per operator, as a table of those columns and
+a class byte a point (``Bs3Table``), and the kernels read a point's
+weights from the table, which stays in L1.  On large grids
+(``stencil_bs3_plan``) a thread is a point and its three output
+components (``stencil_p1_bs3_table_kernel``), and the Kuhn stencil's
+shifts (``P1_OFFSETS``) are compiled in, so a neighbour value two shifts
+share is loaded once; where the blocks fit one wave of the card a thread
+is an output component (``stencil_p1_bs3_kernel``).  At 161x161x129 (the
+10M-dof elasticity grid) a kernel that read the fields loaded about 507
+MB of weights an apply, 6.3 times x and y, and took 0.2556 ms; the
+table's takes 0.094 ms against a bound of 0.0240 (x and y once, with
+the table and class bytes).  Fields with more distinct columns than
+``MAX_CLASSES_BS3`` or more segments of planes than ``MAX_SEGMENTS_BS3``
+(a variable coefficient), or other shifts, have no kernel: the wrapper
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence, Tuple
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +78,19 @@ _HALO = 3  # z-lo / z-hi zone planes
 # (kTile3, kRun3); 227 KB of shared memory a block (sm_90)
 _TILE, _RUN, _MAX_SMEM = 256, 8, 232448
 _TILE3, _RUN3 = 128, 4
+# the three-component table: its most distinct weight columns and
+# segments of planes of one class pattern (csrc/stencil_p1.cu's
+# kMaxSegments; kMaxClasses is the byte's 256, this cap keeps the table in
+# a few tens of KB of L1); the block of the kernel with a thread a point,
+# 512 points (kTileT); the SMs of an H100, where the plan is made without a
+# card; the shifts the kernels are built for, the Kuhn lattice's 15 in
+# ascending (dx, dy, dz) order
+MAX_CLASSES_BS3, MAX_SEGMENTS_BS3 = 64, 8
+_TILE3T, _H100_SMS = 512, 132
+P1_OFFSETS = ((-1, -1, -1), (-1, -1, 0), (-1, 0, -1), (-1, 0, 0),
+              (0, -1, -1), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
+              (0, 1, 0), (0, 1, 1), (1, 0, 0), (1, 0, 1), (1, 1, 0),
+              (1, 1, 1))
 
 
 def _check(x: torch.Tensor, fields: torch.Tensor,
@@ -147,44 +180,232 @@ def stencil_apply_bs3_plain(x: torch.Tensor, fields: torch.Tensor,
     return torch.cat(acc, dim=1).reshape(-1)
 
 
-def stencil_bs3_walk(x: torch.Tensor, fields: torch.Tensor,
+@dataclasses.dataclass(frozen=True)
+class Bs3Table:
+    """The three-component fields [3, D, 3, R, Y, X] rewritten exactly:
+    ``table`` [C, 3, D, 3], the C distinct 135-weight columns (the
+    fields' own bits); ``classes`` [P, Y, X] uint8, the column of each
+    point under each of the P distinct row patterns; ``segments``, the
+    planes in runs of one pattern, (first plane, end plane, pattern), in
+    z order.  Plane z of pattern q holds ``table[classes[q]]``."""
+
+    table: torch.Tensor
+    classes: torch.Tensor
+    segments: Tuple[Tuple[int, int, int], ...]
+
+
+def _field_rows(Z: int, R: int) -> List[int]:
+    """The field row of each plane: its own (R == Z), or its zone's."""
+    if R == Z:
+        return list(range(Z))
+    return [z if z < _HALO else (_HALO if z < Z - _HALO
+                                 else _HALO + 1 + z - (Z - _HALO))
+            for z in range(Z)]
+
+
+def compress_bs3(fields: torch.Tensor, dims: Tuple[int, int, int],
+                 device: Optional[torch.device] = None) -> Bs3Table:
+    """The fields' ``Bs3Table`` on ``device`` (None: the fields'; the
+    fields on the host spare a copy back from the card); raises ValueError
+    where they hold more than MAX_CLASSES_BS3 distinct columns or
+    MAX_SEGMENTS_BS3 segments (a variable coefficient, which no operator
+    of the port has).  On the host, in O(fields), by the columns' bits: a
+    point whose column is its predecessor's (in the flat (row, y, x)
+    order) bit for bit is of its class, so only the first point of each
+    run of equal columns (3,367 of the 145,383 points of the 10M cell's
+    grid) is sorted among the others; the R rows of classes are told
+    apart row against row.  (On the card a sort first loads its kernels:
+    0.24-0.29 s in a fresh process.)"""
+    Z, Y, X = dims
+    T, R = fields.shape[:2]
+    bits = fields.detach().cpu().view(
+        torch.int32 if fields.element_size() == 4 else torch.int64
+    ).reshape(T, R * Y * X).numpy()
+    head = np.ones(bits.shape[1], dtype=bool)
+    np.any(bits[:, 1:] != bits[:, :-1], axis=0, out=head[1:])
+    heads = np.ascontiguousarray(bits[:, head].T)  # [runs, T]
+    _, first, of_head = np.unique(
+        heads.view(np.dtype((np.void, T * heads.itemsize))).ravel(),
+        return_index=True, return_inverse=True)
+    if len(first) > MAX_CLASSES_BS3:
+        raise ValueError(f"the three-component fields hold {len(first)} "
+                         f"distinct weight columns, over the table's "
+                         f"{MAX_CLASSES_BS3}")
+    col = of_head.reshape(-1)[np.cumsum(head) - 1].reshape(R, Y * X)
+    firsts: List[int] = []  # the first row of each pattern
+    rows = []
+    for r in range(R):
+        q = next((i for i, f in enumerate(firsts)
+                  if np.array_equal(col[f], col[r])), len(firsts))
+        firsts += [r] if q == len(firsts) else []
+        rows.append(q)
+    segments: List[List[int]] = []
+    for z, row in enumerate(_field_rows(Z, R)):
+        if segments and segments[-1][2] == rows[row]:
+            segments[-1][1] = z + 1
+        else:
+            segments.append([z, z + 1, rows[row]])
+    if len(segments) > MAX_SEGMENTS_BS3:
+        raise ValueError(f"the three-component fields' planes make "
+                         f"{len(segments)} segments of one class pattern, "
+                         f"over the kernels' {MAX_SEGMENTS_BS3}")
+    device = fields.device if device is None else device
+    table = torch.from_numpy(heads[first]).view(fields.dtype)
+    return Bs3Table(
+        table=table.reshape(len(first), 3, T // 9, 3).to(device),
+        classes=torch.from_numpy(col[firsts].astype(np.uint8))
+        .reshape(-1, Y, X).to(device),
+        segments=tuple(tuple(g) for g in segments))
+
+
+def bs3_table_smem_bytes(run: int, X: int, itemsize: int) -> int:
+    """Shared memory of a block of the three-component kernel with a thread
+    a point, whose runs have at most ``run`` planes: run + 2 planes of the
+    three source components, _TILE3T points and X + 1 either side."""
+    return (run + 2) * 3 * (_TILE3T + 2 * (X + 1)) * itemsize
+
+
+def bs3_table_run(dims: Tuple[int, int, int], itemsize: int,
+                  per_point: bool) -> int:
+    """The kernels' longest run: _RUN3 planes, or fewer where their
+    stage would not fit a block's shared memory (0: not one plane), for
+    its kernel with a thread a point (``per_point``) or an output."""
+    X = dims[2]
+    run = _RUN3
+    while run and (bs3_table_smem_bytes(run, X, itemsize) if per_point
+                   else stencil_smem_bytes(run, X, itemsize, 3)) > _MAX_SMEM:
+        run -= 1
+    return run
+
+
+@dataclasses.dataclass(frozen=True)
+class Bs3Plan:
+    """How the three-component kernels cover a grid: the ``table``,
+    ``per_point`` (the kernel with a thread a point, else a thread an
+    output component), the points of a block (``tile``), the most planes
+    of a run (``run``), the z runs, (first plane, planes, the run's class
+    pattern), and a block's shared memory in bytes."""
+
+    table: Bs3Table
+    per_point: bool
+    tile: int
+    run: int
+    runs: List[Tuple[int, int, int]]
+    smem: int
+
+
+def _segment_runs(packed: Bs3Table, run: int) -> List[Tuple[int, int, int]]:
+    return [(z0, min(run, z1 - z0), q) for s0, z1, q in packed.segments
+            for z0 in range(s0, z1, run)]
+
+
+def stencil_bs3_plan(fields: torch.Tensor,
                      offsets: Sequence[Tuple[int, int, int]],
-                     dims: Tuple[int, int, int]
-                     ) -> Tuple[torch.Tensor, dict]:
-    """The three-component kernel's plan walked in plain PyTorch (the
-    product and the sum rounded apart where the kernel fuses them): per
-    block (tile of _TILE3 points of the flat plane, z run of
-    ``stencil_runs``), the run's planes and one either side of the three
-    source components staged once, [3, run + 2, _TILE3 + 2 (X + 1)],
-    zeros beyond the grid; then for each output component r and point its
-    sums over d ascending and s, one weight per (r, d, s) a run read from
-    the run's field row, zero where the neighbour lies past its row's or
-    the plane's end, applied to every plane of the run from the stage.
-    Returns (y, counts): ``y`` NaN where no block wrote, and the counts of
-    blocks, staged values, weight loads and the largest stage in bytes."""
+                     dims: Tuple[int, int, int],
+                     sms: Optional[int] = None,
+                     table: Optional[Bs3Table] = None) -> Bs3Plan:
+    """The three-component kernels' plan for ``fields`` on a card of
+    ``sms`` SMs (None: the fields' card's, or an H100's): the fields'
+    ``compress_bs3`` table (``table``, where the caller has it), its runs its segments' cut to
+    ``bs3_table_run``; the kernel with a thread an output component
+    (tiles of _TILE3) while those blocks fit one wave of the card, two an
+    SM (then each block's latency is the time, and a thread with a third
+    of a point's work is done sooner), else the kernel with a thread a
+    point (tiles of _TILE3T), which loads a plane's neighbours once for
+    the three components.  Raises ValueError for shifts other than
+    ``P1_OFFSETS``, fields ``compress_bs3`` refuses, or a grid so wide
+    that one plane's stage does not fit a block."""
+    Z, Y, X = dims
+    item = fields.element_size()
+    if tuple(map(tuple, offsets)) != P1_OFFSETS:
+        raise ValueError("the three-component kernels are built for the "
+                         "Kuhn lattice's 15 shifts (P1_OFFSETS)")
+    packed = compress_bs3(fields, dims) if table is None else table
+    if sms is None:
+        sms = (torch.cuda.get_device_properties(fields.device)
+               .multi_processor_count if fields.device.type == "cuda"
+               else _H100_SMS)
+    run = bs3_table_run(dims, item, False)
+    wide = bs3_table_run(dims, item, True)
+    if wide and (not run or -(-(Y * X) // _TILE3)
+                 * len(_segment_runs(packed, run)) > 2 * sms):
+        return Bs3Plan(packed, True, _TILE3T, wide,
+                       _segment_runs(packed, wide),
+                       bs3_table_smem_bytes(wide, X, item))
+    if not run:
+        raise ValueError(f"grid {Z}x{Y}x{X}: one plane of the three "
+                         f"components' stage does not fit a block's "
+                         f"shared memory")
+    return Bs3Plan(packed, False, _TILE3, run, _segment_runs(packed, run),
+                   stencil_smem_bytes(run, X, item, comps=3))
+
+
+def stencil_bs3_counts(fields: torch.Tensor,
+                       offsets: Sequence[Tuple[int, int, int]],
+                       dims: Tuple[int, int, int],
+                       sms: Optional[int] = None) -> dict:
+    """The counts ``stencil_bs3_walk`` makes, without the walk: the
+    blocks, the staged values, the weight values the blocks load (one a
+    class among the block's points and (r, d, s) term, which its warps
+    read as broadcasts of the one table) and a block's shared memory in
+    bytes."""
     Z, Y, X = dims
     PS, H = Y * X, X + 1
-    R = fields.shape[1]
-    D = len(offsets)
-    F3 = fields.reshape(3, D, 3, R, PS)
+    T = fields.shape[0]
+    plan = stencil_bs3_plan(fields, offsets, dims, sms)
+    tiles = -(-PS // plan.tile)
+    n = dict(blocks=tiles * len(plan.runs), smem=plan.smem,
+             staged=sum(tiles * 3 * (nz + 2) * (plan.tile + 2 * H)
+                        for _, nz, _ in plan.runs))
+    # the distinct classes in each tile, summed over a pattern's tiles
+    cls = F.pad(plan.table.classes.reshape(-1, PS).long() + 1,
+                (0, tiles * plan.tile - PS)).reshape(-1, tiles, plan.tile)
+    seen = torch.zeros(cls.shape[:2] + (MAX_CLASSES_BS3 + 1,),
+                       dtype=torch.bool, device=cls.device)
+    seen.scatter_(2, cls, True)
+    per_tile = seen[..., 1:].sum((1, 2)).tolist()
+    n["weight_loads"] = T * sum(per_tile[q] for _, _, q in plan.runs)
+    return n
+
+
+def stencil_bs3_walk(x: torch.Tensor, fields: torch.Tensor,
+                     offsets: Sequence[Tuple[int, int, int]],
+                     dims: Tuple[int, int, int], sms: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, dict]:
+    """The three-component kernels' plan (``stencil_bs3_plan`` on a card
+    of ``sms`` SMs) walked in plain PyTorch (the product and the sum
+    rounded apart where the kernel fuses them): per block (tile of the
+    plan's points of the flat plane, z run), the run's planes and one
+    either side of the three source components staged once, [3, run + 2,
+    tile + 2 (X + 1)], zeros beyond the grid; then for each output
+    component r and point its sums over d ascending and s, one weight per
+    (r, d, s) a run, read from the table's column of the point's class
+    under the run's pattern, zero where the neighbour lies past its row's
+    or the plane's end, applied to every plane of the run from the stage.
+    Returns (y, counts): ``y`` NaN where no block wrote, and the counts of
+    ``stencil_bs3_counts``, counted as the blocks go."""
+    Z, Y, X = dims
+    PS, H = Y * X, X + 1
+    plan = stencil_bs3_plan(fields, offsets, dims, sms)
+    packed, tile = plan.table, plan.tile
+    # [patterns, PS, 3, D, 3]
+    W = packed.table[packed.classes.reshape(-1, PS).long()]
     xg = x.reshape(3, Z * PS)
     y = torch.full_like(x, float("nan")).reshape(3, Z, PS)
     zero = torch.zeros((), dtype=x.dtype)
-    n = dict(blocks=0, staged=0, weight_loads=0, smem=0)
-    for z0, nz in stencil_runs(dims, R, x.element_size(), comps=3).tolist():
-        row = z0 if R == Z else (z0 if z0 < _HALO else (
-            _HALO if z0 < Z - _HALO else _HALO + 1 + z0 - (Z - _HALO)))
-        for p0 in range(0, PS, _TILE3):
+    n = dict(blocks=0, staged=0, weight_loads=0, smem=plan.smem)
+    for z0, nz, key in plan.runs:
+        for p0 in range(0, PS, tile):
             zz = torch.arange(z0 - 1, z0 + nz + 1)[:, None]
-            q = torch.arange(p0 - H, p0 + _TILE3 + H)[None, :]
+            q = torch.arange(p0 - H, p0 + tile + H)[None, :]
             ok = (zz >= 0) & (zz < Z) & (q >= 0) & (q < PS)
             stage = torch.where(ok, xg[:, (zz * PS + q).clamp(0, Z * PS - 1)],
-                                zero)  # [3, nz + 2, _TILE3 + 2 H]
+                                zero)  # [3, nz + 2, tile + 2 H]
             n["staged"] += stage.numel()
-            n["smem"] = max(n["smem"], stage.numel() * x.element_size())
-            p = torch.arange(p0, min(p0 + _TILE3, PS))
+            p = torch.arange(p0, min(p0 + tile, PS))
             iy, ix = p // X, p % X
             t = p - p0
+            loads = len(torch.unique(packed.classes.reshape(-1, PS)[key, p]))
             for r in range(3):
                 acc = torch.zeros((nz, len(p)), dtype=x.dtype)
                 for d, (dx, dy, dz) in enumerate(offsets):
@@ -192,8 +413,8 @@ def stencil_bs3_walk(x: torch.Tensor, fields: torch.Tensor,
                               & (ix + dx >= 0) & (ix + dx < X))
                     cols = H + t + dy * X + dx
                     for c in range(3):
-                        w = torch.where(inside, F3[r, d, c, row, p], zero)
-                        n["weight_loads"] += 1
+                        w = torch.where(inside, W[key, p, r, d, c], zero)
+                        n["weight_loads"] += loads
                         acc = acc + w * stage[c, 1 + dz: 1 + dz + nz][:, cols]
                 y[r, z0: z0 + nz, p] = acc
             n["blocks"] += 1
@@ -262,11 +483,59 @@ def prepare_stencil(fields: torch.Tensor,
 
 def prepare_stencil_bs3(fields: torch.Tensor,
                         offsets: Sequence[Tuple[int, int, int]],
-                        dims: Tuple[int, int, int]
+                        dims: Tuple[int, int, int], sms: Optional[int] = None,
+                        table: Optional[Bs3Table] = None
                         ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``prepare_stencil`` for the three-component form; counts its
-    launches in ``stencil_apply_bs3.launches``."""
-    return _prepare(fields, offsets, dims, 3, stencil_apply_bs3)
+    """``prepare_stencil`` for the three-component form: the fields'
+    table (``table``, where the caller has it) and the kernel
+    ``stencil_bs3_plan`` picks for a card of ``sms`` SMs (None: the
+    fields' card's; ValueError where it refuses them); the launcher's
+    ``table`` is the ``Bs3Table``.  Counts its launches in
+    ``stencil_apply_bs3.launches``."""
+    plan = stencil_bs3_plan(fields, offsets, dims, sms, table)
+    from tpufem_torch import _build
+    lib = _build.load().lib
+    Z, Y, X = dims
+    packed, segs = plan.table, plan.table.segments
+    n = 3 * Z * Y * X
+    fn = getattr(lib, "tpufem_stencil_p1_bs3_table_"
+                 + ("f32" if fields.dtype == torch.float32 else "f64"))
+    args = _build.Bs3TableLaunch(
+        table=packed.table.data_ptr(), cls=packed.classes.data_ptr(),
+        device=fields.device.index, Z=Z, Y=Y, X=X, D=len(offsets),
+        C=packed.table.shape[0], P=packed.classes.shape[0], run=plan.run,
+        per_point=int(plan.per_point), nseg=len(segs))
+    pad = MAX_SEGMENTS_BS3 - len(segs)
+    args.seg_z[:] = [s0 for s0, _, _ in segs] + [Z] + [0] * pad
+    args.seg_first_run[:] = np.cumsum(
+        [0] + [-(-(z1 - s0) // plan.run) for s0, z1, _ in segs]).tolist() \
+        + [0] * pad
+    args.seg_pattern[:] = [q for _, _, q in segs] + [0] * pad
+    for key, col in zip(("dx", "dy", "dz"), pack_offsets(offsets)):
+        getattr(args, key)[:] = col.tolist()
+    addr = ctypes.addressof(args)
+    what = (f"stencil_p1_bs3 ({packed.table.shape[0]} weight columns, a "
+            f"thread {'a point' if plan.per_point else 'an output'}) on "
+            f"grid {Z}x{Y}x{X}")
+    raw_stream = _build.raw_stream_getter()
+    dtype, device, index = fields.dtype, fields.device, fields.device.index
+
+    def launch(x: torch.Tensor) -> torch.Tensor:
+        if (x.dtype != dtype or x.device != device or x.shape != (n,)
+                or not x.is_contiguous()):
+            raise ValueError(f"{what}: x is {tuple(x.shape)} {x.dtype}@"
+                             f"{x.device}, expected a contiguous ({n},) "
+                             f"{dtype}@{device}")
+        y = torch.empty_like(x)
+        rc = fn(addr, x.data_ptr(), y.data_ptr(), raw_stream(index))
+        if rc != 0:
+            _build.raise_on(lib, rc, what)
+        stencil_apply_bs3.launches += 1
+        return y
+
+    launch.keep = (args, packed)  # what ``addr`` points into
+    launch.table = packed
+    return launch
 
 
 def _prepare(fields, offsets, dims, comps: int, counted):

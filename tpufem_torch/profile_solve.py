@@ -48,6 +48,7 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cudaLaunchCooperativeKernel")
 # the port's CUDA kernels, by the name of their device function
 PORT_KERNELS = ("stencil_p1_kernel", "stencil_p1_bs3_kernel",
+                "stencil_p1_bs3_table_kernel",
                 "strip_apply_kernel", "strip_cg_kernel",
                 "flat_interior_kernel", "brick_flat_kernel",
                 "dia_zones_kernel", "perm_apply_cube_kernel",
